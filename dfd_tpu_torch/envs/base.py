@@ -26,6 +26,8 @@ class TorchEnv(abc.ABC):
     n_actions: int | None = None
     #: natural episode length cap for this env (used as the rollout horizon)
     max_episode_steps: int = 1000
+    #: number of levels a reset draws from (1 for envs without levels)
+    num_levels: int = 1
     #: device the env's tensors live on
     device: torch.device
 
@@ -34,8 +36,11 @@ class TorchEnv(abc.ABC):
         return self.n_actions is not None
 
     @abc.abstractmethod
-    def reset(self, n: int) -> Tuple[EnvState, torch.Tensor]:
-        """Start ``n`` episodes; returns (state, first observations [n, *obs])."""
+    def reset(self, n: int, reset_level: torch.Tensor) -> Tuple[EnvState, torch.Tensor]:
+        """Start ``n`` episodes; returns (state, first observations [n, *obs]).
+
+        ``reset_level`` [n] int64 holds each episode's level draw in
+        ``[0, num_levels)``; envs without levels ignore it."""
 
     @abc.abstractmethod
     def step(self, state: EnvState, action: torch.Tensor) -> Tuple[EnvState, torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -56,7 +56,8 @@ class TrapEnv(TorchEnv):
         self.start_ix = (self.width * NODE_RADIUS // 2) // NODE_RADIUS
         self.start_iy = (self.height * NODE_RADIUS // 2) // NODE_RADIUS
 
-    def reset(self, n: int) -> Tuple[TrapState, torch.Tensor]:
+    def reset(self, n: int, reset_level: torch.Tensor | None = None) -> Tuple[TrapState, torch.Tensor]:
+        """``reset_level`` is ignored: the trap env has one start."""
         full = lambda v: torch.full((n,), v, dtype=torch.int64, device=self.device)
         state = TrapState(ix=full(self.start_ix), iy=full(self.start_iy), t=full(0))
         return state, self._obs(state)

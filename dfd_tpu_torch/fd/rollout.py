@@ -11,9 +11,15 @@ their only reader, so without it they are skipped, saving their launches on
 every step, and ``obs_stats`` stays empty; the JAX package computes them
 anyway and XLA drops the unread work.
 
+A recurrent policy (IMPALA's LSTM) gets the previous step's reward and its
+carry at every step; both are frozen once the episode is done, as in the JAX
+package.  The weight layouts a forward derives from the weights alone are
+computed once per rollout (``model.prepare``).
+
 The randomness is passed in as draws instead of keys: ``action_gumbel``
-[M, T, A] (the Gumbel noise of the categorical sample) and
-``stats_uniform`` [M, T] (the per-step coin of the sampled statistics).
+[M, T, A] (the Gumbel noise of the categorical sample), ``stats_uniform``
+[M, T] (the per-step coin of the sampled statistics) and ``reset_level``
+[M] (each episode's level, for envs with levels).
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ def episode_rollout(
     obs_stats_update_chance: float,
     action_gumbel: torch.Tensor,
     stats_uniform: torch.Tensor,
+    reset_level: torch.Tensor,
     collect_limit: int,
 ) -> RolloutResult:
     """One full episode for each of the M members of ``params``.
@@ -58,8 +65,11 @@ def episode_rollout(
     run_sequential.py:142-143)."""
     M = deterministic.shape[0]
     dev = deterministic.device
-    env_state, obs = env.reset(M)
+    params = model.prepare(params, bn_state)
+    env_state, obs = env.reset(M, reset_level)
     prev_done = torch.zeros(M, dtype=torch.bool, device=dev)
+    prev_reward = torch.zeros(M, dtype=torch.float32, device=dev)
+    carry = model.initial_carry(M)
     reward_acc = torch.zeros(M, dtype=torch.float32, device=dev)
     ent_acc = torch.zeros(M, dtype=torch.float32, device=dev)
     step_acc = torch.zeros(M, dtype=torch.int64, device=dev)
@@ -72,8 +82,9 @@ def episode_rollout(
         raw_obs = obs
         if normalize_obs:
             obs = torch.clamp((obs - obs_mean) / obs_std, -10, 10)
-        action, step_entropy = model.act_step(
-            params, bn_state, obs, deterministic, action_gumbel[:, t]
+        action, step_entropy, new_carry = model.act_step(
+            params, bn_state, obs, prev_reward, prev_done, carry, deterministic,
+            action_gumbel[:, t],
         )
         new_env_state, new_obs, reward, step_done = env.step(env_state, action)
 
@@ -88,15 +99,23 @@ def episode_rollout(
         ent_acc = ent_acc + af * step_entropy
         step_acc = step_acc + active.to(torch.int64)
 
-        # freeze the env once done (post-done transitions are discarded)
-        env_state = type(env_state)(
-            *(torch.where(prev_done, o, n) for n, o in zip(new_env_state, env_state))
-        )
+        # freeze the env and the model carry once done (post-done
+        # transitions are discarded)
+        env_state = type(env_state)(*_keep(prev_done, new_env_state, env_state))
+        carry = tuple(_keep(prev_done, new_carry, carry))
         # as in the JAX package, a done member carries the observation the
         # policy saw (normalized, when normalize_obs)
         obs = torch.where(prev_done.reshape(obs_bcast), obs, new_obs)
+        if model.recurrent:  # its only reader
+            prev_reward = torch.where(prev_done, prev_reward, reward.to(torch.float32))
         prev_done = prev_done | step_done
 
     entropy = ent_acc / torch.clamp_min(step_acc, 1).to(torch.float32)
     return RolloutResult(reward=reward_acc, entropy=entropy, steps=step_acc, obs_stats=stats,
                          states=state_buf)
+
+
+def _keep(done: torch.Tensor, new, old):
+    """Each of ``old`` where ``done`` [M] is set, else each of ``new``."""
+    return (torch.where(done.reshape(done.shape + (1,) * (o.ndim - 1)), o, n)
+            for n, o in zip(new, old))

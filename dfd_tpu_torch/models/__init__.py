@@ -1,4 +1,5 @@
 from dfd_tpu_torch.models.base import PolicyModel
 from dfd_tpu_torch.models.discrete import DiscreteMLP
+from dfd_tpu_torch.models.impala import ImpalaPolicy
 
-__all__ = ["PolicyModel", "DiscreteMLP"]
+__all__ = ["PolicyModel", "DiscreteMLP", "ImpalaPolicy"]

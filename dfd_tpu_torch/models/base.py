@@ -34,6 +34,8 @@ class PolicyModel(abc.ABC):
     output_shape: int
     #: True for categorical action spaces
     discrete: bool = True
+    #: True when the policy carries per-episode recurrent state (an LSTM)
+    recurrent: bool = False
     #: device the model's tensors live on
     device: torch.device
 
@@ -58,20 +60,33 @@ class PolicyModel(abc.ABC):
     def strategy(self, params: Params, state: State, zeta: torch.Tensor) -> torch.Tensor:
         """Behavior signature over the state set zeta, per member [M, Z, F]."""
 
-    def act_step(self, params: Params, state: State, obs: torch.Tensor,
-                 deterministic: torch.Tensor, gumbel: torch.Tensor):
-        """One acting step for every member: (action [M], entropy [M]).
+    def initial_carry(self, M: int):
+        """Per-episode recurrent carry of M members; () for feed-forward models."""
+        return ()
 
-        ``obs`` [M, *obs]; ``deterministic`` [M] bool picks the argmax;
+    def prepare(self, params: Params, state: State) -> Params:
+        """``params`` with whatever a forward derives from the weights alone
+        computed once, for a run of forwards on the same population (a
+        rollout); forwards take either.  Identity unless a model overrides it."""
+        return params
+
+    def act_step(self, params: Params, state: State, obs: torch.Tensor,
+                 prev_reward: torch.Tensor, prev_done: torch.Tensor, carry,
+                 deterministic: torch.Tensor, gumbel: torch.Tensor):
+        """One acting step for every member: (action [M], entropy [M], carry).
+
+        ``obs`` [M, *obs]; ``prev_reward`` [M] the reward of the previous
+        step and ``prev_done`` [M] whether the episode is over (read by
+        recurrent models only); ``deterministic`` [M] bool picks the argmax;
         otherwise the action is ``argmax(log(max(p, 1e-38)) + gumbel)``,
         which is how ``jax.random.categorical`` samples, so feeding JAX's
-        Gumbel draws reproduces its actions."""
+        Gumbel draws reproduces its actions.  This default serves
+        feed-forward models and returns ``carry`` as it came."""
         if not self.discrete:
             raise NotImplementedError("continuous policies come with GaussianMLP")
         probs = self.apply(params, state, obs.unsqueeze(1))[:, 0]
-        greedy = probs.argmax(dim=-1)
-        sampled = (torch.log(torch.clamp_min(probs, 1e-38)) + gumbel).argmax(dim=-1)
-        return torch.where(deterministic, greedy, sampled), layers.categorical_entropy(probs)
+        action, entropy = sample_action(probs, deterministic, gumbel)
+        return action, entropy, carry
 
     def get_flat(self, params: Params) -> torch.Tensor:
         return flatten(params, self.param_spec)
@@ -79,3 +94,11 @@ class PolicyModel(abc.ABC):
     def set_flat(self, vec: torch.Tensor) -> Params:
         """Params viewing ``vec``: [d] gives unbatched leaves, [M, d] a population."""
         return unflatten(vec, self.param_spec)
+
+
+def sample_action(probs: torch.Tensor, deterministic: torch.Tensor, gumbel: torch.Tensor):
+    """(action [M], entropy [M]) from probs [M, A]: the argmax where
+    ``deterministic``, else the Gumbel-max sample of ``jax.random.categorical``."""
+    greedy = probs.argmax(dim=-1)
+    sampled = (torch.log(torch.clamp_min(probs, 1e-38)) + gumbel).argmax(dim=-1)
+    return torch.where(deterministic, greedy, sampled), layers.categorical_entropy(probs)

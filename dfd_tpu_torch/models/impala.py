@@ -1,0 +1,344 @@
+"""IMPALA ResNet + LSTM policy over a population of weights.
+
+The port of ``dfd_tpu.models.impala.ImpalaPolicy`` (see its module docstring
+for the reference architecture and the quirks it keeps): per frame, x/255
+-> three stages of [BatchNorm -> Conv3x3 -> MaxPool3x3/2] and two residual
+blocks [BN -> ReLU -> Conv3x3 -> BN -> ReLU -> Conv3x3] with skips -> ReLU
+-> flatten -> [BN -> Linear(hidden)] -> ReLU -> concat(clipped previous
+reward) -> LSTM(hidden) -> [BN -> Linear(n_actions)] -> softmax.
+
+Every leaf of ``params`` carries the population axis ``[M]``, frames are
+``[M, N, C, H, W]`` (or ``[N, C, H, W]`` shared by the members), and the
+BatchNorm statistics in ``state`` are shared.  The layer order, the flat
+views and the numpy init draws are the JAX model's, so ``get_flat`` of the
+port's init equals JAX's.
+
+``conv_impl`` picks the same routes through the torso as the JAX model, by
+the same shape gates (decided once here, from the frame shape):
+
+- ``"patches"``: every conv as im2col (``F.unfold``) and one batched product
+  per member;
+- ``"fused"``: a stage's residual pair through the ``fused_res_stage``
+  kernel where ``fused_supported(H, W)``;
+- ``"fused_feat"``: also the feature block through the ``fused_feat_pool``
+  kernel where ``fused_supported(H, W)``, H and W are even and the input
+  channels are a multiple of 8 (the 3-channel first stage stays on patches).
+
+The kernels' weight layouts (the tap-order reorder and the BN fold, per
+member) depend on the weights alone; :meth:`ImpalaPolicy.prepare` computes
+them once for a rollout instead of once per step.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from dfd_tpu_torch.core.device import resolve_device
+from dfd_tpu_torch.core.flat import FlatSpec
+from dfd_tpu_torch.models import layers
+from dfd_tpu_torch.models.atari import batchnorm2d_eval
+from dfd_tpu_torch.models.base import Params, PolicyModel, State, sample_action
+from dfd_tpu_torch.ops import fused_resblock
+
+CHANNELS = (16, 32, 32)
+HIDDEN = 256
+CONV_IMPLS = ("patches", "fused", "fused_feat")
+_UNPORTED_CONV_IMPLS = ("lax", "split", "nhwc")
+_PREPARED = "_fused"  # the key under which prepare() keeps the kernels' layouts
+
+
+def conv3x3_patches(p, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+    """3x3 "same" conv as im2col + one batched product per member.
+
+    x [M, N, ci, H, W], w [M, co, ci, 3, 3], b [M, co] -> [M, N, co, H, W].
+    The patches are the 3x3 windows of the zero-padded input, a strided view
+    copied once into [M, 9ci, N*H*W] with the channels ordered (ci, kh, kw),
+    as JAX's ``conv_general_dilated_patches`` orders them, so
+    ``w.reshape(co, 9ci)`` fits.  (``F.unfold`` computes the same patches,
+    but on the card it launches one im2col kernel per image: 129 a conv at
+    the flagship's rollout shapes.)"""
+    w = p["w"]
+    M, co, ci = w.shape[:3]
+    N, H, W = x.shape[1], x.shape[3], x.shape[4]
+    win = F.pad(x, (1, 1, 1, 1)).unfold(3, 3, 1).unfold(4, 3, 1)      # [M, N, ci, H, W, 3, 3]
+    pat = win.permute(0, 2, 5, 6, 1, 3, 4).reshape(M, 9 * ci, N * H * W)
+    wk = w.reshape(M, co, 9 * ci)
+    if compute_dtype is not None:
+        pat = pat.to(compute_dtype).to(torch.float32)
+        wk = wk.to(compute_dtype).to(torch.float32)
+    y = torch.bmm(wk, pat).reshape(M, co, N, H, W).transpose(1, 2)
+    return y + p["b"][:, None, :, None, None]
+
+
+def maxpool3x3s2(x: torch.Tensor) -> torch.Tensor:
+    """3x3 max, stride 2, padding 1 (-inf, as ``reduce_window``) over
+    [M, N, C, H, W]."""
+    M, N = x.shape[:2]
+    y = F.max_pool2d(x.reshape(M * N, *x.shape[2:]), 3, stride=2, padding=1)
+    return y.reshape(M, N, *y.shape[1:])
+
+
+class _Stage(NamedTuple):
+    feat_fused: bool  # the feature block through fused_feat_pool
+    res_fused: bool   # the residual pair through fused_res_stage
+
+
+class ImpalaPolicy(PolicyModel):
+    discrete = True
+    recurrent = True
+
+    def __init__(
+        self,
+        frame_shape: Tuple[int, int, int],
+        n_actions: int,
+        use_lstm: bool = True,
+        compute_dtype=None,
+        conv_impl: str = "patches",
+        channels=CHANNELS,
+        hidden: int = HIDDEN,
+        device=None,
+    ):
+        """``frame_shape``: (C, H, W) of one frame.  ``compute_dtype``: None
+        or ``torch.bfloat16`` (conv and fc operands rounded to bf16, products
+        accumulated in float32; the LSTM and the head stay float32)."""
+        if conv_impl in _UNPORTED_CONV_IMPLS:
+            raise NotImplementedError(
+                f"conv_impl={conv_impl!r} is not ported yet (ROADMAP.md, Queue 1: "
+                "the lax/split/nhwc conv lowerings)")
+        if conv_impl not in CONV_IMPLS:
+            raise ValueError(f"conv_impl must be one of {CONV_IMPLS}, got {conv_impl!r}")
+        if compute_dtype not in (None, torch.bfloat16):
+            raise ValueError(f"compute_dtype must be None or torch.bfloat16, got {compute_dtype}")
+        self.device = resolve_device(device)
+        c, h, w = (int(v) for v in frame_shape)
+        self.channels = tuple(int(x) for x in channels)
+        self.hidden = int(hidden)
+        self.compute_dtype = compute_dtype
+        self.conv_impl = conv_impl
+        self.input_shape = (c, h, w)
+        self.output_shape = int(n_actions)
+        self.use_lstm = use_lstm
+
+        # the JAX model's shape gates, stage by stage
+        self._stages = []
+        in_ch, hh, ww = c, h, w
+        for ch in self.channels:
+            feat = (conv_impl == "fused_feat" and fused_resblock.fused_supported(hh, ww)
+                    and hh % 2 == 0 and ww % 2 == 0 and in_ch % 8 == 0)
+            hh, ww = (hh + 1) // 2, (ww + 1) // 2  # maxpool 3x3 s2 p1
+            res = conv_impl in ("fused", "fused_feat") and fused_resblock.fused_supported(hh, ww)
+            self._stages.append(_Stage(feat, res))
+            in_ch = ch
+        self.flat_features = self.channels[-1] * hh * ww
+
+        f32 = np.float32
+        A = self.output_shape
+        core_in = self.hidden + 1  # fc output + clipped reward
+        core_out = self.hidden if use_lstm else core_in
+
+        # (name, kind, shape-info) in torch registration order
+        self._layers = []
+        in_ch = c
+        for k, ch in enumerate(self.channels):
+            self._layers += [
+                (f"feat{k}_bn", "bn", in_ch),
+                (f"feat{k}_conv", "conv", (ch, in_ch, 3, 3)),
+            ]
+            in_ch = ch
+        for r in (1, 2):
+            for k, ch in enumerate(self.channels):
+                self._layers += [
+                    (f"res{r}_{k}_bn1", "bn", ch),
+                    (f"res{r}_{k}_conv1", "conv", (ch, ch, 3, 3)),
+                    (f"res{r}_{k}_bn2", "bn", ch),
+                    (f"res{r}_{k}_conv2", "conv", (ch, ch, 3, 3)),
+                ]
+        self._layers += [
+            ("fc_bn", "bn", self.flat_features),
+            ("fc", "linear", (self.hidden, self.flat_features)),
+        ]
+        if use_lstm:
+            self._layers += [("lstm", "lstm", (core_in, self.hidden))]
+        self._layers += [
+            ("policy_bn", "bn", core_out),
+            ("policy", "linear", (A, core_out)),
+        ]
+
+        param_entries, state_entries = [], []
+        for name, kind, info in self._layers:
+            if kind == "bn":
+                param_entries += [((name, "w"), (info,), f32), ((name, "b"), (info,), f32)]
+                state_entries += [
+                    ((name, "w"), (info,), f32),
+                    ((name, "b"), (info,), f32),
+                    ((name, "mean"), (info,), f32),
+                    ((name, "var"), (info,), f32),
+                    ((name, "n"), (), f32),
+                ]
+            elif kind in ("conv", "linear"):
+                out_dim = info[0]
+                param_entries += [((name, "w"), info, f32), ((name, "b"), (out_dim,), f32)]
+                state_entries += [((name, "w"), info, f32), ((name, "b"), (out_dim,), f32)]
+            elif kind == "lstm":
+                ci, hdim = info
+                shapes = [
+                    (("lstm", "w_ih"), (4 * hdim, ci), f32),
+                    (("lstm", "w_hh"), (4 * hdim, hdim), f32),
+                    (("lstm", "b_ih"), (4 * hdim,), f32),
+                    (("lstm", "b_hh"), (4 * hdim,), f32),
+                ]
+                param_entries += shapes
+                state_entries += shapes
+        self.param_spec = FlatSpec.make(param_entries)
+        self.state_spec = FlatSpec.make(state_entries)
+
+    # -- init: torch defaults, the JAX model's numpy draws -------------------------
+
+    def init(self, seed: int) -> Tuple[Params, State]:
+        rng = np.random.RandomState(seed)
+        params: Params = {}
+        state: State = {}
+        for name, kind, info in self._layers:
+            if kind == "bn":
+                params[name] = {"w": np.ones(info, np.float32), "b": np.zeros(info, np.float32)}
+                state[name] = {
+                    "mean": np.zeros(info, np.float32),
+                    "var": np.ones(info, np.float32),
+                    "n": np.zeros((), np.float32),
+                }
+            elif kind in ("conv", "linear"):
+                fan_in = int(np.prod(info[1:]))
+                bound = 1.0 / np.sqrt(fan_in)
+                params[name] = {
+                    "w": rng.uniform(-bound, bound, info).astype(np.float32),
+                    "b": rng.uniform(-bound, bound, info[0]).astype(np.float32),
+                }
+            elif kind == "lstm":
+                ci, hdim = info
+                k = 1.0 / np.sqrt(hdim)
+                params["lstm"] = {
+                    "w_ih": rng.uniform(-k, k, (4 * hdim, ci)).astype(np.float32),
+                    "w_hh": rng.uniform(-k, k, (4 * hdim, hdim)).astype(np.float32),
+                    "b_ih": rng.uniform(-k, k, 4 * hdim).astype(np.float32),
+                    "b_hh": rng.uniform(-k, k, 4 * hdim).astype(np.float32),
+                }
+        to = lambda tree: {k: {n: torch.as_tensor(v, device=self.device) for n, v in d.items()}
+                           for k, d in tree.items()}
+        return to(params), to(state)
+
+    # -- forward pieces ----------------------------------------------------------------
+
+    def prepare(self, params: Params, state: State) -> Params:
+        """``params`` plus the fused kernels' weight layouts (per member:
+        the tap-order reorder and the BN fold), computed once."""
+        fused = {}
+        for k, stage in enumerate(self._stages):
+            if stage.feat_fused:
+                fused[("feat", k)] = fused_resblock.feat_weights(params, state, k, layers.BN_EPS)
+            if stage.res_fused:
+                fused[("res", k)] = fused_resblock.stage_weights(params, state, k, layers.BN_EPS)
+        return dict(params, **{_PREPARED: fused})
+
+    def _torso(self, params, state, frames: torch.Tensor) -> torch.Tensor:
+        """frames [M, N, C, H, W] (raw pixels) -> features [M, N, hidden]."""
+        if _PREPARED not in params:
+            params = self.prepare(params, state)
+        fused = params[_PREPARED]
+        cd = self.compute_dtype
+        x = frames.to(torch.float32) / 255.0
+        for k, stage in enumerate(self._stages):
+            if stage.feat_fused:
+                x = fused_resblock.fused_feat_pool(x, *fused[("feat", k)], compute_dtype=cd)
+            else:
+                x = batchnorm2d_eval(params[f"feat{k}_bn"], state[f"feat{k}_bn"], x)
+                x = conv3x3_patches(params[f"feat{k}_conv"], x, cd)
+                x = maxpool3x3s2(x)
+            if stage.res_fused:
+                x = fused_resblock.fused_res_stage(x, *fused[("res", k)], compute_dtype=cd)
+                continue
+            for r in (1, 2):
+                res = x
+                y = batchnorm2d_eval(params[f"res{r}_{k}_bn1"], state[f"res{r}_{k}_bn1"], x)
+                y = torch.relu(y)
+                y = conv3x3_patches(params[f"res{r}_{k}_conv1"], y, cd)
+                y = batchnorm2d_eval(params[f"res{r}_{k}_bn2"], state[f"res{r}_{k}_bn2"], y)
+                y = torch.relu(y)
+                y = conv3x3_patches(params[f"res{r}_{k}_conv2"], y, cd)
+                x = y + res
+        x = torch.relu(x)
+        x = x.reshape(x.shape[0], x.shape[1], -1)
+        x = layers.batchnorm_eval(params["fc_bn"], state["fc_bn"], x)
+        x = layers.linear(params["fc"], x, compute_dtype=cd)
+        return torch.relu(x)
+
+    def _head(self, params, state, core_output: torch.Tensor) -> torch.Tensor:
+        x = layers.batchnorm_eval(params["policy_bn"], state["policy_bn"], core_output)
+        return layers.softmax(layers.linear(params["policy"], x))
+
+    def _members(self, params) -> int:
+        return params["fc"]["w"].shape[0]
+
+    def initial_carry(self, M: int):
+        if not self.use_lstm:
+            return ()
+        zero = lambda: torch.zeros((M, self.hidden), dtype=torch.float32, device=self.device)
+        return (zero(), zero())
+
+    def _core(self, params, feats: torch.Tensor, rewards: torch.Tensor, carry):
+        """LSTM over the time axis of feats [M, T, hidden] with the clipped
+        rewards [M, T] appended; carry (h, c) [M, hidden].  Returns
+        (core outputs [M, T, *], carry)."""
+        clipped = torch.clamp(rewards, -1.0, 1.0).to(torch.float32)
+        core_in = torch.cat([feats, clipped[..., None]], dim=-1)
+        if not self.use_lstm:
+            return core_in, carry
+        h, c = (v[:, None] for v in carry)
+        hs = []
+        for t in range(core_in.shape[1]):
+            out, (h, c) = layers.lstm_step(params["lstm"], core_in[:, t:t + 1], (h, c))
+            hs.append(out)
+        return torch.cat(hs, dim=1), (h[:, 0], c[:, 0])
+
+    def act_step(self, params, state, obs, prev_reward, prev_done, carry, deterministic, gumbel):
+        """One step of every member: obs [M, C, H, W], prev_reward [M] (the
+        LSTM reads it clipped), carry (h, c) [M, hidden]; ``prev_done`` is
+        not read (a done episode's carry is frozen by the rollout)."""
+        feat = self._torso(params, state, obs.unsqueeze(1))
+        core_out, carry = self._core(params, feat, prev_reward[:, None], carry)
+        probs = self._head(params, state, core_out)[:, 0]
+        action, entropy = sample_action(probs, deterministic, gumbel)
+        return action, entropy, carry
+
+    def apply_seq(self, params, state, frames: torch.Tensor, rewards: torch.Tensor) -> torch.Tensor:
+        """Whole-sequence probs [M, T, A]: the torso batched over T, the LSTM
+        stepped over it from a zero carry.  frames [M, T, C, H, W], rewards
+        [M, T]."""
+        feats = self._torso(params, state, frames)
+        core_out, _ = self._core(params, feats, rewards, self.initial_carry(feats.shape[0]))
+        return self._head(params, state, core_out)
+
+    def apply(self, params, state, x: torch.Tensor) -> torch.Tensor:
+        """A batch of frames read as a time sequence with zero rewards (the
+        shape the strategy and entropy paths need): x [C, H, W], [N, C, H, W]
+        shared by the members, or [M, N, C, H, W] -> probs [M, N, A]."""
+        M = self._members(params)
+        frames = x.to(torch.float32)
+        if frames.ndim == 3:
+            frames = frames[None]
+        if frames.ndim == 4:
+            frames = frames.expand(M, *frames.shape)
+        rewards = torch.zeros(frames.shape[:2], dtype=torch.float32, device=frames.device)
+        return self.apply_seq(params, state, frames, rewards)
+
+    def entropy(self, params, state, xs) -> torch.Tensor:
+        return layers.categorical_entropy(self.apply(params, state, xs)).mean(dim=-1)
+
+    def strategy(self, params, state, zeta) -> torch.Tensor:
+        return self.apply(params, state, zeta)
+
+    def vbn(self, *args, **kwargs):
+        raise NotImplementedError("IMPALA's VBN refresh is not ported yet (ROADMAP.md, Queue 1: VBN)")

@@ -4,6 +4,7 @@ from dfd_tpu_torch.ops.distances import (
     categorical_tvd,
     l2_dist,
 )
+from dfd_tpu_torch.ops.fused_resblock import fused_feat_pool, fused_res_stage
 from dfd_tpu_torch.ops.standardize import affine_transform, standardize
 
 __all__ = [
@@ -11,6 +12,8 @@ __all__ = [
     "l2_dist",
     "categorical_tvd",
     "categorical_bhattacharyya",
+    "fused_res_stage",
+    "fused_feat_pool",
     "standardize",
     "affine_transform",
 ]

@@ -42,24 +42,41 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its current library exists; returns
-    the library's path.  The compiler writes a file of this process's own and
+def build(*names: str) -> list:
+    """Compile each ``csrc/<name>.cu`` whose current library does not exist,
+    one ``nvcc`` process per source, all started together; returns the
+    libraries' paths.  Each compiler writes a file of this process's own and
     renames it into place, so concurrent builds never see half a library."""
-    path = library_path(name)
-    if not path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                              check=False)
+    jobs = []
+    for name in names:
+        path = library_path(name)
+        if not path.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)
+            jobs.append((name, path, tmp, proc))
+    failed = []
+    for name, path, tmp, proc in jobs:
+        log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
-        os.replace(tmp, path)
-    return path
+            failed.append(f"nvcc failed for {name}.cu:\n{log}")
+        else:
+            os.replace(tmp, path)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return [library_path(name) for name in names]
 
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The built library ``name``, compiled first if needed (once per process)."""
-    return ctypes.CDLL(str(build(name)))
+    return ctypes.CDLL(str(build(name)[0]))
+
+
+def raise_on(err: int, what: str) -> None:
+    """Raise unless ``err``, the ``cudaGetLastError()`` a C entry point
+    returns right after its launch, is 0."""
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed with CUDA error {err}")

@@ -117,11 +117,6 @@ def _check_cuda(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name} must be a contiguous 1-D float32 tensor")
 
 
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed with CUDA error {err}")
-
-
 def perturb(flat: torch.Tensor, sigma: float, base_seed: int, epoch: int, P: int,
             antithetic: bool = False) -> torch.Tensor:
     """theta_i = theta + sigma * eps_i for P members -> [P, d], with eps
@@ -133,7 +128,7 @@ def perturb(flat: torch.Tensor, sigma: float, base_seed: int, epoch: int, P: int
     out = torch.empty((P, d), dtype=torch.float32, device=flat.device)
     with torch.cuda.device(flat.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _raise_on(_kernels().dfd_perturb(
+        build.raise_on(_kernels().dfd_perturb(
             flat.data_ptr(), out.data_ptr(), P, d, float(sigma),
             int(base_seed) & _MASK, int(epoch) & _MASK, int(antithetic), stream,
         ), "perturb")
@@ -162,7 +157,7 @@ def combine(coefs: torch.Tensor, base_seed: int, epoch: int, d: int,
     g = torch.empty((d,), dtype=torch.float32, device=coefs.device)
     with torch.cuda.device(coefs.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _raise_on(_kernels().dfd_combine(
+        build.raise_on(_kernels().dfd_combine(
             coefs.data_ptr(), g.data_ptr(), coefs.shape[0], d,
             int(base_seed) & _MASK, int(epoch) & _MASK, int(antithetic), stream,
         ), "combine")

@@ -66,9 +66,11 @@ class EpochDraws(NamedTuple):
     stats_uniform: torch.Tensor  # [M, T] coin of the sampled observation statistics
     tie_signs: torch.Tensor      # [P] +-1 fitness of an all-equal batch
     zeta_perm: torch.Tensor      # [Z] zeta slots the eval states replace
+    reset_level: torch.Tensor    # [M] int64 level of each episode, in [0, num_levels)
 
 
-def make_draws(generator: torch.Generator, P: int, T: int, A: int, Z: int) -> EpochDraws:
+def make_draws(generator: torch.Generator, P: int, T: int, A: int, Z: int,
+               num_levels: int = 1) -> EpochDraws:
     """One epoch's draws from ``generator``, on its device."""
     dev = generator.device
     u = torch.rand((P + 1, T, A), generator=generator, device=dev)
@@ -77,7 +79,8 @@ def make_draws(generator: torch.Generator, P: int, T: int, A: int, Z: int) -> Ep
     bits = torch.randint(0, 2, (P,), generator=generator, device=dev)
     tie_signs = (2 * bits - 1).to(torch.float32)
     zeta_perm = torch.randperm(Z, generator=generator, device=dev)
-    return EpochDraws(gumbel, stats_uniform, tie_signs, zeta_perm)
+    reset_level = torch.randint(0, num_levels, (P + 1,), generator=generator, device=dev)
+    return EpochDraws(gumbel, stats_uniform, tie_signs, zeta_perm, reset_level)
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -287,6 +290,7 @@ class VectorizedTrainer:
             obs_stats_update_chance=cfg.obs_stats_update_chance,
             action_gumbel=draws.action_gumbel,
             stats_uniform=draws.stats_uniform,
+            reset_level=draws.reset_level,
             collect_limit=Z,
         )
         # 3. novelty of every member (and the eval member) vs the archive
@@ -364,12 +368,12 @@ class VectorizedTrainer:
 
     def _own_draws(self, epoch: int) -> EpochDraws:
         return make_draws(self.generator, self.P, self.horizon, self.env.n_actions,
-                          self.state.zeta.shape[0])
+                          self.state.zeta.shape[0], self.env.num_levels)
 
     def _checked_draws(self, epoch: int, Z: int) -> EpochDraws:
         draws = EpochDraws(*(x.to(self.device) for x in self.draw_source(epoch)))
         M, T, A = self.P + 1, self.horizon, self.env.n_actions
-        expect = ((M, T, A), (M, T), (self.P,), (Z,))
+        expect = ((M, T, A), (M, T), (self.P,), (Z,), (M,))
         got = tuple(tuple(x.shape) for x in draws)
         if got != expect:
             raise ValueError(f"draw_source gave shapes {got}, expected {expect}")
@@ -417,12 +421,14 @@ class VectorizedTrainer:
         env = self.env
         actions = torch.randint(0, env.n_actions, (n,), generator=self.generator,
                                 device=self.device)
-        env_state, obs = env.reset(1)
+        levels = torch.randint(0, env.num_levels, (n + 1,), generator=self.generator,
+                               device=self.device)  # one level draw per reset
+        env_state, obs = env.reset(1, levels[:1])
         buf = []
         for k in range(n):
             buf.append(obs[0])
             new_state, new_obs, _, done = env.step(env_state, actions[k:k + 1])
-            reset_state, reset_obs = env.reset(1)
+            reset_state, reset_obs = env.reset(1, levels[k + 1:k + 2])
             env_state = type(new_state)(
                 *(torch.where(done, r, s) for r, s in zip(reset_state, new_state))
             )

@@ -8,8 +8,10 @@ rebuild one epoch's draws from the JAX trainer's own key chain with
 - ``split(state.key, 6)`` gives (next key, eps, roll, eval, tie, zeta)
   (``dfd_tpu/runners/vectorized.py:277``);
 - member i rolls out under ``fold_in(roll, i)``, the eval slot under ``eval``;
-- each episode key splits into (reset, act, stats) (``fd/rollout.py:62``),
-  and step t draws from ``fold_in(act, t)`` and ``fold_in(stats, t)``;
+- each episode key splits into (reset, act, stats) (``fd/rollout.py:62``):
+  the env's reset draws its level as ``randint(reset, (), 0, num_levels)``
+  (``envs/procmaze.py:117``; envs without levels ignore the key), and step
+  t draws from ``fold_in(act, t)`` and ``fold_in(stats, t)``;
 - ``jax.random.categorical(k, logits)`` is ``argmax(gumbel(k, (A,)) +
   logits)``, so the Gumbel draw reproduces JAX's sampled action.
 """
@@ -26,27 +28,28 @@ import torch
 torch.set_num_threads(1)  # the suite runs under xdist: one thread per worker
 
 
-def episode_draws(keys, T: int, A: int):
-    """(gumbel [M, T, A], stats uniform [M, T]) of the episodes keyed by ``keys``."""
+def episode_draws(keys, T: int, A: int, num_levels: int = 1):
+    """(gumbel [M, T, A], stats uniform [M, T], reset level [M]) of the
+    episodes keyed by ``keys``."""
 
     def one(k):
-        _reset, act, stats = jax.random.split(k, 3)
+        reset, act, stats = jax.random.split(k, 3)
         ts = jnp.arange(T)
         g = jax.vmap(lambda t: jax.random.gumbel(jax.random.fold_in(act, t), (A,), jnp.float32))(ts)
         u = jax.vmap(lambda t: jax.random.uniform(jax.random.fold_in(stats, t)))(ts)
-        return g, u
+        return g, u, jax.random.randint(reset, (), 0, num_levels)
 
     return jax.vmap(one)(keys)
 
 
-@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4))
-def _epoch_draws(key, P: int, T: int, A: int, Z: int):
+@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4, 5))
+def _epoch_draws(key, P: int, T: int, A: int, Z: int, num_levels: int):
     key, _eps, roll_key, eval_key, tie_key, zeta_key = jax.random.split(key, 6)
     member_keys = jax.vmap(lambda i: jax.random.fold_in(roll_key, i))(jnp.arange(P))
-    g, u = episode_draws(jnp.concatenate([member_keys, eval_key[None]]), T, A)
+    g, u, level = episode_draws(jnp.concatenate([member_keys, eval_key[None]]), T, A, num_levels)
     tie = jax.random.rademacher(tie_key, (P,), jnp.float32)
     perm = jax.random.permutation(zeta_key, Z)
-    return g, u, tie, perm
+    return g, u, tie, perm, level
 
 
 def jax_epoch_draws(jax_trainer):
@@ -54,8 +57,8 @@ def jax_epoch_draws(jax_trainer):
     from dfd_tpu_torch.runners import EpochDraws
 
     st = jax_trainer.state
-    out = _epoch_draws(st.key, jax_trainer.P, jax_trainer.horizon,
-                       jax_trainer.env.n_actions, int(st.zeta.shape[0]))
+    out = _epoch_draws(st.key, jax_trainer.P, jax_trainer.horizon, jax_trainer.env.n_actions,
+                       int(st.zeta.shape[0]), getattr(jax_trainer.env, "num_levels", 1))
     return EpochDraws(*(torch.from_numpy(np.array(x)) for x in out))
 
 
@@ -66,3 +69,79 @@ def jax_state_numpy(state):
         for f in state._fields
         if f != "key"
     }
+
+
+def jax_epoch_rewards(jtr):
+    """Per-member rewards of the JAX trainer's next epoch ([P+1], the eval
+    slot last), computed the way its unchunked E = 1 step computes them."""
+    from dfd_tpu.core import welford as jax_welford
+    from dfd_tpu.fd import rollout as jax_rollout
+    from dfd_tpu.ops.perturb import pallas_perturb
+
+    run = getattr(jtr, "_parity_rewards", None)
+    if run is None:
+        cfg, model, P = jtr.cfg, jtr.model, jtr.P
+        Z = int(jtr.state.zeta.shape[0])
+
+        @jax.jit
+        def run(st):
+            _, _, roll_key, eval_key, _, _ = jax.random.split(st.key, 6)
+            pop, _ = pallas_perturb(st.flat, cfg.noise_std, cfg.random_seed, st.epoch, P,
+                                    antithetic=cfg.antithetic)
+            flats = jnp.concatenate([pop, st.flat[None]])
+            keys = jnp.concatenate(
+                [jax.vmap(lambda i: jax.random.fold_in(roll_key, i))(jnp.arange(P)),
+                 eval_key[None]]
+            )
+            mean, std = jax_welford.jnp_mean_std(st.obs_stats)
+
+            def one(v, k, d):
+                return jax_rollout.episode_rollout(
+                    model, jtr.env, model.set_flat(v, xp=jnp), st.bn_state, k, jtr.horizon,
+                    deterministic=d, obs_mean=mean, obs_std=std,
+                    normalize_obs=cfg.normalize_obs,
+                    obs_stats_update_chance=cfg.obs_stats_update_chance,
+                    collect_states=False, collect_limit=Z,
+                ).reward
+
+            return jax.vmap(one)(flats, keys, jnp.arange(P + 1) == P)
+
+        jtr._parity_rewards = run  # one trace for every epoch of the test
+    return np.asarray(run(jtr.state))
+
+
+METRICS = ("Policy Reward", "Policy Entropy", "Policy Novelty", "Noisy Reward",
+           "Noisy Novelty", "Update Magnitude", "Omega", "Epoch", "Cumulative Timesteps")
+
+
+def run_and_compare(jtr, ptr, draws, n_epochs, monkeypatch):
+    """``train(1)`` on both trainers ``n_epochs`` times, the port on JAX's
+    draws; after every epoch the port's per-member rewards equal JAX's, and
+    ``flat``, every reported metric, the timestep count, the archive size and
+    zeta agree."""
+    from dfd_tpu_torch.fd import rollout as port_rollout
+
+    seen = []
+    inner = port_rollout.episode_rollout
+
+    def spy(*a, **kw):
+        seen.append(inner(*a, **kw))
+        return seen[-1]
+
+    monkeypatch.setattr(port_rollout, "episode_rollout", spy)
+    for e in range(n_epochs):
+        draws[int(jtr.state.epoch)] = jax_epoch_draws(jtr)
+        want_rewards = jax_epoch_rewards(jtr)
+        jtr.train(1)
+        ptr.train(1)
+        np.testing.assert_array_equal(seen[-1].reward.cpu().numpy(), want_rewards,
+                                      err_msg=f"epoch {e}")
+        np.testing.assert_allclose(ptr.state.flat.cpu().numpy(), np.asarray(jtr.state.flat),
+                                   rtol=1e-5, atol=1e-6, err_msg=f"epoch {e}")
+        jm, pm = jtr.reporter.history[-1], ptr.reporter.history[-1]
+        for k in METRICS:
+            np.testing.assert_allclose(pm[k], jm[k], rtol=1e-5, err_msg=f"epoch {e}: {k}")
+        assert ptr.cumulative_timesteps == jtr.cumulative_timesteps
+        assert len(ptr.handler.archive) == len(jtr.handler.archive)
+        np.testing.assert_allclose(ptr.state.zeta.cpu().numpy(), np.asarray(jtr.state.zeta),
+                                   rtol=1e-6)

@@ -9,8 +9,11 @@ conftest:
 
 Tolerances: eps to 1e-5 absolute (libm ulps in log/cos between the kernel
 and PyTorch's CUDA functions); the combine's member sum in another order to
-relative L2 1e-5; the trainer's mean reward to rtol 1e-6, since the card's
-mean of the same integer rewards may round its division differently.
+relative L2 1e-5; the fused torso kernels to 1e-5 of the output's scale in
+f32 (sums of up to 1152 products in another order) and 4e-3 in bf16 (an f32
+intermediate one ulp apart can round to the neighbouring bf16 value); the
+trainer's mean reward to rtol 1e-6, since the card's mean of the same
+integer rewards may round its division differently.
 """
 
 import math
@@ -18,6 +21,7 @@ import math
 import pytest
 import torch
 
+from dfd_tpu_torch.ops import fused_resblock as fr
 from dfd_tpu_torch.ops import perturb as pk
 
 pytestmark = pytest.mark.cuda
@@ -86,6 +90,98 @@ def test_trainer_on_card_matches_cpu(cuda):
     gpu.state = gpu.state._replace(zeta=cpu.state.zeta.to(cuda))
     gpu.train(3)
     cpu.train(3)
+    torch.testing.assert_close(gpu.state.flat.cpu(), cpu.state.flat, rtol=1e-5, atol=1e-6)
+    for hg, hc in zip(gpu.reporter.history, cpu.reporter.history):
+        assert math.isclose(hg["Noisy Reward"], hc["Noisy Reward"], rel_tol=1e-6)
+        assert hg["Cumulative Timesteps"] == hc["Cumulative Timesteps"]
+
+
+def _fused_args(kind, M, B, ci, co, H, W, dev, seed=0):
+    g = torch.Generator(dev).manual_seed(seed)
+    r = lambda *shape: torch.randn(*shape, device=dev, generator=g)
+    x = r(M, B, ci, H, W)
+    if kind == "res":
+        return x, r(M, 4, ci, 9 * ci) / (3 * ci ** 0.5), 0.1 * r(M, 4, ci), \
+            0.5 + r(M, 4, ci).abs(), 0.2 * r(M, 4, ci)
+    return x, r(M, co, 9 * ci) / (3 * ci ** 0.5), 0.1 * r(M, co), 0.5 + r(M, ci).abs(), \
+        0.2 * r(M, ci)
+
+
+# (M, B, ci, co, H, W, bf16): the flagship's rollout shapes (M = 129 members,
+# one frame), a novelty shape (8 frames), ragged ones, production widths
+RES_SHAPES = [(129, 1, 16, 16, 32, 32, False), (129, 1, 32, 32, 16, 16, False),
+              (129, 8, 32, 32, 16, 16, False), (3, 2, 5, 5, 8, 12, False),
+              (2, 1, 17, 17, 7, 33, False), (4, 1, 64, 64, 32, 32, True),
+              (4, 1, 128, 128, 16, 16, True)]
+FEAT_SHAPES = [(129, 1, 16, 32, 32, 32, False), (129, 1, 32, 32, 16, 16, False),
+               (129, 8, 16, 32, 32, 32, False), (3, 2, 5, 7, 16, 8, False),
+               (3, 1, 5, 7, 9, 13, False), (2, 1, 3, 20, 40, 24, False),
+               (4, 1, 64, 128, 32, 32, True), (4, 1, 128, 128, 16, 16, True)]
+
+
+@pytest.mark.parametrize("kind, shape", [("res", s) for s in RES_SHAPES]
+                         + [("feat", s) for s in FEAT_SHAPES])
+def test_fused_kernels_match_plain(cuda, kind, shape):
+    M, B, ci, co, H, W, bf16 = shape
+    kernel, plain = ((fr.fused_res_stage, fr.fused_res_stage_plain) if kind == "res"
+                     else (fr.fused_feat_pool, fr.fused_feat_pool_plain))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _fused_args(kind, M, B, ci, co, H, W, cuda)
+    cd = torch.bfloat16 if bf16 else None
+    got, want = kernel(*args, compute_dtype=cd), plain(*args, compute_dtype=cd)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    scale = max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= (4e-3 if bf16 else 1e-5) * scale
+
+
+def test_fused_wrappers_count_launches_and_check_inputs(cuda):
+    before = (fr.fused_res_stage.launches, fr.fused_feat_pool.launches)
+    fr.fused_res_stage(*_fused_args("res", 2, 1, 8, 8, 16, 16, cuda))
+    fr.fused_feat_pool(*_fused_args("feat", 2, 1, 8, 16, 16, 16, cuda))
+    assert (fr.fused_res_stage.launches, fr.fused_feat_pool.launches) == (before[0] + 1,
+                                                                          before[1] + 1)
+    x, w, b, s, t = _fused_args("res", 2, 1, 8, 8, 16, 16, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        fr.fused_res_stage(x.double(), w, b, s, t)
+    with pytest.raises(ValueError, match="contiguous"):
+        fr.fused_res_stage(x.transpose(3, 4).contiguous().transpose(3, 4), w, b, s, t)
+    with pytest.raises(ValueError, match="must lie on"):
+        fr.fused_res_stage(x, w.cpu(), b, s, t)
+    with pytest.raises(ValueError, match="compute_dtype"):
+        fr.fused_res_stage(x, w, b, s, t, compute_dtype=torch.float16)
+    assert (fr.fused_res_stage.launches, fr.fused_feat_pool.launches) == (before[0] + 1,
+                                                                          before[1] + 1)
+
+
+def test_impala_trainer_on_card_matches_cpu(cuda):
+    """The parity size of tests/test_torch_impala_trainer.py: both fused
+    kernels run on the card, their plain versions on the CPU."""
+    from dfd_tpu_torch.config import TrainConfig
+    from dfd_tpu_torch.envs import ProcMazeEnv
+    from dfd_tpu_torch.models import ImpalaPolicy
+    from dfd_tpu_torch.ops import distances
+    from dfd_tpu_torch.runners import VectorizedTrainer, make_draws
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TrainConfig(batch_size=8, learning_rate=0.05, noise_std=0.05, zeta_size=4,
+                      max_strategy_history_size=4, random_seed=5, noise_backend="pallas")
+    gen = torch.Generator().manual_seed(1)
+    draws = {e: make_draws(gen, 8, 10, 5, 4, 20) for e in range(3)}
+
+    def make(d):
+        env = ProcMazeEnv(grid=4, scale=8, max_steps=10, num_levels=20, device=d)
+        model = ImpalaPolicy(env.obs_shape, 5, channels=(8, 16, 16), hidden=32,
+                             conv_impl="fused_feat", device=d)
+        return VectorizedTrainer(model, env, distances.categorical_tvd, cfg, device=d,
+                                 draw_source=lambda e: draws[e])
+
+    gpu, cpu = make(cuda), make("cpu")
+    gpu.state = gpu.state._replace(zeta=cpu.state.zeta.to(cuda))
+    before = fr.fused_res_stage.launches
+    gpu.train(3)
+    cpu.train(3)
+    assert fr.fused_res_stage.launches > before
     torch.testing.assert_close(gpu.state.flat.cpu(), cpu.state.flat, rtol=1e-5, atol=1e-6)
     for hg, hc in zip(gpu.reporter.history, cpu.reporter.history):
         assert math.isclose(hg["Noisy Reward"], hc["Noisy Reward"], rel_tol=1e-6)

@@ -286,7 +286,10 @@ def test_act_step_reproduces_jax_categorical():
         return a, ent
 
     want_a, want_ent = jax.vmap(one)(flats, obs, keys, det)
-    got_a, got_ent = pm.act_step(pm.set_flat(T(flats)), bn, T(obs), T(det), T(np.array(gumbel)))
+    got_a, got_ent, carry = pm.act_step(pm.set_flat(T(flats)), bn, T(obs), torch.zeros(6),
+                                        torch.zeros(6, dtype=torch.bool), (), T(det),
+                                        T(np.array(gumbel)))
+    assert carry == ()
     np.testing.assert_array_equal(got_a.numpy(), np.asarray(want_a))
     _close(got_ent, want_ent, rtol=1e-5)
 

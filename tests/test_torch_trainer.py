@@ -13,18 +13,15 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import episode_draws, jax_epoch_draws, jax_state_numpy
+from _torch_port import episode_draws, jax_state_numpy, run_and_compare
 from dfd_tpu.config import TrainConfig as JaxTrainConfig
-from dfd_tpu.core import welford as jax_welford
 from dfd_tpu.envs.trap import TrapEnv as JaxTrapEnv
 from dfd_tpu.fd import rollout as jax_rollout
 from dfd_tpu.models import DiscreteMLP as JaxDiscreteMLP
 from dfd_tpu.ops import distances as jax_distances
-from dfd_tpu.ops.perturb import pallas_perturb
 from dfd_tpu.runners import VectorizedTrainer as JaxTrainer
 from dfd_tpu_torch.config import TrainConfig
 from dfd_tpu_torch.convert import params_from_numpy, train_state_from_numpy
-from dfd_tpu_torch.core import welford
 from dfd_tpu_torch.envs import TrapEnv
 from dfd_tpu_torch.fd import rollout as port_rollout
 from dfd_tpu_torch.models import DiscreteMLP
@@ -32,8 +29,6 @@ from dfd_tpu_torch.ops import distances
 from dfd_tpu_torch.runners import VectorizedTrainer
 
 CPU = "cpu"
-METRICS = ("Policy Reward", "Policy Entropy", "Policy Novelty", "Noisy Reward",
-           "Noisy Novelty", "Update Magnitude", "Omega", "Epoch", "Cumulative Timesteps")
 
 
 def _np(t):
@@ -63,7 +58,7 @@ def _rollout_pair(normalize_obs):
         )
 
     want = jax.jit(jax.vmap(one))(flats, keys, det)
-    g, u = episode_draws(keys, T, 9)
+    g, u, level = episode_draws(keys, T, 9)
 
     _, bn = params_from_numpy(pm, params_np, bn_np, CPU)
     got = port_rollout.episode_rollout(
@@ -71,7 +66,7 @@ def _rollout_pair(normalize_obs):
         torch.from_numpy(det), torch.from_numpy(mean), torch.from_numpy(std),
         normalize_obs=normalize_obs, obs_stats_update_chance=0.3,
         action_gumbel=torch.from_numpy(np.array(g)), stats_uniform=torch.from_numpy(np.array(u)),
-        collect_limit=Z,
+        reset_level=torch.from_numpy(np.array(level)), collect_limit=Z,
     )
     return got, want
 
@@ -101,37 +96,6 @@ def test_episode_rollout_without_normalization_skips_stats():
         assert not x.any()
 
 
-def _jax_epoch_rewards(jtr):
-    """Per-member rewards of the JAX trainer's next epoch ([P+1], the eval
-    slot last), computed the way its unchunked E = 1 step computes them."""
-    cfg, model, st = jtr.cfg, jtr.model, jtr.state
-    P, Z = jtr.P, int(st.zeta.shape[0])
-
-    @jax.jit
-    def run(st):
-        _, _, roll_key, eval_key, _, _ = jax.random.split(st.key, 6)
-        pop, _ = pallas_perturb(st.flat, cfg.noise_std, cfg.random_seed, st.epoch, P,
-                                antithetic=cfg.antithetic)
-        flats = jnp.concatenate([pop, st.flat[None]])
-        keys = jnp.concatenate(
-            [jax.vmap(lambda i: jax.random.fold_in(roll_key, i))(jnp.arange(P)), eval_key[None]]
-        )
-        mean, std = jax_welford.jnp_mean_std(st.obs_stats)
-
-        def one(v, k, d):
-            return jax_rollout.episode_rollout(
-                model, jtr.env, model.set_flat(v, xp=jnp), st.bn_state, k, jtr.horizon,
-                deterministic=d, obs_mean=mean, obs_std=std,
-                normalize_obs=cfg.normalize_obs,
-                obs_stats_update_chance=cfg.obs_stats_update_chance,
-                collect_states=False, collect_limit=Z,
-            ).reward
-
-        return jax.vmap(one)(flats, keys, jnp.arange(P + 1) == P)
-
-    return np.asarray(run(st))
-
-
 def _pair(cfg_kw):
     jcfg = JaxTrainConfig(**cfg_kw)
     jtr = JaxTrainer(JaxDiscreteMLP(2, 9), JaxTrapEnv(), jax_distances.categorical_tvd, jcfg)
@@ -144,31 +108,6 @@ def _pair(cfg_kw):
     return jtr, ptr, draws
 
 
-def _run_and_compare(jtr, ptr, draws, n_epochs, monkeypatch):
-    seen = []
-    inner = port_rollout.episode_rollout
-
-    def spy(*a, **kw):
-        seen.append(inner(*a, **kw))
-        return seen[-1]
-
-    monkeypatch.setattr(port_rollout, "episode_rollout", spy)
-    for e in range(n_epochs):
-        draws[int(jtr.state.epoch)] = jax_epoch_draws(jtr)
-        want_rewards = _jax_epoch_rewards(jtr)
-        jtr.train(1)
-        ptr.train(1)
-        np.testing.assert_array_equal(_np(seen[-1].reward), want_rewards, err_msg=f"epoch {e}")
-        np.testing.assert_allclose(_np(ptr.state.flat), np.asarray(jtr.state.flat),
-                                   rtol=1e-5, atol=1e-6, err_msg=f"epoch {e}")
-        jm, pm = jtr.reporter.history[-1], ptr.reporter.history[-1]
-        for k in METRICS:
-            np.testing.assert_allclose(pm[k], jm[k], rtol=1e-5, err_msg=f"epoch {e}: {k}")
-        assert ptr.cumulative_timesteps == jtr.cumulative_timesteps
-        assert len(ptr.handler.archive) == len(jtr.handler.archive)
-        np.testing.assert_allclose(_np(ptr.state.zeta), np.asarray(jtr.state.zeta), rtol=1e-6)
-
-
 BASE = dict(batch_size=16, learning_rate=0.05, noise_std=0.05, zeta_size=8,
             max_strategy_history_size=4, random_seed=5, noise_backend="pallas")
 
@@ -176,14 +115,14 @@ BASE = dict(batch_size=16, learning_rate=0.05, noise_std=0.05, zeta_size=8,
 def test_trainer_matches_jax_epoch_by_epoch(monkeypatch):
     """Three epochs of ``train(1)``: the archive fills and novelty turns on."""
     jtr, ptr, draws = _pair(BASE)
-    _run_and_compare(jtr, ptr, draws, 3, monkeypatch)
+    run_and_compare(jtr, ptr, draws, 3, monkeypatch)
     assert ptr.reporter.history[-1]["Noisy Novelty"] > 0
 
 
 def test_trainer_matches_jax_normalized_antithetic(monkeypatch):
     jtr, ptr, draws = _pair(dict(BASE, normalize_obs=True, antithetic=True,
                                  obs_stats_update_chance=0.05))
-    _run_and_compare(jtr, ptr, draws, 2, monkeypatch)
+    run_and_compare(jtr, ptr, draws, 2, monkeypatch)
     st = ptr.state.obs_stats
     assert float(st.count) > 2
     for a, b in zip(st, jtr.state.obs_stats):

@@ -1,20 +1,29 @@
 """Where one epoch of the PyTorch/CUDA port's trainer spends its time on the card.
 
-    python3 tools/torch_epoch_profile.py [--out chiprun_out/torch_epoch_profile]
+    python3 tools/torch_epoch_profile.py [--config {mlp_trap,impala_procmaze}]
+                                         [--out chiprun_out/torch_epoch_profile]
 
-Runs ``dfd_tpu_torch``'s ``VectorizedTrainer`` on the ``mlp_trap``
-configuration (``DiscreteMLP(2, 9)``, ``TrapEnv``, P = 2048, T = 201,
-``noise_backend="pallas"``), warms two epochs, times ten epochs of
-``train`` without the profiler, then traces one more with
-``torch.profiler``, its stages (perturb, rollout, novelty, combine) marked
-as profiler ranges.  Prints the untraced epochs' median and longest time,
-their env-steps/s and the median split between the epoch step and the host
-archive; the traced epoch's wall time, the device's busy time and idle share
-and the kernel launch count; each stage's host time and the device time of
-the PyTorch kernels inside it (the profiler does not attribute the
-ctypes-launched perturb and combine kernels to a range: they have their own
-line); the two counter-hash kernels' device times; and the largest kernels
-by device time.  Writes the Chrome trace and the full table under ``--out``.
+Runs ``dfd_tpu_torch``'s ``VectorizedTrainer`` on one configuration, both
+with ``noise_backend="pallas"``:
+
+- ``mlp_trap`` (the default; ``bench.py:143-152``): ``DiscreteMLP(2, 9)``,
+  ``TrapEnv``, P = 2048, T = 201;
+- ``impala_procmaze`` (``bench.py:210-219``): ``ImpalaPolicy`` 16/32/32,
+  hidden 256, ``conv_impl="fused_feat"``, on ``ProcMazeEnv`` 3x64x64,
+  P = 128, T = 40.
+
+It warms two epochs, times ten epochs of ``train`` without the profiler,
+then traces one more with ``torch.profiler``, its stages (perturb, rollout,
+novelty, combine) marked as profiler ranges; for ``impala_procmaze`` the
+model's ``linear`` layers (the fc, 2048 -> 256, and the policy head) and
+its ``lstm`` steps are ranges too.  Prints the untraced epochs' median and
+longest time, their env-steps/s and the median split between the epoch step
+and the host archive; the traced epoch's wall time, the device's busy time
+and idle share and the kernel launch count; each stage's host time and the
+device time of the PyTorch kernels inside it (the profiler does not
+attribute the ctypes-launched kernels to a range: they have their own
+lines); the ported kernels' device times; and the largest kernels by device
+time.  Writes the Chrome trace and the full table under ``--out``.
 Needs a CUDA device.
 """
 
@@ -34,6 +43,8 @@ import torch  # noqa: E402
 
 
 STAGES = ("perturb", "rollout", "novelty", "combine")
+LAYERS = ("linear", "lstm")  # the impala_procmaze ranges inside the stages
+PORTED = ("perturb_kernel", "combine_kernel", "res_stage_kernel", "feat_pool_kernel")
 
 
 def _device_us(evt, total: bool = False) -> float:
@@ -44,8 +55,10 @@ def _device_us(evt, total: bool = False) -> float:
     return 0.0
 
 
-def _mark_stages(tr) -> None:
-    """Wrap the epoch's stages in profiler ranges named by ``STAGES``."""
+def _mark_stages(tr, layer_ranges: bool) -> None:
+    """Wrap the epoch's stages in profiler ranges named by ``STAGES`` and,
+    with ``layer_ranges``, the model layers named by ``LAYERS``."""
+    from dfd_tpu_torch.models import layers
     from dfd_tpu_torch.runners import vectorized
 
     def ranged(fn, name):
@@ -58,10 +71,14 @@ def _mark_stages(tr) -> None:
     vectorized.combine = ranged(vectorized.combine, "combine")
     vectorized.fd_rollout.episode_rollout = ranged(vectorized.fd_rollout.episode_rollout, "rollout")
     tr._batch_novelty = ranged(tr._batch_novelty, "novelty")
+    if layer_ranges:
+        layers.linear = ranged(layers.linear, "linear")
+        layers.lstm_step = ranged(layers.lstm_step, "lstm")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--config", choices=("mlp_trap", "impala_procmaze"), default="mlp_trap")
     ap.add_argument("--out", default="chiprun_out/torch_epoch_profile")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -71,8 +88,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from dfd_tpu_torch.config import TrainConfig
-    from dfd_tpu_torch.envs import TrapEnv
-    from dfd_tpu_torch.models import DiscreteMLP
+    from dfd_tpu_torch.envs import ProcMazeEnv, TrapEnv
+    from dfd_tpu_torch.models import DiscreteMLP, ImpalaPolicy
     from dfd_tpu_torch.ops import distances
     from dfd_tpu_torch.runners import VectorizedTrainer
     from dfd_tpu_torch.utils.profiling import trace
@@ -81,11 +98,18 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    # mlp_trap (bench.py): P = 2048, zeta 64, archive 16, lr 0.05, sigma 0.05
-    cfg = TrainConfig(batch_size=2048, learning_rate=0.05, noise_std=0.05,
-                      zeta_size=64, max_strategy_history_size=16, random_seed=0,
-                      noise_backend="pallas")
-    tr = VectorizedTrainer(DiscreteMLP(2, 9), TrapEnv(), distances.categorical_tvd, cfg)
+    if args.config == "mlp_trap":
+        # mlp_trap (bench.py): P = 2048, zeta 64, archive 16, lr 0.05, sigma 0.05
+        cfg = TrainConfig(batch_size=2048, learning_rate=0.05, noise_std=0.05,
+                          zeta_size=64, max_strategy_history_size=16, random_seed=0,
+                          noise_backend="pallas")
+        tr = VectorizedTrainer(DiscreteMLP(2, 9), TrapEnv(), distances.categorical_tvd, cfg)
+    else:
+        env = ProcMazeEnv(grid=8, scale=8, max_steps=40, num_levels=200)
+        cfg = TrainConfig(batch_size=128, zeta_size=8, max_strategy_history_size=4,
+                          episode_length=40, random_seed=0, noise_backend="pallas")
+        tr = VectorizedTrainer(ImpalaPolicy(env.obs_shape, env.n_actions, conv_impl="fused_feat"),
+                               env, distances.categorical_tvd, cfg)
     tr.train(2)  # builds the kernels, fills the archive enough for novelty
     torch.cuda.synchronize()
     n_timed = 10
@@ -97,7 +121,7 @@ def main() -> int:
     median_ms = statistics.median(epoch_ms)
     split_ms = {k: statistics.median([r[f"_stage/{k}"] * 1e3 for r in tr.reporter.history[-n_timed:]])
                 for k in ("device_step", "archive")}
-    _mark_stages(tr)
+    _mark_stages(tr, layer_ranges=args.config == "impala_procmaze")
     with trace(args.out) as prof:
         t0 = time.perf_counter()
         tr.train(1)
@@ -109,19 +133,18 @@ def main() -> int:
     # device-side events only (kernels, copies, sets): the CPU ops that
     # launched them carry the same time again, and the stage ranges span them
     dev_rows = sorted(((_device_us(e), e.count, e.key) for e in rows
-                       if on_device(e) and e.key not in STAGES and _device_us(e) > 0),
+                       if on_device(e) and e.key not in STAGES + LAYERS and _device_us(e) > 0),
                       reverse=True)
     busy_ms = sum(us for us, _, _ in dev_rows) / 1e3
     launches = sum(e.count for e in rows if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                                       "cudaLaunchKernelExC"))
-    named = {k: (us / 1e3, n) for us, n, k in dev_rows
-             if "perturb_kernel" in k or "combine_kernel" in k}
+    named = {k: (us / 1e3, n) for us, n, k in dev_rows if any(p in k for p in PORTED)}
     sort_key = ("self_device_time_total" if hasattr(rows[0], "self_device_time_total")
                 else "self_cuda_time_total")
     with open(os.path.join(args.out, "key_averages.txt"), "w") as f:
         f.write(rows.table(sort_by=sort_key, row_limit=60))
     stages = {e.key: (e.cpu_time_total / 1e3, _device_us(e, total=True) / 1e3)
-              for e in rows if e.key in STAGES and not on_device(e)}
+              for e in rows if e.key in STAGES + LAYERS and not on_device(e)}
     print(f"card: {card}")
     print(f"epoch: P={cfg.batch_size} T={tr.horizon}, {n_timed} untraced epochs: median "
           f"{median_ms:.1f} ms, longest {epoch_ms[-1]:.1f} ms, {steps_per_s:.0f} env-steps/s; "
