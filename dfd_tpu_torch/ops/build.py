@@ -42,6 +42,11 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
+def sources() -> tuple:
+    """The names of every ``csrc/*.cu``."""
+    return tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
+
+
 def build(*names: str) -> list:
     """Compile each ``csrc/<name>.cu`` whose current library does not exist,
     one ``nvcc`` process per source, all started together; returns the

@@ -114,11 +114,11 @@ METRICS = ("Policy Reward", "Policy Entropy", "Policy Novelty", "Noisy Reward",
            "Noisy Novelty", "Update Magnitude", "Omega", "Epoch", "Cumulative Timesteps")
 
 
-def run_and_compare(jtr, ptr, draws, n_epochs, monkeypatch):
+def run_and_compare(jtr, ptr, draws, n_epochs, monkeypatch, loose=(), loose_rtol=1e-5):
     """``train(1)`` on both trainers ``n_epochs`` times, the port on JAX's
     draws; after every epoch the port's per-member rewards equal JAX's, and
-    ``flat``, every reported metric, the timestep count, the archive size and
-    zeta agree."""
+    ``flat``, every reported metric (those in ``loose`` to ``loose_rtol``),
+    the timestep count, the archive size and zeta agree."""
     from dfd_tpu_torch.fd import rollout as port_rollout
 
     seen = []
@@ -140,7 +140,8 @@ def run_and_compare(jtr, ptr, draws, n_epochs, monkeypatch):
                                    rtol=1e-5, atol=1e-6, err_msg=f"epoch {e}")
         jm, pm = jtr.reporter.history[-1], ptr.reporter.history[-1]
         for k in METRICS:
-            np.testing.assert_allclose(pm[k], jm[k], rtol=1e-5, err_msg=f"epoch {e}: {k}")
+            np.testing.assert_allclose(pm[k], jm[k], rtol=loose_rtol if k in loose else 1e-5,
+                                       err_msg=f"epoch {e}: {k}")
         assert ptr.cumulative_timesteps == jtr.cumulative_timesteps
         assert len(ptr.handler.archive) == len(jtr.handler.archive)
         np.testing.assert_allclose(ptr.state.zeta.cpu().numpy(), np.asarray(jtr.state.zeta),

@@ -113,3 +113,32 @@ def test_trainer_own_draws_include_the_levels():
     tr.train(2)
     assert all(np.isfinite(r["Update Magnitude"]) and r["Update Magnitude"] > 0
                for r in tr.reporter.history)
+
+
+def test_bf16_trainer_matches_jax_epoch_by_epoch(monkeypatch):
+    """``compute_dtype`` bf16 (the production model's), three epochs of
+    ``train(1)`` at the parity size.  Both packages round the same float32
+    conv and fc operands to bf16 and accumulate in float32, but a float32
+    intermediate one ulp apart (sums in another order) can round to the
+    neighbouring bf16 value, so a probability can differ by ~1e-3 of itself.
+    The sampled actions, and with them the rewards, the update, ``flat`` and
+    zeta, still agree exactly at seed 5: no Gumbel draw of these three epochs
+    brings two actions within that margin.  The metrics read from the
+    probabilities (entropies and novelties) are held to rtol 1e-3; the
+    largest deviation there is 1.3e-4, in ``Noisy Novelty``."""
+    kw = dict(batch_size=8, learning_rate=0.05, noise_std=0.05, zeta_size=4,
+              max_strategy_history_size=4, random_seed=5, noise_backend="pallas")
+    jenv = JaxProcMazeEnv(**ENV)
+    jtr = JaxTrainer(JaxImpala(jenv.obs_shape, 5, compute_dtype=jnp.bfloat16, **MODEL), jenv,
+                     jax_distances.categorical_tvd, JaxTrainConfig(**kw))
+    draws = {}
+    penv = ProcMazeEnv(**ENV, device=CPU)
+    ptr = VectorizedTrainer(
+        ImpalaPolicy(penv.obs_shape, 5, compute_dtype=torch.bfloat16, device=CPU, **MODEL), penv,
+        distances.categorical_tvd, TrainConfig(**kw), device=CPU,
+        draw_source=lambda epoch: draws[epoch],
+    )
+    ptr.state = train_state_from_numpy(jax_state_numpy(jtr.state), CPU)
+    run_and_compare(jtr, ptr, draws, 3, monkeypatch,
+                    loose=("Policy Entropy", "Policy Novelty", "Noisy Novelty"), loose_rtol=1e-3)
+    assert ptr.reporter.history[-1]["Noisy Novelty"] > 0

@@ -64,6 +64,9 @@ def test_port_sources_import_no_jax():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|dfd_tpu)(\.|\s|$)", re.M)
     files = sorted((ROOT / "dfd_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    assert {ROOT / "dfd_tpu_torch" / m for m in (
+        "ops/gemm_chain.py", "ops/relayout.py", "ops/res_chain.py", "probes/_common.py",
+        "probes/gemm.py", "probes/torso.py", "probes/pool.py", "probes/wide.py")} <= set(files)
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders, offenders
 

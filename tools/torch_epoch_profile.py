@@ -1,22 +1,27 @@
 """Where one epoch of the PyTorch/CUDA port's trainer spends its time on the card.
 
-    python3 tools/torch_epoch_profile.py [--config {mlp_trap,impala_procmaze}]
+    python3 tools/torch_epoch_profile.py [--config {mlp_trap,impala_procmaze,impala_prod_bf16}]
                                          [--out chiprun_out/torch_epoch_profile]
 
-Runs ``dfd_tpu_torch``'s ``VectorizedTrainer`` on one configuration, both
+Runs ``dfd_tpu_torch``'s ``VectorizedTrainer`` on one configuration, each
 with ``noise_backend="pallas"``:
 
 - ``mlp_trap`` (the default; ``bench.py:143-152``): ``DiscreteMLP(2, 9)``,
   ``TrapEnv``, P = 2048, T = 201;
 - ``impala_procmaze`` (``bench.py:210-219``): ``ImpalaPolicy`` 16/32/32,
   hidden 256, ``conv_impl="fused_feat"``, on ``ProcMazeEnv`` 3x64x64,
-  P = 128, T = 40.
+  P = 128, T = 40;
+- ``impala_prod_bf16`` (``bench.py:221-240``): ``ImpalaPolicy`` 64/128/128,
+  hidden 512, bf16 operands, ``conv_impl="fused_feat"``, the same env,
+  P = 64, T = 40.
 
 It warms two epochs, times ten epochs of ``train`` without the profiler,
 then traces one more with ``torch.profiler``, its stages (perturb, rollout,
-novelty, combine) marked as profiler ranges; for ``impala_procmaze`` the
-model's ``linear`` layers (the fc, 2048 -> 256, and the policy head) and
-its ``lstm`` steps are ranges too.  Prints the untraced epochs' median and
+novelty, combine) marked as profiler ranges; for the IMPALA configurations
+the model's ``linear`` layers (the fc, 2048 -> 256 or 8192 -> 512, and the
+policy head), its ``lstm`` steps and its ``patches`` convs (stage 0's
+feature conv and stage 2's residual convs, whose 8x8 frames the fused
+kernels' gate leaves on that path) are ranges too.  Prints the untraced epochs' median and
 longest time, their env-steps/s and the median split between the epoch step
 and the host archive; the traced epoch's wall time, the device's busy time
 and idle share and the kernel launch count; each stage's host time and the
@@ -43,7 +48,7 @@ import torch  # noqa: E402
 
 
 STAGES = ("perturb", "rollout", "novelty", "combine")
-LAYERS = ("linear", "lstm")  # the impala_procmaze ranges inside the stages
+LAYERS = ("linear", "lstm", "patches")  # the IMPALA ranges inside the stages
 PORTED = ("perturb_kernel", "combine_kernel", "res_stage_kernel", "feat_pool_kernel")
 
 
@@ -58,7 +63,7 @@ def _device_us(evt, total: bool = False) -> float:
 def _mark_stages(tr, layer_ranges: bool) -> None:
     """Wrap the epoch's stages in profiler ranges named by ``STAGES`` and,
     with ``layer_ranges``, the model layers named by ``LAYERS``."""
-    from dfd_tpu_torch.models import layers
+    from dfd_tpu_torch.models import impala, layers
     from dfd_tpu_torch.runners import vectorized
 
     def ranged(fn, name):
@@ -74,11 +79,13 @@ def _mark_stages(tr, layer_ranges: bool) -> None:
     if layer_ranges:
         layers.linear = ranged(layers.linear, "linear")
         layers.lstm_step = ranged(layers.lstm_step, "lstm")
+        impala.conv3x3_patches = ranged(impala.conv3x3_patches, "patches")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", choices=("mlp_trap", "impala_procmaze"), default="mlp_trap")
+    ap.add_argument("--config", choices=("mlp_trap", "impala_procmaze", "impala_prod_bf16"),
+                    default="mlp_trap")
     ap.add_argument("--out", default="chiprun_out/torch_epoch_profile")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -106,10 +113,14 @@ def main() -> int:
         tr = VectorizedTrainer(DiscreteMLP(2, 9), TrapEnv(), distances.categorical_tvd, cfg)
     else:
         env = ProcMazeEnv(grid=8, scale=8, max_steps=40, num_levels=200)
-        cfg = TrainConfig(batch_size=128, zeta_size=8, max_strategy_history_size=4,
-                          episode_length=40, random_seed=0, noise_backend="pallas")
-        tr = VectorizedTrainer(ImpalaPolicy(env.obs_shape, env.n_actions, conv_impl="fused_feat"),
-                               env, distances.categorical_tvd, cfg)
+        prod = args.config == "impala_prod_bf16"
+        widths = dict(compute_dtype=torch.bfloat16, channels=(64, 128, 128), hidden=512)
+        cfg = TrainConfig(batch_size=64 if prod else 128, zeta_size=8,
+                          max_strategy_history_size=4, episode_length=40, random_seed=0,
+                          noise_backend="pallas")
+        model = ImpalaPolicy(env.obs_shape, env.n_actions, conv_impl="fused_feat",
+                             **(widths if prod else {}))
+        tr = VectorizedTrainer(model, env, distances.categorical_tvd, cfg)
     tr.train(2)  # builds the kernels, fills the archive enough for novelty
     torch.cuda.synchronize()
     n_timed = 10
@@ -121,7 +132,7 @@ def main() -> int:
     median_ms = statistics.median(epoch_ms)
     split_ms = {k: statistics.median([r[f"_stage/{k}"] * 1e3 for r in tr.reporter.history[-n_timed:]])
                 for k in ("device_step", "archive")}
-    _mark_stages(tr, layer_ranges=args.config == "impala_procmaze")
+    _mark_stages(tr, layer_ranges=args.config != "mlp_trap")
     with trace(args.out) as prof:
         t0 = time.perf_counter()
         tr.train(1)
