@@ -4,7 +4,9 @@ A ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with a
 plain C interface, loaded with ``ctypes``.  Libraries are built at first use
 into ``build/dfd_tpu_torch/`` at the root of the checkout, named by a hash of
 the source and the flags, so an edited source is rebuilt and an unchanged
-one is not.  Only the sources in this package are compiled.
+one is not.  Only the sources in this package are compiled.  ``ptxas``
+reports each kernel's registers, shared memory and spills (``-Xptxas -v``);
+the compiler's output is kept beside its library (:func:`compiler_log`).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dfd_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -47,11 +49,19 @@ def sources() -> tuple:
     return tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
 
 
+def compiler_log(name: str) -> str:
+    """What ``nvcc`` printed when it built the current library ``name``
+    ("" if it is not built)."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
 def build(*names: str) -> list:
     """Compile each ``csrc/<name>.cu`` whose current library does not exist,
     one ``nvcc`` process per source, all started together; returns the
     libraries' paths.  Each compiler writes a file of this process's own and
-    renames it into place, so concurrent builds never see half a library."""
+    renames it into place, so concurrent builds never see half a library;
+    its output goes beside the library first."""
     jobs = []
     for name in names:
         path = library_path(name)
@@ -68,6 +78,7 @@ def build(*names: str) -> list:
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {name}.cu:\n{log}")
         else:
+            path.with_suffix(".log").write_text(log)
             os.replace(tmp, path)
     if failed:
         raise RuntimeError("\n".join(failed))

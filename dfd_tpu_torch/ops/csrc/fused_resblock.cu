@@ -18,13 +18,15 @@
 // Both convs pad with zeros after the affine, as the TPU kernel's masked
 // taps do.
 //
-// What bounds them on an H100: the f32 FMAs.  At the rollout's shapes
-// (M = 129 members, one frame each) a res stage is 4 * C * 9C * H * W =
-// 9.4 M FMAs per member, 2.4 GFLOP a launch, against ~22-28 MB of traffic
-// (the per-member weights and one activation in, one out): 36 us of f32
-// issue against 7-8 us of memory.  So the design keeps every operand of the
-// inner loop on chip: a tile of the halo-padded input (kCiT channels at a
-// time, the affine, ReLU and bf16 rounding applied as it is staged) and
+// These kernels are the float32 route (compute_dtype=None); the bf16 route
+// runs on the tensor cores in fused_resblock_mma.cu.  What bounds them on an
+// H100: the f32 FMAs.  At impala_procmaze's rollout shapes (M = 129 members,
+// one frame each, 16 ch x 32x32 and 32 ch x 16x16) a res stage is
+// 4 * C * 9C * H * W = 9.4 M FMAs per member, 2.4 GFLOP a launch, against
+// ~22-28 MB of traffic (the per-member weights and one activation in, one
+// out): 36 us of f32 issue against 7-8 us of memory.  So the design keeps
+// every operand of the inner loop on chip: a tile of the halo-padded input
+// (kCiT channels at a time, the affine and ReLU applied as it is staged) and
 // the matching weights sit in shared memory, each thread holds kCoT output
 // channels of one position in registers, and each input value read from
 // shared memory feeds kCoT FMAs (the weights are read as float4 broadcasts).
@@ -43,13 +45,10 @@
 //
 // Arithmetic follows the TPU kernel: the affine as two rounded operations
 // (__fmul_rn, __fadd_rn, never contracted), the bias after the product, the
-// residual after the second conv.  With bf16 on, each conv operand (the
-// staged input after the affine and ReLU, and the weight) is rounded to
-// bf16 (__float2bfloat16_rn) and the products accumulate in f32.  Build
-// without --use_fast_math.
+// residual after the second conv, all in f32.  Build without
+// --use_fast_math.
 
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -63,10 +62,6 @@ constexpr int kPoolTile = 8;                   // feat pool: 8 x 8 pooled output
 constexpr int kDense = 2 * kPoolTile + 1;      // behind them, 17 x 17 dense conv outputs
 constexpr int kPoolThreads = 320;              // whole warps covering 17 * 17 = 289
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
 // One TH x TW tile of a 3x3 "same" conv for the kCoT output channels from
 // co0, at image position (oy0, ox0) and on: thread i < TH * TW owns the
 // position (oy0 + i / TW, ox0 + i % TW) and returns its sums in acc.  The
@@ -78,7 +73,7 @@ template <int TH, int TW>
 __device__ void conv_tile(const float* src, int ci_n, int H, int W,
                           const float* __restrict__ s, const float* __restrict__ t, bool relu,
                           const float* __restrict__ w, int co_n, int co0, int oy0, int ox0,
-                          bool bf16, float* si, float* sw, float acc[kCoT]) {
+                          float* si, float* sw, float acc[kCoT]) {
   constexpr int PH = TH + 2, PW = TW + 2;
   const int tid = threadIdx.x;
   const int ly = tid / TW, lx = tid % TW;
@@ -94,7 +89,6 @@ __device__ void conv_tile(const float* src, int ci_n, int H, int W,
       if (ci < ci_n && y >= 0 && y < H && x >= 0 && x < W) {
         v = __fadd_rn(__fmul_rn(src[((size_t)ci * H + y) * W + x], s[ci]), t[ci]);
         if (relu) v = fmaxf(v, 0.0f);
-        if (bf16) v = round_bf16(v);
       }
       si[i] = v;
     }
@@ -105,7 +99,6 @@ __device__ void conv_tile(const float* src, int ci_n, int H, int W,
       float v = 0.0f;
       if (co < co_n && ci < ci_n) {
         v = w[(size_t)co * 9 * ci_n + (tap % 3) * 3 * ci_n + (tap / 3) * ci_n + ci];
-        if (bf16) v = round_bf16(v);
       }
       sw[i] = v;
     }
@@ -134,7 +127,7 @@ __device__ void conv_tile(const float* src, int ci_n, int H, int W,
 __global__ void __launch_bounds__(kResThreads)
 res_stage_kernel(const float* x, const float* __restrict__ w, const float* __restrict__ b,
                  const float* __restrict__ s, const float* __restrict__ t, float* out,
-                 float* tmp, int B, int C, int H, int W, int bf16) {
+                 float* tmp, int B, int C, int H, int W) {
   __shared__ float si[kCiT * (kResTile + 2) * (kResTile + 2)];
   __shared__ __align__(16) float sw[kCiT * 9 * kCoT];
   const int mb = blockIdx.x, m = mb / B;
@@ -155,7 +148,7 @@ res_stage_kernel(const float* x, const float* __restrict__ w, const float* __res
         for (int co0 = 0; co0 < C; co0 += kCoT) {
           float acc[kCoT];
           conv_tile<kResTile, kResTile>(src, C, H, W, s + mj * C, t + mj * C, true, wj, C, co0,
-                                        oy0, ox0, bf16, si, sw, acc);
+                                        oy0, ox0, si, sw, acc);
           const int y = oy0 + threadIdx.x / kResTile, xx = ox0 + threadIdx.x % kResTile;
           if (y < H && xx < W) {
 #pragma unroll
@@ -182,7 +175,7 @@ __global__ void __launch_bounds__(kPoolThreads)
 feat_pool_kernel(const float* __restrict__ x, const float* __restrict__ w,
                  const float* __restrict__ b, const float* __restrict__ s,
                  const float* __restrict__ t, float* __restrict__ out, int B, int ci_n, int co_n,
-                 int H, int W, int Ho, int Wo, int bf16) {
+                 int H, int W, int Ho, int Wo) {
   __shared__ float si[kCiT * (kDense + 2) * (kDense + 2)];
   __shared__ __align__(16) float sw[kCiT * 9 * kCoT];
   __shared__ float sd[kCoT * kDense * kDense];
@@ -195,7 +188,7 @@ feat_pool_kernel(const float* __restrict__ x, const float* __restrict__ w,
   float acc[kCoT];
   conv_tile<kDense, kDense>(x + (size_t)mb * ci_n * H * W, ci_n, H, W, s + (size_t)m * ci_n,
                             t + (size_t)m * ci_n, false, w + (size_t)m * co_n * 9 * ci_n, co_n,
-                            co0, oy0, ox0, bf16, si, sw, acc);
+                            co0, oy0, ox0, si, sw, acc);
   const int tid = threadIdx.x;
   if (tid < kDense * kDense) {
     const int y = oy0 + tid / kDense, xx = ox0 + tid % kDense;
@@ -227,21 +220,21 @@ feat_pool_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
 extern "C" int dfd_res_stage(const float* x, const float* w, const float* b, const float* s,
                              const float* t, float* out, float* tmp, int M, int B, int C, int H,
-                             int W, int bf16, void* stream) {
+                             int W, void* stream) {
   if (M <= 0 || B <= 0 || C <= 0 || H <= 0 || W <= 0) return (int)cudaSuccess;
   res_stage_kernel<<<M * B, kResThreads, 0, (cudaStream_t)stream>>>(x, w, b, s, t, out, tmp, B,
-                                                                    C, H, W, bf16);
+                                                                    C, H, W);
   return (int)cudaGetLastError();
 }
 
 extern "C" int dfd_feat_pool(const float* x, const float* w, const float* b, const float* s,
                              const float* t, float* out, int M, int B, int ci, int co, int H,
-                             int W, int bf16, void* stream) {
+                             int W, void* stream) {
   if (M <= 0 || B <= 0 || ci <= 0 || co <= 0 || H <= 0 || W <= 0) return (int)cudaSuccess;
   const int Ho = (H + 1) / 2, Wo = (W + 1) / 2;
   const dim3 grid(M * B, ((Ho + kPoolTile - 1) / kPoolTile) * ((Wo + kPoolTile - 1) / kPoolTile),
                   (co + kCoT - 1) / kCoT);
   feat_pool_kernel<<<grid, kPoolThreads, 0, (cudaStream_t)stream>>>(x, w, b, s, t, out, B, ci,
-                                                                    co, H, W, Ho, Wo, bf16);
+                                                                    co, H, W, Ho, Wo);
   return (int)cudaGetLastError();
 }

@@ -15,18 +15,28 @@ Replaces the Pallas TPU kernels ``dfd_tpu/ops/fused_resblock.py``:
 Operands are population-batched, the JAX package's member ``vmap`` written
 out: ``x [M, B, C, H, W]`` float32, conv weights in the tap order of
 :func:`reorder_conv_weight`, and per-member BN folds (:func:`fold_bn_eval`).
-Each wrapper runs its CUDA kernel (``csrc/fused_resblock.cu``) on CUDA
-tensors and its plain PyTorch version (``*_plain``) on CPU tensors; other
-devices, dtypes, shapes or layouts raise.  ``compute_dtype=torch.bfloat16``
-rounds both conv operands to bf16 and accumulates in float32, as the TPU
-kernel's bf16 dot with ``preferred_element_type=float32`` does.
-``launches`` on each wrapper counts kernel launches.
+Each wrapper runs a CUDA kernel on CUDA tensors and its plain PyTorch
+version (``*_plain``) on CPU tensors; other devices, dtypes, shapes or
+layouts raise.  On the card the route follows ``compute_dtype``:
 
-What bounds the kernels on an H100 is the f32 FMAs, not the bytes (see the
-CUDA source); the design keeps the taps out of memory altogether.  Unlike
-the TPU kernels they take any C, H and W: :func:`fused_supported` (the TPU's
-lane rule ``H * W % 128 == 0``) is kept only as the IMPALA model's gate, so
-the port runs the same layers through the kernels as the JAX package.
+- ``None``: float32 on the CUDA cores (``csrc/fused_resblock.cu``,
+  ``res_stage_kernel``, ``feat_pool_kernel``), counted in ``launches``;
+- ``torch.bfloat16``: both conv operands rounded to bf16 and the products
+  summed in float32, as the TPU kernel's bf16 dot with
+  ``preferred_element_type=float32`` does, on the tensor cores
+  (``csrc/fused_resblock_mma.cu``, ``res_stage_mma_kernel``,
+  ``feat_pool_mma_kernel``), counted in ``mma_launches``.
+
+A failed build or launch raises; nothing falls back to another route.
+
+The float32 route is bound by its f32 FMAs; the bf16 route at production
+widths by the bytes of its float32 weights (see the CUDA sources).  Both
+keep the taps out of memory altogether.  Unlike the TPU kernels they take
+any C, H and W (the bf16 route up to the shared memory a block holds:
+:func:`res_stage_mma_plan`, :func:`feat_pool_mma_plan`);
+:func:`fused_supported` (the TPU's lane rule ``H * W % 128 == 0``) is kept
+only as the IMPALA model's gate, so the port runs the same layers through
+the kernels as the JAX package.
 """
 
 from __future__ import annotations
@@ -173,14 +183,72 @@ def _check_cuda(x, *operands, compute_dtype) -> None:
             f"compute_dtype must be None or torch.bfloat16, got {compute_dtype}")
 
 
+# The bf16 kernels' launch plans.  The CUDA entry points recompute the
+# shared memory from the same parameters and refuse a plan that does not fit.
+SMEM_MAX = 232_448  # bytes of shared memory an H100 block can use
+FEAT_GROUP = 64     # output channels of one feature-pool block
+
+
+def _pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+@functools.lru_cache(maxsize=None)
+def res_stage_mma_plan(C: int, H: int, W: int) -> Tuple[int, int, int]:
+    """(cluster, band, shared bytes) of ``res_stage_mma_kernel``: the fewest
+    blocks a frame (2, 4 or 8) whose bands of ``band`` image rows, two
+    halo-padded bf16 buffers of every channel, fit beside a weight tap."""
+    kp = _pad16(C)
+    for cluster in (2, 4, 8):
+        band = -(-H // cluster)
+        smem = 4 * (band + 2) * (W + 2) * (kp + 8) + 2 * kp * (kp + 8) + 4 * kp * C
+        if smem <= SMEM_MAX:
+            return cluster, band, smem
+    raise ValueError(f"the bf16 res stage's band of C={C} x W={W} does not fit in "
+                     f"{SMEM_MAX} bytes of shared memory")
+
+
+@functools.lru_cache(maxsize=None)
+def feat_pool_mma_plan(ci: int, co: int, H: int, W: int) -> Tuple[int, int, int]:
+    """(pooled rows a block, bands, shared bytes) of ``feat_pool_mma_kernel``:
+    at most 256 dense positions a block (one chunk of its 8 warps, so the
+    dense map overlays the conv's buffers), the pooled rows spread evenly
+    over the bands."""
+    kp, mp, Ho = _pad16(ci), min(FEAT_GROUP, _pad16(co)), (H + 1) // 2
+    pb = min(Ho, max(1, (256 // W - 1) // 2))
+    while True:
+        bands = -(-Ho // pb)
+        pb = -(-Ho // bands)
+        dr = 2 * pb + 1
+        conv = 2 * (dr + 2) * (W + 2) * (kp + 8) + 2 * mp * (kp + 8) + 4 * mp * ci
+        dense = 4 * mp * dr * W  # overlays the conv's buffers when one chunk covers the band
+        smem = max(conv, dense) if dr * W <= 256 else conv + dense
+        if smem <= SMEM_MAX:
+            return pb, bands, smem
+        _expect(pb > 1, f"the bf16 feature pool's rows of ci={ci} x W={W} do not fit in "
+                        f"{SMEM_MAX} bytes of shared memory")
+        pb -= 1
+
+
 @functools.lru_cache(maxsize=None)
 def _kernels() -> ctypes.CDLL:
     lib = build.load("fused_resblock")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.dfd_res_stage.argtypes = [vp] * 7 + [i32] * 6 + [vp]
+    lib.dfd_res_stage.argtypes = [vp] * 7 + [i32] * 5 + [vp]
     lib.dfd_res_stage.restype = i32
-    lib.dfd_feat_pool.argtypes = [vp] * 6 + [i32] * 7 + [vp]
+    lib.dfd_feat_pool.argtypes = [vp] * 6 + [i32] * 6 + [vp]
     lib.dfd_feat_pool.restype = i32
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _mma_kernels() -> ctypes.CDLL:
+    lib = build.load("fused_resblock_mma")
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.dfd_res_stage_mma.argtypes = [vp] * 6 + [i32] * 7 + [vp]
+    lib.dfd_res_stage_mma.restype = i32
+    lib.dfd_feat_pool_mma.argtypes = [vp] * 6 + [i32] * 7 + [vp]
+    lib.dfd_feat_pool_mma.restype = i32
     return lib
 
 
@@ -197,19 +265,25 @@ def fused_res_stage(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, s: torch.
     _check_cuda(x, w, b, s, t, compute_dtype=compute_dtype)
     M, B, C, H, W = x.shape
     out = torch.empty_like(x)
-    scratch = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        build.raise_on(_kernels().dfd_res_stage(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), s.data_ptr(), t.data_ptr(),
-            out.data_ptr(), scratch.data_ptr(), M, B, C, H, W,
-            int(compute_dtype is not None), stream,
-        ), "fused_res_stage")
-    fused_res_stage.launches += 1
+        ptrs = (x.data_ptr(), w.data_ptr(), b.data_ptr(), s.data_ptr(), t.data_ptr(),
+                out.data_ptr())
+        if compute_dtype is None:
+            scratch = torch.empty_like(x)
+            build.raise_on(_kernels().dfd_res_stage(*ptrs, scratch.data_ptr(), M, B, C, H, W,
+                                                    stream), "fused_res_stage")
+            fused_res_stage.launches += 1
+        else:
+            cluster, band, _ = res_stage_mma_plan(C, H, W)
+            build.raise_on(_mma_kernels().dfd_res_stage_mma(*ptrs, M, B, C, H, W, cluster, band,
+                                                            stream), "fused_res_stage (bf16)")
+            fused_res_stage.mma_launches += 1
     return out
 
 
 fused_res_stage.launches = 0
+fused_res_stage.mma_launches = 0
 
 
 def fused_feat_pool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, s: torch.Tensor,
@@ -230,12 +304,19 @@ def fused_feat_pool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, s: torch.
                       device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        build.raise_on(_kernels().dfd_feat_pool(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), s.data_ptr(), t.data_ptr(),
-            out.data_ptr(), M, B, ci, co, H, W, int(compute_dtype is not None), stream,
-        ), "fused_feat_pool")
-    fused_feat_pool.launches += 1
+        ptrs = (x.data_ptr(), w.data_ptr(), b.data_ptr(), s.data_ptr(), t.data_ptr(),
+                out.data_ptr())
+        if compute_dtype is None:
+            build.raise_on(_kernels().dfd_feat_pool(*ptrs, M, B, ci, co, H, W, stream),
+                           "fused_feat_pool")
+            fused_feat_pool.launches += 1
+        else:
+            pb, _, _ = feat_pool_mma_plan(ci, co, H, W)
+            build.raise_on(_mma_kernels().dfd_feat_pool_mma(*ptrs, M, B, ci, co, H, W, pb,
+                                                            stream), "fused_feat_pool (bf16)")
+            fused_feat_pool.mma_launches += 1
     return out
 
 
 fused_feat_pool.launches = 0
+fused_feat_pool.mma_launches = 0

@@ -11,9 +11,10 @@ Tolerances: eps to 1e-5 absolute (libm ulps in log/cos between the kernel
 and PyTorch's CUDA functions); the combine's member sum in another order to
 relative L2 1e-5; the fused torso kernels to 1e-5 of the output's scale in
 f32 (sums of up to 1152 products in another order), the feature block in
-bf16 too (the same bf16 operands, sums in another order), the res stage in
-bf16 to 4e-3 (an f32 intermediate one ulp apart can round to the
-neighbouring bf16 value: 1.4e-3 at most at the production shapes), the
+bf16 too (the same bf16 operands, sums in another order, on the tensor
+cores), the res stage in bf16 to 4e-3 (an f32 intermediate one ulp apart can
+round to the neighbouring bf16 value: 1.4e-3 at most at the production
+shapes), the
 probes' chain in bf16 to 5e-4 (10x the worst seen), and every bf16 result
 nearer its bf16 plain version than its f32 one; the trainer's mean reward to rtol
 1e-6, since the card's mean of the same integer rewards may round its
@@ -123,9 +124,7 @@ FEAT_SHAPES = [(129, 1, 16, 32, 32, 32, False), (129, 1, 32, 32, 16, 16, False),
                (4, 1, 64, 128, 32, 32, True), (4, 1, 128, 128, 16, 16, True)]
 
 
-@pytest.mark.parametrize("kind, shape", [("res", s) for s in RES_SHAPES]
-                         + [("feat", s) for s in FEAT_SHAPES])
-def test_fused_kernels_match_plain(cuda, kind, shape):
+def _check_fused(kind, shape, cuda):
     M, B, ci, co, H, W, bf16 = shape
     kernel, plain = ((fr.fused_res_stage, fr.fused_res_stage_plain) if kind == "res"
                      else (fr.fused_feat_pool, fr.fused_feat_pool_plain))
@@ -140,6 +139,54 @@ def test_fused_kernels_match_plain(cuda, kind, shape):
     assert err <= (4e-3 if bf16 and kind == "res" else 1e-5) * scale
     if bf16:
         assert err < (got - plain(*args)).abs().max().item()
+
+
+@pytest.mark.parametrize("kind, shape", [("res", s) for s in RES_SHAPES]
+                         + [("feat", s) for s in FEAT_SHAPES])
+def test_fused_kernels_match_plain(cuda, kind, shape):
+    _check_fused(kind, shape, cuda)
+
+
+# (M, B, ci, co, H, W) of the bf16 route (the tensor-core kernels):
+# impala_prod_bf16's rollout and novelty shapes (M = 65, one frame and 8),
+# the card's bf16 reference check's 8/16 channels (stage 0's 3 -> 8 feature
+# conv at 32x32 on), and ragged ones: C = 5 and other channels that are no
+# multiple of 16, odd H and W, bands that do not divide H (the res stage's
+# two row bands, the feature pool's pooled-row bands), a frame of one row
+MMA_RES_SHAPES = [(65, 1, 64, 64, 32, 32), (65, 1, 128, 128, 16, 16), (65, 8, 64, 64, 32, 32),
+                  (65, 8, 128, 128, 16, 16), (9, 1, 8, 8, 16, 16), (9, 1, 16, 16, 8, 8),
+                  (3, 2, 5, 5, 9, 13), (2, 1, 5, 5, 7, 33), (2, 3, 24, 24, 11, 6),
+                  (1, 1, 5, 5, 1, 3), (2, 1, 144, 144, 9, 9)]
+MMA_FEAT_SHAPES = [(65, 1, 64, 128, 32, 32), (65, 1, 128, 128, 16, 16), (65, 8, 64, 128, 32, 32),
+                   (65, 8, 128, 128, 16, 16), (9, 1, 3, 8, 32, 32), (9, 1, 8, 16, 16, 16),
+                   (3, 1, 5, 7, 9, 13), (3, 2, 5, 7, 16, 8), (2, 1, 24, 72, 21, 19),
+                   (2, 1, 80, 130, 12, 10), (2, 1, 5, 5, 1, 1)]
+
+
+@pytest.mark.parametrize("kind, shape", [("res", s) for s in MMA_RES_SHAPES]
+                         + [("feat", s) for s in MMA_FEAT_SHAPES])
+def test_mma_kernels_match_plain(cuda, kind, shape):
+    _check_fused(kind, (*shape, True), cuda)
+
+
+def test_fused_routes_follow_compute_dtype(cuda):
+    """bf16 runs the tensor-core kernels, f32 the CUDA-core ones; each route
+    counts only its own launches."""
+    counts = lambda: (fr.fused_res_stage.launches, fr.fused_res_stage.mma_launches,
+                      fr.fused_feat_pool.launches, fr.fused_feat_pool.mma_launches)
+    res = _fused_args("res", 2, 1, 8, 8, 16, 16, cuda)
+    feat = _fused_args("feat", 2, 1, 8, 16, 16, 16, cuda)
+    before = counts()
+    fr.fused_res_stage(*res, compute_dtype=torch.bfloat16)
+    fr.fused_feat_pool(*feat, compute_dtype=torch.bfloat16)
+    assert counts() == (before[0], before[1] + 1, before[2], before[3] + 1)
+    fr.fused_res_stage(*res)
+    fr.fused_feat_pool(*feat)
+    assert counts() == (before[0] + 1, before[1] + 1, before[2] + 1, before[3] + 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        fr.fused_res_stage(*_fused_args("res", 1, 1, 16, 16, 8, 2000, cuda),
+                           compute_dtype=torch.bfloat16)
+    assert counts() == (before[0] + 1, before[1] + 1, before[2] + 1, before[3] + 1)
 
 
 def test_fused_wrappers_count_launches_and_check_inputs(cuda):

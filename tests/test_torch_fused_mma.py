@@ -1,0 +1,81 @@
+"""The launch plans of the bf16 torso kernels (``csrc/fused_resblock_mma.cu``)
+and the wrappers' routing, on the CPU.
+
+The tensor-core kernels themselves run only on the card
+(``tests/test_torch_cuda.py``, marker ``cuda``).  What their launch needs is
+chosen in Python: the res stage's cluster of row bands and the feature
+pool's bands of pooled rows.  These tests hold those plans to the shapes
+the kernels are launched at: every image row and pooled row has exactly one
+owner, the shared memory fits an H100 block, and what cannot fit raises.
+On CPU tensors both wrappers run their plain versions in either type and
+count no launch.
+"""
+
+import pytest
+import torch
+
+from dfd_tpu_torch.ops import fused_resblock as fr
+
+# (C, H, W): impala_prod_bf16's res stages, the bf16 reference check's, ragged ones
+RES_SHAPES = [(64, 32, 32), (128, 16, 16), (8, 16, 16), (16, 8, 8), (5, 8, 12), (5, 9, 13),
+              (5, 7, 33), (24, 11, 6), (5, 1, 3), (144, 9, 9)]
+# (ci, co, H, W): impala_prod_bf16's feature blocks, the reference check's, ragged ones
+FEAT_SHAPES = [(64, 128, 32, 32), (128, 128, 16, 16), (3, 8, 32, 32), (8, 16, 16, 16),
+               (5, 7, 9, 13), (5, 7, 16, 8), (5, 7, 21, 19), (24, 72, 21, 19), (80, 130, 12, 10),
+               (5, 5, 1, 1)]
+
+
+@pytest.mark.parametrize("C, H, W", RES_SHAPES)
+def test_res_stage_plan_bands_cover_the_rows(C, H, W):
+    cluster, band, smem = fr.res_stage_mma_plan(C, H, W)
+    assert cluster in (2, 4, 8) and smem <= fr.SMEM_MAX
+    owners = [r for r in range(cluster) for _ in range(max(0, min(band, H - r * band)))]
+    assert owners == sorted(owners) and len(owners) == H  # each row once, in band order
+    kp = -(-C // 16) * 16
+    assert smem == 4 * (band + 2) * (W + 2) * (kp + 8) + 2 * kp * (kp + 8) + 4 * kp * C
+
+
+@pytest.mark.parametrize("ci, co, H, W", FEAT_SHAPES)
+def test_feat_pool_plan_bands_cover_the_pooled_rows(ci, co, H, W):
+    pb, bands, smem = fr.feat_pool_mma_plan(ci, co, H, W)
+    Ho = (H + 1) // 2
+    assert smem <= fr.SMEM_MAX
+    assert (bands - 1) * pb < Ho <= bands * pb  # no band is empty, none is missing
+    assert (2 * pb + 1) * W <= 256 or pb == 1  # one chunk of dense positions a block
+
+
+def test_production_plans_fill_the_card():
+    """At impala_prod_bf16's rollout (M = 65 members, one frame each) the res
+    stage runs 130 blocks on the H100's 132 SMs, and the feature pool's
+    shared memory lets two blocks share an SM."""
+    assert fr.res_stage_mma_plan(64, 32, 32)[:2] == (2, 16)
+    assert fr.res_stage_mma_plan(128, 16, 16)[:2] == (2, 8)
+    for ci, co, H, W in ((64, 128, 32, 32), (128, 128, 16, 16)):
+        assert 2 * fr.feat_pool_mma_plan(ci, co, H, W)[2] <= 228 * 1024 - 2 * 1024
+
+
+def test_mma_plans_refuse_what_does_not_fit():
+    with pytest.raises(ValueError, match="shared memory"):
+        fr.res_stage_mma_plan(16, 8, 2000)
+    with pytest.raises(ValueError, match="shared memory"):
+        fr.res_stage_mma_plan(256, 16, 16)
+    with pytest.raises(ValueError, match="shared memory"):
+        fr.feat_pool_mma_plan(512, 64, 16, 512)
+
+
+@pytest.mark.parametrize("compute_dtype", [None, torch.bfloat16], ids=["f32", "bf16"])
+def test_cpu_tensors_take_the_plain_versions_and_count_nothing(compute_dtype):
+    g = torch.Generator().manual_seed(0)
+    r = lambda *shape: torch.randn(*shape, generator=g)
+    counts = lambda: (fr.fused_res_stage.launches, fr.fused_res_stage.mma_launches,
+                      fr.fused_feat_pool.launches, fr.fused_feat_pool.mma_launches)
+    before = counts()
+    res = (r(2, 1, 5, 9, 13), r(2, 4, 5, 45) / 7, r(2, 4, 5), 1 + r(2, 4, 5).abs(), r(2, 4, 5))
+    got = fr.fused_res_stage(*res, compute_dtype=compute_dtype)
+    torch.testing.assert_close(got, fr.fused_res_stage_plain(*res, compute_dtype),
+                               rtol=0, atol=0)
+    feat = (r(2, 1, 5, 9, 13), r(2, 7, 45) / 7, r(2, 7), 1 + r(2, 5).abs(), r(2, 5))
+    got = fr.fused_feat_pool(*feat, compute_dtype=compute_dtype)
+    torch.testing.assert_close(got, fr.fused_feat_pool_plain(*feat, compute_dtype),
+                               rtol=0, atol=0)
+    assert counts() == before

@@ -62,8 +62,11 @@ def _close(got, want, rtol=1e-6, atol=0.0):
 
 def test_port_sources_import_no_jax():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|dfd_tpu)(\.|\s|$)", re.M)
-    files = sorted((ROOT / "dfd_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted((ROOT / "dfd_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "tools").glob("torch_*.py")))
     assert len(files) > 20
+    assert {ROOT / "tools" / "torch_epoch_profile.py", ROOT / "tools" / "torch_mma_variants.py"} \
+        <= set(files)
     assert {ROOT / "dfd_tpu_torch" / m for m in (
         "ops/gemm_chain.py", "ops/relayout.py", "ops/res_chain.py", "probes/_common.py",
         "probes/gemm.py", "probes/torso.py", "probes/pool.py", "probes/wide.py")} <= set(files)
