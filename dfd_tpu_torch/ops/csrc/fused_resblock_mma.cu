@@ -1,7 +1,7 @@
 // Fused IMPALA torso kernels on Hopper's tensor cores (sm_90a), bf16 operands
 // with f32 accumulation, with a plain C interface loaded through ctypes
 // (dfd_tpu_torch/ops/fused_resblock.py, which routes compute_dtype=bfloat16
-// here and float32 to fused_resblock.cu).
+// here and float32 to fused_resblock_tf32.cu).
 //
 // Replaces the Pallas TPU kernels dfd_tpu/ops/fused_resblock.py::
 // fused_res_stage (_stage_kernel) and ::fused_feat_pool (_featpool_kernel)
@@ -22,7 +22,7 @@
 // (M = 65 members, one frame each, 64 ch x 32x32 and 128 ch x 16x16) a torso
 // call's two res-stage launches read 243 MB, 191 MB of it f32 weights: 72.7 us
 // at 3.35 TB/s, against 40 us for its 39.4 GFLOP at the bf16 tensor-core rate.
-// The CUDA-core kernels of fused_resblock.cu took 7.975 ms for the same call.
+// The CUDA-core kernels these replaced took 7.975 ms for the same call.
 // What this design does about their five limits:
 //
 // 1. Tensor cores.  Each 3x3 conv is an implicit GEMM, out[co][n] =

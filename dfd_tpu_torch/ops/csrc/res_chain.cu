@@ -23,8 +23,8 @@
 // the chain is 19.3 GFLOP, 0.29 ms at 67 TFLOP/s in f32, against 151 MB of per-member
 // weights (45 us at 3.35 TB/s); with bf16 operands at the 989 TFLOP/s of the tensor cores the
 // bytes would bound it.  This first kernel runs the products on the CUDA cores in f32 for
-// both types, a design copied from fused_resblock.cu's res_stage_kernel (whose code is left
-// as it is, so that its times stay comparable): one block per member, since each conv needs
+// both types, the design of the first CUDA-core res-stage kernel of the fused torso (since
+// replaced by fused_resblock_tf32.cu): one block per member, since each conv needs
 // every channel of the one before; a 16 x 16 tile of positions, one per thread, each thread
 // holding 16 output channels in registers; per round, 8 input channels of the halo-padded
 // tile and the matching weight slice staged in shared memory (the weights are 2.4 MB a

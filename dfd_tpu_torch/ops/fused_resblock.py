@@ -17,22 +17,25 @@ out: ``x [M, B, C, H, W]`` float32, conv weights in the tap order of
 :func:`reorder_conv_weight`, and per-member BN folds (:func:`fold_bn_eval`).
 Each wrapper runs a CUDA kernel on CUDA tensors and its plain PyTorch
 version (``*_plain``) on CPU tensors; other devices, dtypes, shapes or
-layouts raise.  On the card the route follows ``compute_dtype``:
+layouts raise.  On the card both routes run on the tensor cores, the route
+following ``compute_dtype``:
 
-- ``None``: float32 on the CUDA cores (``csrc/fused_resblock.cu``,
-  ``res_stage_kernel``, ``feat_pool_kernel``), counted in ``launches``;
+- ``None``: float32-accurate products as three TF32 products of split
+  operands (3xTF32: ``a * b ~ lo_a * hi_b + hi_a * lo_b + hi_a * hi_b``)
+  summed in float32 (``csrc/fused_resblock_tf32.cu``,
+  ``res_stage_tf32_kernel``, ``feat_pool_tf32_kernel``), counted in
+  ``launches``;
 - ``torch.bfloat16``: both conv operands rounded to bf16 and the products
   summed in float32, as the TPU kernel's bf16 dot with
-  ``preferred_element_type=float32`` does, on the tensor cores
-  (``csrc/fused_resblock_mma.cu``, ``res_stage_mma_kernel``,
-  ``feat_pool_mma_kernel``), counted in ``mma_launches``.
+  ``preferred_element_type=float32`` does (``csrc/fused_resblock_mma.cu``,
+  ``res_stage_mma_kernel``, ``feat_pool_mma_kernel``), counted in
+  ``mma_launches``.
 
 A failed build or launch raises; nothing falls back to another route.
 
-The float32 route is bound by its f32 FMAs; the bf16 route at production
-widths by the bytes of its float32 weights (see the CUDA sources).  Both
-keep the taps out of memory altogether.  Unlike the TPU kernels they take
-any C, H and W (the bf16 route up to the shared memory a block holds:
+Both keep the taps out of memory altogether.  Unlike the TPU kernels they
+take any C, H and W, up to the shared memory a block holds (the launch
+plans :func:`res_stage_tf32_plan`, :func:`feat_pool_tf32_plan`,
 :func:`res_stage_mma_plan`, :func:`feat_pool_mma_plan`);
 :func:`fused_supported` (the TPU's lane rule ``H * W % 128 == 0``) is kept
 only as the IMPALA model's gate, so the port runs the same layers through
@@ -183,14 +186,73 @@ def _check_cuda(x, *operands, compute_dtype) -> None:
             f"compute_dtype must be None or torch.bfloat16, got {compute_dtype}")
 
 
-# The bf16 kernels' launch plans.  The CUDA entry points recompute the
-# shared memory from the same parameters and refuse a plan that does not fit.
+# The kernels' launch plans.  The bf16 entry points recompute the shared
+# memory from the same parameters and refuse a plan that does not fit; the
+# f32 ones compute the plan themselves and refuse one that differs.
 SMEM_MAX = 232_448  # bytes of shared memory an H100 block can use
-FEAT_GROUP = 64     # output channels of one feature-pool block
+FEAT_GROUP = 64     # output channels of one bf16 feature-pool block
+TF32_MAX_ROWS = 256  # output channels an f32 block takes: 8 warps of 32
 
 
 def _pad16(n: int) -> int:
     return -(-n // 16) * 16
+
+
+def _tf32_tiles(co: int) -> Tuple[int, int]:
+    """(weight rows the warps read, positions a chunk covers at most) of the
+    f32 kernels: a warp takes one m16 tile x 128 positions at up to 16
+    output channels, else two x 64, and the 8 warps spread over the channel
+    groups first."""
+    mt = 1 if co <= 16 else 2
+    rows = -(-co // (16 * mt)) * 16 * mt
+    return rows, 8 // (rows // (16 * mt)) * 8 * (16 // mt)
+
+
+@functools.lru_cache(maxsize=None)
+def res_stage_tf32_plan(C: int, H: int, W: int) -> Tuple[int, int, int, int]:
+    """(cluster, band, tap group, shared bytes) of ``res_stage_tf32_kernel``:
+    the fewest blocks a frame (1, 2, 4 or 8) whose bands of ``band`` image
+    rows, two halo-padded f32 buffers of every channel, fit beside two
+    buffers of weights in groups of 9, 3 or 1 taps (the largest that fits)."""
+    rows, _ = _tf32_tiles(C)
+    _expect(rows <= TF32_MAX_ROWS, f"the f32 res stage takes at most {TF32_MAX_ROWS} channels, "
+                                   f"got C={C}")
+    kp = -(-C // 8) * 8
+    for cluster in (1, 2, 4, 8):
+        band = -(-H // cluster)
+        for wt in (9, 3, 1):
+            smem = 4 * (2 * (band + 2) * (W + 2) * (kp + 4) + 2 * rows * (wt * kp + 4))
+            if smem <= SMEM_MAX:
+                return cluster, band, wt, smem
+    raise ValueError(f"the f32 res stage's band of C={C} x W={W} does not fit in "
+                     f"{SMEM_MAX} bytes of shared memory")
+
+
+@functools.lru_cache(maxsize=None)
+def feat_pool_tf32_plan(ci: int, co: int, H: int, W: int) -> Tuple[int, int, int, int]:
+    """(pooled rows a block, bands, tap group, shared bytes) of
+    ``feat_pool_tf32_kernel``: the most pooled rows, spread evenly over the
+    bands, whose dense rows one chunk of the block's warps covers (the dense
+    map then overlays the conv's buffers), and the largest tap group that
+    fits; fewer rows while nothing fits."""
+    rows, cap = _tf32_tiles(co)
+    _expect(rows <= TF32_MAX_ROWS, f"the f32 feature pool takes at most {TF32_MAX_ROWS} output "
+                                   f"channels, got co={co}")
+    kp, Ho = -(-ci // 8) * 8, (H + 1) // 2
+    pb = min(Ho, max(1, (cap // W - 1) // 2))
+    while True:
+        bands = -(-Ho // pb)
+        pb = -(-Ho // bands)
+        dr = 2 * pb + 1
+        for wt in (9, 3, 1):
+            conv = 4 * ((dr + 2) * (W + 2) * (kp + 4) + 2 * rows * (wt * kp + 4))
+            dense = 4 * co * dr * W
+            smem = max(conv, dense) if dr * W <= cap else conv + dense
+            if smem <= SMEM_MAX:
+                return pb, bands, wt, smem
+        _expect(pb > 1, f"the f32 feature pool's rows of ci={ci} x W={W} do not fit in "
+                        f"{SMEM_MAX} bytes of shared memory")
+        pb -= 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -231,13 +293,13 @@ def feat_pool_mma_plan(ci: int, co: int, H: int, W: int) -> Tuple[int, int, int]
 
 
 @functools.lru_cache(maxsize=None)
-def _kernels() -> ctypes.CDLL:
-    lib = build.load("fused_resblock")
+def _tf32_kernels() -> ctypes.CDLL:
+    lib = build.load("fused_resblock_tf32")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.dfd_res_stage.argtypes = [vp] * 7 + [i32] * 5 + [vp]
-    lib.dfd_res_stage.restype = i32
-    lib.dfd_feat_pool.argtypes = [vp] * 6 + [i32] * 6 + [vp]
-    lib.dfd_feat_pool.restype = i32
+    lib.dfd_res_stage_tf32.argtypes = [vp] * 6 + [i32] * 8 + [vp]
+    lib.dfd_res_stage_tf32.restype = i32
+    lib.dfd_feat_pool_tf32.argtypes = [vp] * 6 + [i32] * 8 + [vp]
+    lib.dfd_feat_pool_tf32.restype = i32
     return lib
 
 
@@ -270,9 +332,9 @@ def fused_res_stage(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, s: torch.
         ptrs = (x.data_ptr(), w.data_ptr(), b.data_ptr(), s.data_ptr(), t.data_ptr(),
                 out.data_ptr())
         if compute_dtype is None:
-            scratch = torch.empty_like(x)
-            build.raise_on(_kernels().dfd_res_stage(*ptrs, scratch.data_ptr(), M, B, C, H, W,
-                                                    stream), "fused_res_stage")
+            cluster, band, wt, _ = res_stage_tf32_plan(C, H, W)
+            build.raise_on(_tf32_kernels().dfd_res_stage_tf32(*ptrs, M, B, C, H, W, cluster, band,
+                                                              wt, stream), "fused_res_stage")
             fused_res_stage.launches += 1
         else:
             cluster, band, _ = res_stage_mma_plan(C, H, W)
@@ -307,8 +369,9 @@ def fused_feat_pool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, s: torch.
         ptrs = (x.data_ptr(), w.data_ptr(), b.data_ptr(), s.data_ptr(), t.data_ptr(),
                 out.data_ptr())
         if compute_dtype is None:
-            build.raise_on(_kernels().dfd_feat_pool(*ptrs, M, B, ci, co, H, W, stream),
-                           "fused_feat_pool")
+            pb, _, wt, _ = feat_pool_tf32_plan(ci, co, H, W)
+            build.raise_on(_tf32_kernels().dfd_feat_pool_tf32(*ptrs, M, B, ci, co, H, W, pb, wt,
+                                                              stream), "fused_feat_pool")
             fused_feat_pool.launches += 1
         else:
             pb, _, _ = feat_pool_mma_plan(ci, co, H, W)

@@ -9,7 +9,7 @@
 - :func:`time_ms` and :func:`bound` — a kernel's time on the card with CUDA
   events, and the least time the card could take for the same work, from
   the H100 SXM's published peaks (``F32_RATE``, ``BF16_RATE``,
-  ``BYTES_RATE``).
+  ``TF32_RATE`` and ``TF32X3_RATE``, ``BYTES_RATE``).
 """
 
 from __future__ import annotations
@@ -24,6 +24,8 @@ import torch
 
 F32_RATE = 67e12      # H100 SXM float32 FLOP/s outside the tensor cores
 BF16_RATE = 989e12    # H100 SXM dense bf16 tensor-core FLOP/s
+TF32_RATE = 495e12    # H100 SXM dense TF32 tensor-core FLOP/s
+TF32X3_RATE = TF32_RATE / 3  # f32-accurate products as three TF32 ones (3xTF32)
 BYTES_RATE = 3.35e12  # H100 SXM HBM3 bytes/s
 SPIN_CYCLES_PER_S = 2.0e9  # at least the H100's SM clock (1.98 GHz at most)
 

@@ -10,7 +10,8 @@ conftest:
 Tolerances: eps to 1e-5 absolute (libm ulps in log/cos between the kernel
 and PyTorch's CUDA functions); the combine's member sum in another order to
 relative L2 1e-5; the fused torso kernels to 1e-5 of the output's scale in
-f32 (sums of up to 1152 products in another order), the feature block in
+f32 (sums of up to 1152 products in another order, each product as three
+TF32 ones of split operands: about 22 of f32's 24 bits), the feature block in
 bf16 too (the same bf16 operands, sums in another order, on the tensor
 cores), the res stage in bf16 to 4e-3 (an f32 intermediate one ulp apart can
 round to the neighbouring bf16 value: 1.4e-3 at most at the production
@@ -113,14 +114,20 @@ def _fused_args(kind, M, B, ci, co, H, W, dev, seed=0):
 
 
 # (M, B, ci, co, H, W, bf16): the flagship's rollout shapes (M = 129 members,
-# one frame), a novelty shape (8 frames), ragged ones, production widths
+# one frame) and novelty shapes (8 frames) on the f32 route (3xTF32), ragged
+# ones (C = 5 and 17, odd H and W), f32 frames that take clusters of 2 and 4
+# blocks and tap groups of 3 and 1, production widths in bf16
 RES_SHAPES = [(129, 1, 16, 16, 32, 32, False), (129, 1, 32, 32, 16, 16, False),
-              (129, 8, 32, 32, 16, 16, False), (3, 2, 5, 5, 8, 12, False),
-              (2, 1, 17, 17, 7, 33, False), (4, 1, 64, 64, 32, 32, True),
-              (4, 1, 128, 128, 16, 16, True)]
+              (129, 8, 16, 16, 32, 32, False), (129, 8, 32, 32, 16, 16, False),
+              (3, 2, 5, 5, 8, 12, False), (3, 2, 5, 5, 9, 13, False),
+              (2, 1, 17, 17, 7, 33, False), (2, 1, 16, 16, 40, 40, False),
+              (2, 1, 64, 64, 32, 32, False), (2, 1, 32, 32, 24, 24, False),
+              (4, 1, 64, 64, 32, 32, True), (4, 1, 128, 128, 16, 16, True)]
 FEAT_SHAPES = [(129, 1, 16, 32, 32, 32, False), (129, 1, 32, 32, 16, 16, False),
-               (129, 8, 16, 32, 32, 32, False), (3, 2, 5, 7, 16, 8, False),
-               (3, 1, 5, 7, 9, 13, False), (2, 1, 3, 20, 40, 24, False),
+               (129, 8, 16, 32, 32, 32, False), (129, 8, 32, 32, 16, 16, False),
+               (3, 2, 5, 7, 16, 8, False), (3, 1, 5, 7, 9, 13, False),
+               (3, 2, 5, 7, 21, 19, False), (2, 1, 3, 20, 40, 24, False),
+               (2, 1, 5, 7, 6, 600, False), (2, 1, 64, 128, 32, 32, False),
                (4, 1, 64, 128, 32, 32, True), (4, 1, 128, 128, 16, 16, True)]
 
 
@@ -169,24 +176,55 @@ def test_mma_kernels_match_plain(cuda, kind, shape):
     _check_fused(kind, (*shape, True), cuda)
 
 
-def test_fused_routes_follow_compute_dtype(cuda):
-    """bf16 runs the tensor-core kernels, f32 the CUDA-core ones; each route
-    counts only its own launches."""
+def test_fused_routes_follow_compute_dtype(cuda, monkeypatch):
+    """bf16 runs the bf16 tensor-core kernels (fused_resblock_mma.cu), f32 the
+    3xTF32 ones (fused_resblock_tf32.cu) and nothing else; each route counts
+    only its own launches."""
+    from dfd_tpu_torch.ops import build
+
+    assert "fused_resblock" not in build.sources()  # the CUDA-core kernels are gone
     counts = lambda: (fr.fused_res_stage.launches, fr.fused_res_stage.mma_launches,
                       fr.fused_feat_pool.launches, fr.fused_feat_pool.mma_launches)
+    calls = []
+
+    def spy(load, prefix):
+        lib = load()
+
+        class Spy:
+            def __getattr__(self, name):
+                fn = getattr(lib, name)
+                return lambda *a: calls.append(f"{prefix}.{name}") or fn(*a)
+        return Spy()
+
+    tf32, mma = fr._tf32_kernels, fr._mma_kernels
+    monkeypatch.setattr(fr, "_tf32_kernels", lambda: spy(tf32, "tf32"))
+    monkeypatch.setattr(fr, "_mma_kernels", lambda: spy(mma, "mma"))
     res = _fused_args("res", 2, 1, 8, 8, 16, 16, cuda)
     feat = _fused_args("feat", 2, 1, 8, 16, 16, 16, cuda)
     before = counts()
     fr.fused_res_stage(*res, compute_dtype=torch.bfloat16)
     fr.fused_feat_pool(*feat, compute_dtype=torch.bfloat16)
     assert counts() == (before[0], before[1] + 1, before[2], before[3] + 1)
+    assert calls == ["mma.dfd_res_stage_mma", "mma.dfd_feat_pool_mma"]
     fr.fused_res_stage(*res)
     fr.fused_feat_pool(*feat)
     assert counts() == (before[0] + 1, before[1] + 1, before[2] + 1, before[3] + 1)
-    with pytest.raises(ValueError, match="shared memory"):
-        fr.fused_res_stage(*_fused_args("res", 1, 1, 16, 16, 8, 2000, cuda),
-                           compute_dtype=torch.bfloat16)
+    assert calls[2:] == ["tf32.dfd_res_stage_tf32", "tf32.dfd_feat_pool_tf32"]
+    for cd in (torch.bfloat16, None):
+        with pytest.raises(ValueError, match="shared memory"):
+            fr.fused_res_stage(*_fused_args("res", 1, 1, 16, 16, 8, 2000, cuda), compute_dtype=cd)
     assert counts() == (before[0] + 1, before[1] + 1, before[2] + 1, before[3] + 1)
+    # the f32 entry points refuse a plan other than their own
+    cluster, band, wt, _ = fr.res_stage_tf32_plan(8, 16, 16)
+    x, w, b, s, t = res
+    out = torch.empty_like(x)
+    ptrs = [v.data_ptr() for v in (x, w, b, s, t, out)]
+    stream = torch.cuda.current_stream().cuda_stream
+    assert tf32().dfd_res_stage_tf32(*ptrs, 2, 1, 8, 16, 16, cluster, band, 3, stream) != 0
+    pb, _, wt, _ = fr.feat_pool_tf32_plan(8, 16, 16, 16)
+    x, w, b, s, t = feat
+    ptrs = [v.data_ptr() for v in (x, w, b, s, t, out)]
+    assert tf32().dfd_feat_pool_tf32(*ptrs, 2, 1, 8, 16, 16, 16, pb + 1, wt, stream) != 0
 
 
 def test_fused_wrappers_count_launches_and_check_inputs(cuda):

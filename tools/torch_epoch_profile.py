@@ -49,8 +49,8 @@ import torch  # noqa: E402
 
 STAGES = ("perturb", "rollout", "novelty", "combine")
 LAYERS = ("linear", "lstm", "patches")  # the IMPALA ranges inside the stages
-PORTED = ("perturb_kernel", "combine_kernel", "res_stage_kernel", "feat_pool_kernel",
-          "res_stage_mma_kernel", "feat_pool_mma_kernel")
+PORTED = ("perturb_kernel", "combine_kernel", "res_stage_mma_kernel", "feat_pool_mma_kernel",
+          "res_stage_tf32_kernel", "feat_pool_tf32_kernel")
 
 
 def _device_us(evt, total: bool = False) -> float:
