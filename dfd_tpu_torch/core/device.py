@@ -1,6 +1,10 @@
-"""Device selection: the port runs on the card unless told otherwise."""
+"""Device selection: the port runs on the card unless told otherwise; and
+its float32 products in full float32 (:func:`full_f32`)."""
 
 from __future__ import annotations
+
+import contextlib
+from typing import Iterator
 
 import torch
 
@@ -14,3 +18,29 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def _matmul_precision() -> str:
+    try:
+        return torch.get_float32_matmul_precision()
+    except RuntimeError:  # the caller mixed the allow_tf32 flag with the newer API
+        return "high" if torch.backends.cuda.matmul.allow_tf32 else "highest"
+
+
+@contextlib.contextmanager
+def full_f32() -> Iterator[None]:
+    """Float32 matrix products and cuDNN convolutions in full float32 inside
+    the block (no TF32: ``torch.backends.cuda.matmul.allow_tf32`` and
+    ``torch.backends.cudnn.allow_tf32`` read False), the caller's settings
+    restored after it.  The port's float32 products are plain
+    ``torch.bmm``/``baddbmm`` calls, which a caller's
+    ``torch.set_float32_matmul_precision("high")`` would otherwise send to
+    TF32, out of the JAX package's tolerances."""
+    precision, cudnn_tf32 = _matmul_precision(), torch.backends.cudnn.allow_tf32
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(precision)
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32

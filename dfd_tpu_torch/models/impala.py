@@ -16,8 +16,8 @@ port's init equals JAX's.
 ``conv_impl`` picks the same routes through the torso as the JAX model, by
 the same shape gates (decided once here, from the frame shape):
 
-- ``"patches"``: every conv as im2col (``F.unfold``) and one batched product
-  per member;
+- ``"patches"``: every conv as im2col (a strided view of the padded frame,
+  copied once, :func:`conv3x3_patches`) and one batched product per member;
 - ``"fused"``: a stage's residual pair through the ``fused_res_stage``
   kernel where ``fused_supported(H, W)``;
 - ``"fused_feat"``: also the feature block through the ``fused_feat_pool``

@@ -10,14 +10,41 @@
 //   dfd_perturb:  out[i, j] = theta[j] + sigma * eps[i, j]
 //   dfd_combine:  g[j]      = sum_i coef[i] * eps[i, j]
 //
-// What bounds them: the hash (five murmur3 fmix32 rounds per element in
-// perturb, two in combine) plus logf, cosf and sqrtf of Box-Muller, about
-// 10.6 M normals per call at P = 2048, d = 5197.  Perturb writes 42.6 MB,
-// about 13 us at 3.35 TB/s, so both kernels are bound by operations, not
-// bytes.  The design spends no memory traffic on eps at all; combine hoists
-// the per-(member, chunk) key out of the per-element work (one 128-wide
-// tile of keys and coefficients per block, in shared memory), so each
-// element costs two fmix32 rounds and the transcendentals.
+// What bounds perturb: the bytes.  At impala_prod_bf16's P = 64,
+// d = 7,872,651 it writes 2.0 GB of population rows (0.61 ms at 3.35 TB/s)
+// against about 36 operations an element (the stream normal's two fmix32
+// rounds, logf, cosf and sqrtf, then sigma * z + theta: 0.54 ms at the CUDA
+// cores' 33.5 T instructions a second); at mlp_trap's P = 2048, d = 5197 the
+// two are about even (13 and 11 us).  Its design:
+//
+// 1. Threads own columns.  A block of 256 threads owns one 1024-lane chunk of
+//    j, a thread 4 consecutive j of it, and loops over a slice of the members:
+//    theta is read once a slice (its window in registers), and the gy slices
+//    of one chunk are neighbouring blocks, so the re-reads come from L2.  The
+//    slices are cut only as fine as it takes to give the card some eight
+//    waves of blocks (mlp_trap's d = 5197 is 6 chunks; P = 2048 is cut into
+//    512 slices of 4 members).
+// 2. Keys hoisted.  The (member, chunk) key, two fmix32 rounds, is computed
+//    once a block for each member of its slice into shared memory; the lane's
+//    lane * golden is computed once a thread.  An element costs the stream
+//    normal and the sum.
+// 3. Stores vectorized.  Each member row is stored as aligned float4s by
+//    streaming stores (__stcs), so the output does not evict theta from L2.
+//    Row i starts at float i * d, off a 16-byte boundary by s = i * d mod 4
+//    floats when d % 4 != 0, so for row i a thread stores the aligned group
+//    j = 4T - s .. 4T - s + 3: its own 4 columns shifted left by s.  Its
+//    window of 7 columns (4T - 3 .. 4T + 3) holds every group any shift
+//    needs; the first thread of a chunk takes the window's three left columns
+//    from the previous chunk's key.  Groups that cross a row's start or end
+//    are stored element by element, masked to [0, d).
+// 4. Antithetic pairs.  Rows 2m and 2m + 1 share member m's normals with
+//    opposite signs: the window's normals are computed once for both rows'
+//    groups (at most 7 for 8 values, 4 for 8 when d % 4 == 0).
+//
+// Combine is bound by its operations (P normals an output and only P + d
+// floats moved); it hoists the per-(member, chunk) key as perturb does (one
+// 128-wide tile of keys and coefficients per block, in shared memory), so
+// each element costs the stream normal and the multiply-add.
 //
 // Arithmetic follows the JAX stream exactly: uint32 arithmetic wraps as on
 // the TPU, the uniforms are (bits >> 8) / 2^24 with u1 nudged by 1e-7f, and
@@ -53,9 +80,8 @@ __device__ __forceinline__ uint32_t member_key(uint32_t base, uint32_t member,
   return fmix32(key ^ chunk_idx * kMul2);
 }
 
-// One standard normal of the stream at (member key, lane).
-__device__ __forceinline__ float stream_normal(uint32_t key, uint32_t lane) {
-  const uint32_t mix = lane * kGolden ^ key;
+// One standard normal of the stream from mix = lane * golden ^ (member key).
+__device__ __forceinline__ float normal_of_mix(uint32_t mix) {
   const uint32_t b1 = fmix32(mix ^ 0x1234567u);
   const uint32_t b2 = fmix32(mix ^ 0x89ABCDEu);
   const float scale = 1.0f / 16777216.0f;
@@ -64,19 +90,119 @@ __device__ __forceinline__ float stream_normal(uint32_t key, uint32_t lane) {
   return __fmul_rn(sqrtf(__fmul_rn(-2.0f, logf(u1))), cosf(__fmul_rn(kTwoPi, u2)));
 }
 
-// One thread per element of out[P, d], grid-stride in both axes.
-__global__ void perturb_kernel(const float* __restrict__ theta, float* __restrict__ out,
-                               int P, int d, float sigma, uint32_t base, int antithetic) {
-  for (int i = blockIdx.y; i < P; i += gridDim.y) {
-    const uint32_t member = antithetic ? (uint32_t)(i >> 1) : (uint32_t)i;
-    const bool negate = antithetic && (i & 1);
-    float* row = out + (size_t)i * d;
-    for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < d; j += gridDim.x * blockDim.x) {
-      float z = stream_normal(member_key(base, member, (uint32_t)(j / kChunk)),
-                              (uint32_t)(j % kChunk));
-      if (negate) z = -z;
-      row[j] = __fadd_rn(theta[j], __fmul_rn(sigma, z));
-    }
+// One standard normal of the stream at (member key, lane).
+__device__ __forceinline__ float stream_normal(uint32_t key, uint32_t lane) {
+  return normal_of_mix(lane * kGolden ^ key);
+}
+
+// The perturb launch plan: 256 threads a block own one chunk; `slices`
+// blocks a chunk (neighbouring block indices) split the members (pairs under
+// antithetic) into runs of at most `per` members.
+struct PerturbPlan {
+  int chunks, slices, per;
+};
+
+constexpr int kGroupsPerChunk = kChunk / 4;   // a thread's 4 columns: 256 threads a chunk
+constexpr int kMaxPerBlock = 1024;            // members a block's key table holds
+constexpr int kTargetBlocks = 8 * 132 * 8;    // about eight waves of 8 blocks on 132 SMs
+constexpr int kMinPerBlock = 4;
+
+PerturbPlan perturb_plan(int P, int d, int antithetic) {
+  // groups T of 4 columns: for d % 4 != 0 a row's groups are shifted left by
+  // up to 3, so one more group covers its end
+  const long groups = (d + 3) / 4 + (d % 4 != 0);
+  const int members = antithetic ? (P + 1) / 2 : P;
+  PerturbPlan p;
+  p.chunks = (int)((groups + kGroupsPerChunk - 1) / kGroupsPerChunk);
+  long per = ((long)members * p.chunks + kTargetBlocks - 1) / kTargetBlocks;
+  per = per < kMinPerBlock ? kMinPerBlock : per;
+  per = per > kMaxPerBlock ? kMaxPerBlock : per;
+  per = per > members ? members : per;
+  p.slices = (int)((members + per - 1) / per);
+  p.per = (int)((members + p.slices - 1) / p.slices);  // even runs
+  return p;
+}
+
+// Row i's values at its aligned group j = jb .. jb + 3 (jb = 4T - S), taken
+// from the thread's window (column 4T - 3 + w at w): window index 3 - S + k.
+template <int S>
+__device__ __forceinline__ void store_group(float* __restrict__ row, long jb, int d,
+                                            const float (&th)[7], const float (&z)[7],
+                                            float sigma, bool negate) {
+  float v[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float e = negate ? -z[3 - S + k] : z[3 - S + k];
+    v[k] = __fadd_rn(th[3 - S + k], __fmul_rn(sigma, e));
+  }
+  if (jb >= 0 && jb + 3 < d) {
+    __stcs(reinterpret_cast<float4*>(row + jb), make_float4(v[0], v[1], v[2], v[3]));
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (jb + k >= 0 && jb + k < d) __stcs(row + jb + k, v[k]);
+  }
+}
+
+__device__ __forceinline__ void store_row(float* __restrict__ out, int i, int d, long T,
+                                          const float (&th)[7], const float (&z)[7],
+                                          float sigma, bool negate) {
+  const int s = ((i & 3) * (d & 3)) & 3;  // (i * d) mod 4: how far row i starts off 16 bytes
+  float* row = out + (size_t)i * d;
+  const long jb = 4 * T - s;
+  switch (s) {
+    case 0: store_group<0>(row, jb, d, th, z, sigma, negate); break;
+    case 1: store_group<1>(row, jb, d, th, z, sigma, negate); break;
+    case 2: store_group<2>(row, jb, d, th, z, sigma, negate); break;
+    default: store_group<3>(row, jb, d, th, z, sigma, negate); break;
+  }
+}
+
+// The window columns row i's group takes: w = 3 - s .. 6 - s.
+__device__ __forceinline__ uint32_t window_bits(int i, int d) {
+  return 0xFu << (3 - (((i & 3) * (d & 3)) & 3));
+}
+
+// blockIdx.x = chunk * slices + slice.  Thread t of chunk c owns columns
+// j = 4T .. 4T + 3, T = 256 c + t, and its window 4T - 3 .. 4T + 3.
+__global__ void __launch_bounds__(kPerturbThreads)
+perturb_kernel(const float* __restrict__ theta, float* __restrict__ out, int P, int d,
+               float sigma, uint32_t base, int antithetic, int slices, int per) {
+  __shared__ uint32_t s_key[kMaxPerBlock], s_prev[kMaxPerBlock];
+  const int chunk = blockIdx.x / slices, slice = blockIdx.x - chunk * slices;
+  const int members = antithetic ? (P + 1) / 2 : P;
+  const int m0 = slice * per, count = min(per, members - m0);
+  for (int r = threadIdx.x; r < count; r += kPerturbThreads) {
+    const uint32_t key = fmix32(base ^ (uint32_t)(m0 + r) * kMul1);
+    s_key[r] = fmix32(key ^ (uint32_t)chunk * kMul2);
+    s_prev[r] = fmix32(key ^ (uint32_t)(chunk - 1) * kMul2);  // read by thread 0 only
+  }
+  __syncthreads();
+  const long T = (long)chunk * kGroupsPerChunk + threadIdx.x;
+  const long groups = (d + 3) / 4 + (d % 4 != 0);
+  if (T >= groups) return;
+  // the window: theta (0 off [0, d)) and lane * golden of columns 4T - 3 + w
+  float th[7];
+  uint32_t lg[7];
+#pragma unroll
+  for (int w = 0; w < 7; ++w) {
+    const long j = 4 * T - 3 + w;
+    th[w] = (j >= 0 && j < d) ? __ldg(theta + j) : 0.0f;
+    lg[w] = (uint32_t)(j & (kChunk - 1)) * kGolden;
+  }
+  const bool first = threadIdx.x == 0;  // its window's columns 0-2 lie in the previous chunk
+  for (int r = 0; r < count; ++r) {
+    const int m = m0 + r;
+    const uint32_t key = s_key[r], key_lo = first ? s_prev[r] : key;
+    const int i0 = antithetic ? 2 * m : m;
+    const bool pair = antithetic && i0 + 1 < P;
+    const uint32_t need = window_bits(i0, d) | (pair ? window_bits(i0 + 1, d) : 0u);
+    float z[7];
+#pragma unroll
+    for (int w = 0; w < 7; ++w)
+      z[w] = (need >> w) & 1u ? normal_of_mix(lg[w] ^ (w < 3 ? key_lo : key)) : 0.0f;
+    store_row(out, i0, d, T, th, z, sigma, false);
+    if (pair) store_row(out, i0 + 1, d, T, th, z, sigma, true);
   }
 }
 
@@ -117,9 +243,10 @@ uint32_t key_base(uint32_t seed, uint32_t epoch) { return fmix32(seed * kGolden 
 extern "C" int dfd_perturb(const float* theta, float* out, int P, int d, float sigma,
                            uint32_t seed, uint32_t epoch, int antithetic, void* stream) {
   if (P <= 0 || d <= 0) return (int)cudaSuccess;
-  const dim3 grid((d + kPerturbThreads - 1) / kPerturbThreads, P < 65535 ? P : 65535);
-  perturb_kernel<<<grid, kPerturbThreads, 0, (cudaStream_t)stream>>>(
-      theta, out, P, d, sigma, key_base(seed, epoch), antithetic);
+  if (reinterpret_cast<uintptr_t>(out) % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  const PerturbPlan p = perturb_plan(P, d, antithetic);
+  perturb_kernel<<<p.chunks * p.slices, kPerturbThreads, 0, (cudaStream_t)stream>>>(
+      theta, out, P, d, sigma, key_base(seed, epoch), antithetic, p.slices, p.per);
   return (int)cudaGetLastError();
 }
 

@@ -15,13 +15,16 @@ its plain PyTorch version (:func:`perturb_plain`, :func:`combine_plain`) on a
 CPU tensor; any other device raises.  ``launches`` on each wrapper counts
 kernel launches.
 
-What bounds them on an H100: not bytes (perturb writes 42.6 MB at P = 2048,
-d = 5197, about 13 us at 3.35 TB/s; combine moves only P + d floats) but the
-operations: five fmix32 rounds (perturb) or two (combine) of 32-bit integer
-hashing plus logf, cosf and sqrtf for each of the ~10.6 M normals a call
-needs.  The kernels keep eps out of device memory entirely, and combine
-stages each tile of member keys in shared memory so the per-member key chain
-is paid once per block instead of once per element.  ||eps_i||^2 is a torch
+What bounds them on an H100: perturb, the bytes (it writes P * d floats:
+2.0 GB at ``impala_prod_bf16``'s P = 64, d = 7,872,651, 0.61 ms at 3.35
+TB/s, against about 36 operations an element); combine, the operations (P
+normals for each of its d outputs, only P + d floats moved).  The kernels
+keep eps out of device memory entirely and compute each (member, chunk) key
+once a block, not once an element.  Perturb's threads own 4 columns of a
+chunk each and loop over a slice of the members, so theta is read once a
+slice, and store each row as aligned float4s (a row that starts off a
+16-byte boundary is stored shifted by up to 3 columns, its ends element by
+element); see ``csrc/perturb.cu``.  ||eps_i||^2 is a torch
 reduction over the rounded outputs outside the kernel (:func:`noise_sumsq`),
 as in the JAX package.
 

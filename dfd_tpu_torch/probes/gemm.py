@@ -11,7 +11,11 @@ in one launch: fixed against proportional cost), the accumulate-free
 version (``iters`` PyTorch products) and the library route, one ``torch.mm``
 of the same multiply-adds (the operands repeated along the depth, so that one
 cuBLAS call sums the ``iters`` products; ``feed``'s is ``a @ b``, the value
-its chain ends on).  Products are full float32 everywhere (no TF32).
+its chain ends on).  The plain version and the library route take full
+float32 products (TF32 off); the kernel takes f32-accurate 3xTF32 ones on the
+tensor cores.  Each row gives both bounds of the products, as 3xTF32 at
+165 TFLOP/s (``bound_ms``) and on the CUDA cores at 67 (``cuda_core_bound_ms``),
+the kernel's ratio to the library route and its launch plan.
 """
 
 from __future__ import annotations
@@ -21,9 +25,10 @@ import sys
 import numpy as np
 import torch
 
-from dfd_tpu_torch.ops.gemm_chain import gemm_chain, gemm_chain_plain
+from dfd_tpu_torch.ops.gemm_chain import (gemm_chain, gemm_chain_plain, gemm_chain_plan,
+                                          ordered_route)
 from dfd_tpu_torch.probes import _common as c
-from dfd_tpu_torch.utils.profiling import F32_RATE
+from dfd_tpu_torch.utils.profiling import BYTES_RATE, F32_RATE, TF32X3_RATE
 
 # (M, K, N, iters, mode): tools/probe_pallas_gemm.py::main, in its order
 CASES = (
@@ -65,11 +70,24 @@ def chain_case(probe: str, case: str, a: torch.Tensor, b: torch.Tensor, iters: i
     # the library route sums all iters * K products in one dot, in cuBLAS's
     # order (up to 147,456 terms), hence ten times the chains' tolerance
     c.check_match(f"{probe}: {case}: library route", library(), plain(), 10 * c.TOL_F32)
-    row = c.measure(probe, case, "gemm_chain", lambda: gemm_chain(a, b, iters, mode), plain,
-                    tol=c.TOL_F32, flops=chain_flops(M, K, N, iters, mode), rate=F32_RATE,
-                    nbytes=4.0 * (M * K + K * N + M * N), dev=dev, n=n, library=library)
+    return gemm_row(probe, case, lambda: gemm_chain(a, b, iters, mode), plain, library, M, K, N,
+                    iters, chain_flops(M, K, N, iters, mode), dev, n, mode)
+
+
+def gemm_row(probe: str, case: str, run, plain, library, M: int, K: int, N: int, iters: int,
+             flops: float, dev: torch.device, n: int, mode: str = "acc") -> dict:
+    """One ``gemm_chain`` case measured (``_common.measure``), with both
+    bounds (3xTF32 first), the ratio to the library route and the plan."""
+    nbytes = 4.0 * (M * K + K * N + M * N)
+    row = c.measure(probe, case, "gemm_chain", run, plain, tol=c.TOL_F32, flops=flops,
+                    rate=TF32X3_RATE, nbytes=nbytes, dev=dev, n=n, library=library)
+    row["cuda_core_bound_ms"] = max(flops / F32_RATE, nbytes / BYTES_RATE) * 1e3
+    row["vs_library"] = row["ms"] / row["library_ms"]
     row["us_per_gemm"] = row["ms"] * 1e3 / iters
     row["tflops"] = 2.0 * M * K * N * iters / (row["ms"] * 1e-3) / 1e12
+    p = gemm_chain_plan(M, K, N, ordered_route(iters, mode), resident=mode == "feed")
+    row["plan"] = (f"{p.wm}x{p.wn}x{p.wk} warps of {p.mt}x{p.nt} m16n8 tiles, cluster "
+                   f"{p.cluster}, {p.blocks} blocks" + (", ordered FMAs" if ordered_route(iters, mode) else ""))
     return row
 
 

@@ -33,9 +33,9 @@ import torch
 from dfd_tpu_torch.ops import relayout as rl
 from dfd_tpu_torch.ops.gemm_chain import gemm_chain, gemm_chain_plain
 from dfd_tpu_torch.probes import _common as c
+from dfd_tpu_torch.probes.gemm import gemm_row
 from dfd_tpu_torch.probes.torso import relayout_row
 from dfd_tpu_torch.probes.wide import chain_rows
-from dfd_tpu_torch.utils.profiling import F32_RATE
 
 # the chains the TPU probe ran: (tag, layout, compute dtype)
 CHAINS = (("f32", "channel_major", None), ("f32", "channel_minor", None),
@@ -75,11 +75,9 @@ def run(device=None, C: int = 16, H: int = 64, W: int = 64, P: int = 64, Cs: int
         relayout_row("pool", "C2 transpose [48,1024]->[1024,48]", rl.transpose,
                      lambda: rl.transpose(xt), lambda: rl.transpose_plain(xt),
                      8.0 * xt.numel(), dev, n),
-        c.measure("pool", f"D Sel-GEMM [{C},{S}]x[{S},{S // 4}]", "gemm_chain",
-                  lambda: gemm_chain(x, sel, 1), lambda: gemm_chain_plain(x, sel, 1),
-                  tol=c.TOL_F32, flops=2.0 * C * S * (S // 4), rate=F32_RATE,
-                  nbytes=4.0 * (C * S + S * (S // 4) + C * (S // 4)), dev=dev, n=n,
-                  library=lambda: torch.mm(x, sel)),
+        gemm_row("pool", f"D Sel-GEMM [{C},{S}]x[{S},{S // 4}]", lambda: gemm_chain(x, sel, 1),
+                 lambda: gemm_chain_plain(x, sel, 1), lambda: torch.mm(x, sel), C, S, S // 4, 1,
+                 2.0 * C * S * (S // 4), dev, n),
     ]
     # A and D keep exactly the even positions (their kernels equal these)
     c.check_match("pool: A against x[:, idx]", rl.gather_cols_plain(x, idx), want, c.TOL_EXACT)

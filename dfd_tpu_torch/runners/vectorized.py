@@ -22,6 +22,11 @@ Randomness: the JAX trainer keys every stochastic choice through
 from ``draw_source(epoch)``; by default they come from the trainer's own
 ``torch.Generator`` on its device, and a test can feed it JAX's own draws to
 hold the port to the JAX trainer epoch by epoch.
+
+The public entry points (``train``, ``train_fast``, ``train_to_timesteps``)
+run their float32 products in full float32 whatever the caller's TF32
+settings (:func:`dfd_tpu_torch.core.device.full_f32`), as the JAX package's
+tolerances assume.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ import torch
 
 from dfd_tpu_torch.config import TrainConfig
 from dfd_tpu_torch.core import welford
-from dfd_tpu_torch.core.device import resolve_device
+from dfd_tpu_torch.core.device import full_f32, resolve_device
 from dfd_tpu_torch.envs.base import TorchEnv
 from dfd_tpu_torch.fd import combine as fd_combine
 from dfd_tpu_torch.fd import rollout as fd_rollout
@@ -180,6 +185,7 @@ class VectorizedTrainer:
         self.handler.add_policy(flat)
         self._last_archived = flat.copy()
 
+    @full_f32()
     def train(self, n_epochs: int) -> None:
         """Reference-cadence training: one epoch step at a time with the
         strategy archive refreshed on host between epochs."""
@@ -213,6 +219,7 @@ class VectorizedTrainer:
             m.update(self.timer.report())
             self.reporter.report(m)
 
+    @full_f32()
     def train_fast(self, n_epochs: int, sync_every: int = 10) -> None:
         """Throughput mode: chunks of ``sync_every`` epochs run back to back
         with no host synchronisation inside a chunk; metrics are fetched in
@@ -256,6 +263,7 @@ class VectorizedTrainer:
                 self.reporter.report(m)
             done += n
 
+    @full_f32()
     def train_to_timesteps(self, timestep_limit: int, sync_every: int = 10) -> None:
         """Train until ``cumulative_timesteps`` reaches the limit (the
         reference server's budget semantic, run_server.py:25)."""

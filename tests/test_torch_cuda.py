@@ -54,6 +54,28 @@ def test_perturb_kernel_matches_plain(cuda, P, d, anti):
         assert (got - want).abs().max().item() <= sigma * 1e-5 + 1e-6
 
 
+# chip_smoke.py's shapes (mlp_trap, impala_procmaze, impala_prod_bf16 and two
+# small ones), then d % 4 of 1, 2 and 3, d < 4, d crossing a chunk boundary
+# off a float4 boundary, antithetic pairs with odd P
+EXACT_SHAPES = [(2048, 5197, False), (2048, 5197, True), (128, 1_156_139, False),
+                (64, 7_872_651, False), (13, 777, False), (7, 1027, True),
+                (5, 4097, False), (6, 4098, False), (7, 4099, False), (3, 1, False),
+                (4, 2, True), (5, 3, True), (9, 2051, False), (9, 2051, True), (1, 1023, True),
+                (11, 3077, True)]
+
+
+@pytest.mark.parametrize("P, d, anti", EXACT_SHAPES)
+def test_perturb_kernel_noise_is_exact(cuda, P, d, anti):
+    """eps as the kernel writes it (theta = 0, sigma = 1) equals the plain
+    version's bit for bit, every element of every row written."""
+    zero = torch.zeros(d, device=cuda)
+    got = pk.perturb(zero, 1.0, 0, 7, P, antithetic=anti)
+    want = pk.perturb_plain(zero, 1.0, 0, 7, P, antithetic=anti)
+    torch.cuda.synchronize()
+    assert got.shape == (P, d) and bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() == 0.0
+
+
 @pytest.mark.parametrize("P, d, anti", SHAPES)
 def test_combine_kernel_matches_plain(cuda, P, d, anti):
     coefs = torch.randn(P, device=cuda)
@@ -280,6 +302,47 @@ def test_impala_trainer_on_card_matches_cpu(cuda):
         assert hg["Cumulative Timesteps"] == hc["Cumulative Timesteps"]
 
 
+
+def test_impala_trainer_takes_full_f32_under_high_precision(cuda):
+    """A caller's ``set_float32_matmul_precision("high")`` would send the
+    f32 IMPALA's fc, LSTM and patches products to TF32; the trainer pins
+    full f32, so 2 epochs give the "highest" run's flat, and the caller's
+    setting is back afterwards."""
+    from dfd_tpu_torch.config import TrainConfig
+    from dfd_tpu_torch.envs import ProcMazeEnv
+    from dfd_tpu_torch.models import ImpalaPolicy
+    from dfd_tpu_torch.ops import distances
+    from dfd_tpu_torch.runners import VectorizedTrainer, make_draws
+
+    cfg = TrainConfig(batch_size=8, learning_rate=0.05, noise_std=0.05, zeta_size=4,
+                      max_strategy_history_size=4, random_seed=5, noise_backend="pallas")
+    gen = torch.Generator().manual_seed(1)
+    draws = {e: make_draws(gen, 8, 10, 5, 4, 20) for e in range(2)}
+
+    def run(precision, zeta=None):
+        env = ProcMazeEnv(grid=4, scale=8, max_steps=10, num_levels=20, device=cuda)
+        model = ImpalaPolicy(env.obs_shape, 5, channels=(8, 16, 16), hidden=32,
+                             conv_impl="fused_feat", device=cuda)
+        tr = VectorizedTrainer(model, env, distances.categorical_tvd, cfg, device=cuda,
+                               draw_source=lambda e: draws[e])
+        if zeta is not None:
+            tr.state = tr.state._replace(zeta=zeta)
+        zeta0 = tr.state.zeta.clone()
+        saved = torch.get_float32_matmul_precision()
+        try:
+            torch.set_float32_matmul_precision(precision)
+            tr.train(2)
+            after = torch.get_float32_matmul_precision()
+        finally:
+            torch.set_float32_matmul_precision(saved)
+        assert after == precision
+        return tr.state.flat.cpu(), zeta0
+
+    high, zeta0 = run("high")
+    highest, _ = run("highest", zeta0)
+    torch.testing.assert_close(high, highest, rtol=1e-5, atol=1e-6)
+
+
 # -- the probes' kernels: gemm_chain, relayout, res_chain ------------------------------
 
 
@@ -287,6 +350,14 @@ def test_impala_trainer_on_card_matches_cpu(cuda):
     (1, 1, 1, 1, "acc"), (70, 33, 9, 4, "acc"), (512, 512, 512, 8, "acc"),
     (130, 1000, 70, 3, "acc_scaled"), (16, 27, 4096, 5, "acc_scaled"),
     (1024, 144, 16, 32, "feed"), (70, 33, 129, 4, "feed"),
+    # the probes' skinny shapes
+    (16, 144, 1024, 16, "acc_scaled"), (1024, 144, 16, 16, "feed"), (8, 128, 128, 16, "acc"),
+    # ragged M, K and N (not multiples of 8 or 16), K = 0
+    (37, 61, 23, 3, "acc"), (5, 13, 1030, 2, "acc_scaled"), (300, 2000, 64, 2, "acc_scaled"),
+    (9, 0, 5, 2, "acc"), (9, 0, 5, 2, "feed"),
+    # plans with a K-split cluster (8 blocks; 4 with the 8-warp tiles), feed's among them
+    (8, 2048, 8, 3, "acc"), (16, 4096, 1024, 1, "acc"), (300, 700, 256, 2, "feed"),
+    (64, 1500, 40, 3, "feed"), (512, 1024, 512, 2, "acc"),
 ])
 def test_gemm_chain_kernel_matches_plain(cuda, M, K, N, iters, mode):
     from dfd_tpu_torch.ops import gemm_chain as gc
@@ -299,6 +370,42 @@ def test_gemm_chain_kernel_matches_plain(cuda, M, K, N, iters, mode):
     torch.cuda.synchronize()
     assert got.shape == (M, N)
     assert (got - want).abs().max().item() <= 1e-5 * max(1.0, want.abs().max().item())
+
+
+def test_gemm_chain_sel_gemm_keeps_the_even_positions(cuda):
+    """The pool probe's Sel-GEMM: x [16, 4096] by the 0/1 [4096, 1024]
+    selection of the even (y, x) positions of 64 x 64 equals x[:, idx] to
+    1e-5 of the scale (3xTF32 drops lo * lo and rounds lo: not bit-exact)."""
+    from dfd_tpu_torch.ops import gemm_chain as gc
+    from dfd_tpu_torch.probes.pool import even_positions
+
+    idx = torch.from_numpy(even_positions(64, 64)).long().to(cuda)
+    x = torch.randn(16, 4096, device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+    sel = torch.zeros(4096, 1024, device=cuda)
+    sel[idx, torch.arange(1024, device=cuda)] = 1.0
+    want = x[:, idx]
+    err = (gc.gemm_chain(x, sel, 1) - want).abs().max().item()
+    assert gc.gemm_chain_plan(16, 4096, 1024).cluster > 1
+    assert err <= 1e-5 * max(1.0, want.abs().max().item()), err
+
+
+def test_gemm_chain_entry_refuses_another_plan(cuda):
+    from dfd_tpu_torch.ops import gemm_chain as gc
+
+    a, b = torch.randn(70, 33, device=cuda), torch.randn(33, 9, device=cuda)
+    out, carry = torch.empty(70, 9, device=cuda), torch.empty(2, device=cuda)
+    p = gc.gemm_chain_plan(70, 33, 9)
+    stream = torch.cuda.current_stream().cuda_stream
+    for wrong in (p._replace(cluster=2), p._replace(ks=p.ks + 8), p._replace(nt=p.nt * 2),
+                  p._replace(wk=p.wk * 2)):
+        assert gc._kernels().dfd_gemm_chain(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), carry.data_ptr(), 70, 33, 9, 1, 0, 1.0,
+            wrong.wm, wrong.wn, wrong.wk, wrong.mt, wrong.nt, wrong.cluster, wrong.ks, 0,
+            stream) != 0
+    # the ordered route takes one tile a block and no cluster
+    assert gc._kernels().dfd_gemm_chain(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), carry.data_ptr(), 70, 33, 9, 1, 0, 1.0,
+        p.wm, p.wn, p.wk, p.mt, p.nt, 2, p.ks, 1, stream) != 0
 
 
 def test_relayout_kernels_are_exact(cuda):

@@ -170,3 +170,35 @@ def test_entry_points_need_a_card_or_cpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         VectorizedTrainer(DiscreteMLP(2, 9, device=CPU), TrapEnv(device=CPU),
                           distances.categorical_tvd, TrainConfig(**BASE))
+
+
+@pytest.mark.parametrize("entry", ["train", "train_fast", "train_to_timesteps"])
+def test_entry_points_take_full_f32_products_and_restore_the_caller(entry):
+    """Under a caller's ``set_float32_matmul_precision("high")`` (TF32 on
+    for products and cuDNN), each public entry point runs its epochs with
+    both TF32 flags off and hands the caller's settings back."""
+    cfg = TrainConfig(**BASE)
+    tr = VectorizedTrainer(DiscreteMLP(2, 9, device=CPU), TrapEnv(device=CPU),
+                           distances.categorical_tvd, cfg, device=CPU)
+    seen = []
+    inner = tr._epoch_step
+
+    def spy(*args):
+        seen.append((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+                     torch.get_float32_matmul_precision()))
+        return inner(*args)
+
+    tr._epoch_step = spy
+    saved = (torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32)
+    try:
+        torch.set_float32_matmul_precision("high")
+        torch.backends.cudnn.allow_tf32 = True
+        {"train": lambda: tr.train(2), "train_fast": lambda: tr.train_fast(2, sync_every=1),
+         "train_to_timesteps": lambda: tr.train_to_timesteps(17 * 201, sync_every=1)}[entry]()
+        after = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+                 torch.get_float32_matmul_precision())
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cudnn.allow_tf32 = saved[1]
+    assert len(seen) >= 1 and all(s == (False, False, "highest") for s in seen)
+    assert after == (True, True, "high")
