@@ -27,15 +27,27 @@ NVCC_FLAGS = (
 )
 
 
-def nvcc_path() -> str:
+def tool_path(tool: str = "nvcc") -> str:
+    """A CUDA toolkit program (``nvcc``, ``cuobjdump``): under ``CUDA_HOME``
+    (or ``CUDA_PATH``, else ``/usr/local/cuda``), else on the ``PATH``."""
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    candidate = os.path.join(cuda_home, "bin", "nvcc")
+    candidate = os.path.join(cuda_home, "bin", tool)
     if os.path.exists(candidate):
         return candidate
-    found = shutil.which("nvcc")
+    found = shutil.which(tool)
     if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+        raise RuntimeError(f"{tool} not found: set CUDA_HOME to the CUDA toolkit")
     return found
+
+
+def nvcc_path() -> str:
+    return tool_path("nvcc")
+
+
+def sass(name: str) -> str:
+    """The SASS of the built library ``name`` (``cuobjdump -sass``)."""
+    return subprocess.run([tool_path("cuobjdump"), "-sass", str(build(name)[0])],
+                          capture_output=True, text=True, check=True).stdout
 
 
 def library_path(name: str) -> Path:

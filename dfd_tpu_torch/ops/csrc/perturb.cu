@@ -15,7 +15,14 @@
 // against about 36 operations an element (the stream normal's two fmix32
 // rounds, logf, cosf and sqrtf, then sigma * z + theta: 0.54 ms at the CUDA
 // cores' 33.5 T instructions a second); at mlp_trap's P = 2048, d = 5197 the
-// two are about even (13 and 11 us).  Its design:
+// two are about even (13 and 11 us).  What the card issues is more: one stream
+// normal is 99.25 SASS instructions on its fast path (counted in combine's
+// inner loop of this library by chip_smoke.py from cuobjdump -sass: accurate
+// logf and cosf are polynomials, sqrtf an rsqrt and a Newton step, plus the
+// hash and two int->float conversions), 1.49 ms at impala_prod_bf16 and 31.5
+// us at mlp_trap at one instruction a lane a cycle, so the instruction stream,
+// not the bytes, holds perturb and combine (H100 80GB HBM3, 700 W).  Its
+// design:
 //
 // 1. Threads own columns.  A block of 256 threads owns one 1024-lane chunk of
 //    j, a thread 4 consecutive j of it, and loops over a slice of the members:
@@ -42,9 +49,27 @@
 //    groups (at most 7 for 8 values, 4 for 8 when d % 4 == 0).
 //
 // Combine is bound by its operations (P normals an output and only P + d
-// floats moved); it hoists the per-(member, chunk) key as perturb does (one
-// 128-wide tile of keys and coefficients per block, in shared memory), so
-// each element costs the stream normal and the multiply-add.
+// floats moved).  Its design:
+//
+// 5. Members split across blocks.  A block of 256 threads owns a tile of 4 * lt
+//    lanes (inside one chunk) and a slice of the members: lt threads a row,
+//    each owning 4 consecutive lanes (4 independent normals a member), times
+//    mg = 256 / lt member groups; a cluster of cl blocks splits the tile's
+//    members further.  combine_plan halves lt (and doubles mg), then doubles
+//    cl, and keeps the plan whose last wave of blocks is least empty:
+//    mlp_trap's d = 5197 is 82 tiles of 64 lanes x 16 groups x clusters of 8,
+//    656 blocks, one wave; impala_procmaze's d = 1,156,139 would be 1129
+//    blocks of 1024 lanes, 1.07 waves, and takes tiles of 128 lanes x 8
+//    groups (9033 blocks); impala_prod_bf16's tiles of 512 lanes x 2 groups.
+//    Keys and coefficients are hoisted into shared memory 256 members at a
+//    time.
+// 6. A fixed order of sums, so two calls give the same bits: each thread sums
+//    its members in order; the groups' sums are added in group order through
+//    shared memory; the cluster's in rank order by rank 0 through distributed
+//    shared memory.  One kernel a call, no atomics, no scratch.
+// 7. Antithetic pairs.  Members 2m and 2m + 1 share draw m with opposite
+//    signs, so draw m is staged once with c[2m] - c[2m + 1] (a lone last
+//    member keeps its own coefficient) and its normal computed once.
 //
 // Arithmetic follows the JAX stream exactly: uint32 arithmetic wraps as on
 // the TPU, the uniforms are (bits >> 8) / 2^24 with u1 nudged by 1e-7f, and
@@ -52,14 +77,17 @@
 // contract them into FMAs.  Build without --use_fast_math: __logf/__cosf
 // are far off at these arguments.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kChunk = 1024;          // the stream's lane period
 constexpr int kPerturbThreads = 256;
-constexpr int kCombineThreads = 128;  // divides kChunk: one chunk per block
+constexpr int kCombineThreads = 256;
 constexpr uint32_t kGolden = 0x9E3779B9u;
 constexpr uint32_t kMul1 = 0x85EBCA6Bu;
 constexpr uint32_t kMul2 = 0xC2B2AE35u;
@@ -206,34 +234,103 @@ perturb_kernel(const float* __restrict__ theta, float* __restrict__ out, int P, 
   }
 }
 
-// One thread per parameter j; members in a fixed order (no atomics), their
-// coefficients and keys staged through shared memory one tile at a time.
-__global__ void combine_kernel(const float* __restrict__ coef, float* __restrict__ g,
-                               int P, int d, uint32_t base, int antithetic) {
+// The combine launch plan: lt threads own 4 lanes each of a tile of 4 * lt
+// lanes, mg = 256 / lt groups split the block's members, and a cluster of cl
+// blocks a tile splits them further.
+struct CombinePlan {
+  int lt, mg, cl;
+};
+
+constexpr long kCombineResident = 132 * 8;  // blocks in flight: eight an SM of 132
+
+// From one group of 256 threads a tile of 1024 lanes, each step halves lt
+// (doubling mg), then doubles cl, while each group keeps kMinPerBlock draws
+// and the grid has fewer than eight waves; the plan kept is the one whose last
+// wave is least empty: the fewest waves a block, ceil(B / R) / B, B blocks
+// and R = kCombineResident (compared exactly, as integers).
+CombinePlan combine_plan(int P, int d, int antithetic) {
+  const long draws = antithetic ? (P + 1) / 2 : P;
+  CombinePlan p = {kCombineThreads, 1, 1}, best = p;
+  auto blocks = [&](const CombinePlan& q) { return (d + 4L * q.lt - 1) / (4L * q.lt) * q.cl; };
+  auto waves = [&](const CombinePlan& q) { return (blocks(q) + kCombineResident - 1) / kCombineResident; };
+  while (blocks(p) < 8 * kCombineResident && (long)p.mg * p.cl * 2 * kMinPerBlock <= draws) {
+    if (p.lt > 16) {
+      p.lt /= 2;
+      p.mg *= 2;
+    } else if (p.cl < 8) {
+      p.cl *= 2;
+    } else {
+      break;
+    }
+    if (waves(p) * blocks(best) < waves(best) * blocks(p)) best = p;
+  }
+  return best;
+}
+
+// blockIdx.x = tile * cl + rank.  Thread t owns lanes j = tile * 4 lt + 4 (t %
+// lt) .. + 3 and member group t / lt; rank r of the cluster the r-th run of
+// the draws (members, or pairs under antithetic).
+__global__ void __launch_bounds__(kCombineThreads)
+combine_kernel(const float* __restrict__ coef, float* __restrict__ g, int P, int d,
+               uint32_t base, int antithetic, int lt, int mg) {
   __shared__ float s_coef[kCombineThreads];
   __shared__ uint32_t s_key[kCombineThreads];
-  const int j = blockIdx.x * kCombineThreads + threadIdx.x;
-  const uint32_t chunk_idx = (uint32_t)(blockIdx.x * kCombineThreads / kChunk);
-  const uint32_t lane = (uint32_t)(j % kChunk);
-  float acc = 0.0f;
-  for (int t0 = 0; t0 < P; t0 += kCombineThreads) {
-    const int m = t0 + threadIdx.x;
-    __syncthreads();  // the previous tile is consumed
-    if (m < P) {
-      const float c = coef[m];
-      s_coef[threadIdx.x] = (antithetic && (m & 1)) ? -c : c;
-      s_key[threadIdx.x] = member_key(base, antithetic ? (uint32_t)(m >> 1) : (uint32_t)m,
-                                      chunk_idx);
+  __shared__ float s_part[4 * kCombineThreads];  // [group][4 lt lanes], then the block's sums
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cl = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int tile = blockIdx.x / cl, lanes = 4 * lt;
+  const int li = threadIdx.x % lt, grp = threadIdx.x / lt;
+  const long j0 = (long)tile * lanes + 4 * li;
+  const uint32_t chunk_idx = (uint32_t)(((long)tile * lanes) / kChunk);
+  uint32_t lg[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) lg[k] = (uint32_t)((j0 + k) & (kChunk - 1)) * kGolden;
+  const int draws = antithetic ? (P + 1) / 2 : P;
+  const int per = (draws + cl - 1) / cl, m_lo = rank * per, m_hi = min(draws, m_lo + per);
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int t0 = m_lo; t0 < m_hi; t0 += kCombineThreads) {
+    const int n = min(kCombineThreads, m_hi - t0), m = t0 + threadIdx.x;
+    __syncthreads();  // the previous round is consumed
+    if (threadIdx.x < n) {
+      float c = coef[antithetic ? 2 * m : m];
+      if (antithetic && 2 * m + 1 < P) c = __fsub_rn(c, coef[2 * m + 1]);
+      s_coef[threadIdx.x] = c;
+      s_key[threadIdx.x] = member_key(base, (uint32_t)m, chunk_idx);
     }
     __syncthreads();
-    if (j < d) {
-      const int n = min(kCombineThreads, P - t0);
-      for (int r = 0; r < n; ++r) {
-        acc = fmaf(s_coef[r], stream_normal(s_key[r], lane), acc);
+    if (j0 < d) {
+      for (int r = grp; r < n; r += mg) {
+        const float c = s_coef[r];
+        const uint32_t key = s_key[r];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[k] = fmaf(c, normal_of_mix(lg[k] ^ key), acc[k]);
       }
     }
   }
-  if (j < d) g[j] = acc;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) s_part[grp * lanes + 4 * li + k] = acc[k];
+  __syncthreads();
+  // the groups in order; each lane's sum lands in group 0's row
+  for (int l = threadIdx.x; l < lanes; l += kCombineThreads) {
+    float v = s_part[l];
+    for (int q = 1; q < mg; ++q) v = __fadd_rn(v, s_part[q * lanes + l]);
+    s_part[l] = v;
+  }
+  if (cl == 1) {
+    __syncthreads();
+  } else {
+    cluster.sync();  // every block's sums are in its s_part
+  }
+  if (rank == 0) {  // the cluster's blocks in rank order
+    for (int l = threadIdx.x; l < lanes; l += kCombineThreads) {
+      const long j = (long)tile * lanes + l;
+      if (j >= d) continue;
+      float v = s_part[l];
+      for (int q = 1; q < cl; ++q) v = __fadd_rn(v, cluster.map_shared_rank(s_part, q)[l]);
+      g[j] = v;
+    }
+  }
+  if (cl > 1) cluster.sync();  // no block leaves while rank 0 reads its sums
 }
 
 uint32_t key_base(uint32_t seed, uint32_t epoch) { return fmix32(seed * kGolden ^ epoch); }
@@ -250,11 +347,27 @@ extern "C" int dfd_perturb(const float* theta, float* out, int P, int d, float s
   return (int)cudaGetLastError();
 }
 
+// lt, mg, cl: the plan of perturb.combine_plan, refused unless it is
+// combine_plan's.
 extern "C" int dfd_combine(const float* coef, float* g, int P, int d, uint32_t seed,
-                           uint32_t epoch, int antithetic, void* stream) {
+                           uint32_t epoch, int antithetic, int lt, int mg, int cl,
+                           void* stream) {
   if (d <= 0) return (int)cudaSuccess;
-  const int blocks = (d + kCombineThreads - 1) / kCombineThreads;
-  combine_kernel<<<blocks, kCombineThreads, 0, (cudaStream_t)stream>>>(
-      coef, g, P, d, key_base(seed, epoch), antithetic);
+  const CombinePlan p = combine_plan(P, d, antithetic);
+  if (P < 0 || p.lt != lt || p.mg != mg || p.cl != cl) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((d + 4 * lt - 1) / (4 * lt)) * cl);
+  cfg.blockDim = dim3(kCombineThreads);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, combine_kernel, coef, g, P, d,
+                                             key_base(seed, epoch), antithetic, lt, mg);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -13,7 +13,7 @@ eps is never stored:
 Each wrapper runs its CUDA kernel (``csrc/perturb.cu``) on a CUDA tensor and
 its plain PyTorch version (:func:`perturb_plain`, :func:`combine_plain`) on a
 CPU tensor; any other device raises.  ``launches`` on each wrapper counts
-kernel launches.
+calls; each call launches one kernel.
 
 What bounds them on an H100: perturb, the bytes (it writes P * d floats:
 2.0 GB at ``impala_prod_bf16``'s P = 64, d = 7,872,651, 0.61 ms at 3.35
@@ -24,9 +24,14 @@ once a block, not once an element.  Perturb's threads own 4 columns of a
 chunk each and loop over a slice of the members, so theta is read once a
 slice, and store each row as aligned float4s (a row that starts off a
 16-byte boundary is stored shifted by up to 3 columns, its ends element by
-element); see ``csrc/perturb.cu``.  ||eps_i||^2 is a torch
-reduction over the rounded outputs outside the kernel (:func:`noise_sumsq`),
-as in the JAX package.
+element).  Combine's threads own 4 lanes each; where the lanes alone give
+too few blocks (``mlp_trap``'s d = 5197), the members are split over groups
+of a block's threads and over a cluster of blocks (:func:`combine_plan`),
+and the partial sums are added in a fixed order (groups, then ranks), so two
+calls give the same bits; antithetic pairs stage ``c[2m] - c[2m + 1]`` and
+compute each draw's normal once.  See ``csrc/perturb.cu``.
+||eps_i||^2 is a torch reduction over the rounded outputs outside the kernel
+(:func:`noise_sumsq`), as in the JAX package.
 
 The plain versions run the hash in int64 masked to 32 bits: the low 32 bits
 of a wrapped int64 product are exact, so the bits equal the uint32 stream.
@@ -96,10 +101,54 @@ def perturb_plain(flat: torch.Tensor, sigma: float, base_seed: int, epoch: int, 
     return flat[None, :] + sigma * eps
 
 
+def draw_coefs(coefs: torch.Tensor, antithetic: bool = False) -> torch.Tensor:
+    """The coefficient of each draw as ``combine_kernel`` stages it: under
+    antithetic, members 2m and 2m + 1 share draw m with opposite signs, so
+    draw m takes ``c[2m] - c[2m + 1]`` (a lone last member its own); else
+    ``coefs`` itself.  ``draw_coefs(c, a) @ noise_plain(.., len(draws), ..)``
+    is the combine."""
+    if not antithetic:
+        return coefs
+    pairs = coefs[: coefs.shape[0] // 2 * 2].reshape(-1, 2)
+    return torch.cat([pairs[:, 0] - pairs[:, 1], coefs[pairs.shape[0] * 2:]])
+
+
 def combine_plain(coefs: torch.Tensor, base_seed: int, epoch: int, d: int,
                   antithetic: bool = False) -> torch.Tensor:
     eps = noise_plain(base_seed, epoch, coefs.shape[0], d, antithetic, coefs.device)
     return coefs @ eps
+
+
+COMBINE_THREADS = 256
+COMBINE_RESIDENT = 132 * 8  # blocks in flight: eight an SM of the H100's 132
+MIN_PER_GROUP = 4
+
+
+@functools.lru_cache(maxsize=None)
+def combine_plan(P: int, d: int, antithetic: bool = False) -> Tuple[int, int, int]:
+    """(lt, mg, cl) of ``combine_kernel``: ``lt`` threads own 4 lanes each
+    of a tile of ``4 * lt`` lanes, ``mg = 256 // lt`` groups of them split
+    the block's members (draws: pairs under antithetic), and a cluster of
+    ``cl`` blocks a tile splits them further.  From one group of 256
+    threads, each step halves lt (down to 16), then doubles cl (up to 8),
+    while each group keeps ``MIN_PER_GROUP`` draws and the grid has fewer
+    than eight waves of ``COMBINE_RESIDENT`` blocks; the plan kept is the one
+    whose last wave is least empty (the fewest waves a block)."""
+    draws = (P + 1) // 2 if antithetic else P
+    blocks = lambda q: -(-d // (4 * q[0])) * q[2]
+    waves = lambda q: -(-blocks(q) // COMBINE_RESIDENT)
+    p = best = (COMBINE_THREADS, 1, 1)
+    while blocks(p) < 8 * COMBINE_RESIDENT and p[1] * p[2] * 2 * MIN_PER_GROUP <= draws:
+        lt, mg, cl = p
+        if lt > 16:
+            p = (lt // 2, mg * 2, cl)
+        elif cl < 8:
+            p = (lt, mg, cl * 2)
+        else:
+            break
+        if waves(p) * blocks(best) < waves(best) * blocks(p):
+            best = p
+    return best
 
 
 @functools.lru_cache(maxsize=None)
@@ -108,7 +157,7 @@ def _kernels() -> ctypes.CDLL:
     vp, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     lib.dfd_perturb.argtypes = [vp, vp, i32, i32, ctypes.c_float, u32, u32, i32, vp]
     lib.dfd_perturb.restype = i32
-    lib.dfd_combine.argtypes = [vp, vp, i32, i32, u32, u32, i32, vp]
+    lib.dfd_combine.argtypes = [vp, vp, i32, i32, u32, u32, i32, i32, i32, i32, vp]
     lib.dfd_combine.restype = i32
     return lib
 
@@ -151,7 +200,9 @@ def noise_sumsq(perturbed: torch.Tensor, flat: torch.Tensor, sigma: float) -> to
 
 def combine(coefs: torch.Tensor, base_seed: int, epoch: int, d: int,
             antithetic: bool = False) -> torch.Tensor:
-    """g[d] = sum_i coefs[i] * eps(i)[d], regenerating eps in the kernel.
+    """g[d] = sum_i coefs[i] * eps(i)[d], regenerating eps in the kernel
+    (one launch a call, summed in a fixed order: two calls on the same
+    inputs give the same bits).
 
     For the FD estimator pass ``coefs = fitness / (sigma * noise_sumsq)``."""
     if coefs.device.type == "cpu":
@@ -162,7 +213,8 @@ def combine(coefs: torch.Tensor, base_seed: int, epoch: int, d: int,
         stream = torch.cuda.current_stream().cuda_stream
         build.raise_on(_kernels().dfd_combine(
             coefs.data_ptr(), g.data_ptr(), coefs.shape[0], d,
-            int(base_seed) & _MASK, int(epoch) & _MASK, int(antithetic), stream,
+            int(base_seed) & _MASK, int(epoch) & _MASK, int(antithetic),
+            *combine_plan(coefs.shape[0], d, bool(antithetic)), stream,
         ), "combine")
     combine.launches += 1
     return g

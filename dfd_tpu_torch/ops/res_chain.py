@@ -21,15 +21,18 @@ rounds both conv operands to bf16 and accumulates in float32.
 and :func:`res_chain_plain` on CPU tensors; other devices, dtypes or shapes
 raise.  The plain version builds the taps as the probes do, with rolls over
 the flattened S and boundary masks.  ``res_chain.launches`` counts kernel
-launches.  What bounds the kernel on an H100 is the FMAs (see the CUDA
-source); it runs them on the CUDA cores in float32 for both types.
+launches, one a call.  The kernel runs the products on the tensor cores
+(bf16 ``mma.sync``, or f32-accurate 3xTF32 ones for float32) with the whole
+chain in shared memory, a cluster of blocks a member splitting its image
+rows, its output channels or both, as :func:`res_chain_plan` lays out and
+the C entry point recomputes; a shape no plan fits raises ``ValueError``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -96,11 +99,85 @@ def _check(x, w, b, H: int, W: int, layout: str, compute_dtype) -> None:
     _expect(tuple(b.shape) == (P, J, C), f"b must be {(P, J, C)}, got {tuple(b.shape)}")
 
 
+SMEM_MAX = 232_448  # bytes of shared memory an H100 block can use
+NUM_SMS = 132
+MAX_TILES = 16      # m16 x n8 tiles a warp holds: 64 f32 sums a thread
+
+
+class Plan(NamedTuple):
+    """A launch of ``res_chain_kernel``: ``rs`` bands of ``band`` image rows
+    x ``cs`` groups of ``cw`` output channels a member (a cluster of
+    ``rs * cs`` blocks); ``warps_m`` x ``8 // warps_m`` warps of ``mt`` m16
+    x ``nt`` n8 tiles; weights in groups of ``wt`` taps; ``smem`` bytes of
+    dynamic shared memory."""
+
+    rs: int
+    cs: int
+    band: int
+    cw: int
+    wt: int
+    mt: int
+    warps_m: int
+    nt: int
+    smem: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan_smem(C: int, W: int, band: int, arows: int, wt: int, minor: bool, bf16: bool) -> int:
+    """The halo-padded operand tile (bf16 or f32, every channel) and two f32
+    weight buffers of ``wt`` taps for ``arows`` output rows."""
+    kp = _cdiv(C, 16 if bf16 else 8) * (16 if bf16 else 8)
+    tile = (band + 2) * (W + 2) * (kp + (8 if bf16 else 4)) * (2 if bf16 else 4)
+    wbuf = 4 * (wt * kp * (arows + (4 if bf16 else 8)) if minor else arows * (wt * kp + 4))
+    return tile + 2 * wbuf
+
+
+@functools.lru_cache(maxsize=None)
+def res_chain_plan(P: int, C: int, H: int, W: int, layout: str = "channel_major",
+                   bf16: bool = False) -> Plan:
+    """The cluster with the least work a block after the waves
+    (``ceil(P * cl / 132) / cl``), then of its splits into ``rs`` row bands
+    x ``cs`` channel groups that fit (no block empty, at most 64 sums a
+    thread, the tile and a weight group in shared memory) the one with the
+    fewest bands (each band streams its group's weights whole), then the
+    fewest blocks; the largest tap group (9, 3, 1) that fits."""
+    _expect(min(P, C, H, W) > 0, f"P, C, H and W must be positive, got {(P, C, H, W)}")
+    minor = layout == "channel_minor"
+    best, best_key = None, None
+    for cl in (1, 2, 4, 8):
+        work = _cdiv(P * cl, NUM_SMS) / cl
+        for cs in (c for c in (1, 2, 4, 8) if c <= cl):
+            rs = cl // cs
+            band, cw = _cdiv(H, rs), _cdiv(_cdiv(C, cs), 16) * 16
+            if (rs - 1) * band >= H or (cs - 1) * cw >= C:
+                continue
+            mt = min(4, cw // 16)
+            warps_m = next((m for m in (1, 2, 4, 8) if m >= _cdiv(cw, 16 * mt)), None)
+            if warps_m is None:
+                continue
+            nt = _cdiv(band * W, 8 * (8 // warps_m))
+            if mt * nt > MAX_TILES:
+                continue
+            fits = [(wt, s) for wt in (9, 3, 1)
+                    if (s := plan_smem(C, W, band, 16 * mt * warps_m, wt, minor, bf16)) <= SMEM_MAX]
+            if not fits:
+                continue
+            if best is None or (work, rs) < best_key:
+                best, best_key = Plan(rs, cs, band, cw, fits[0][0], mt, warps_m, nt,
+                                      fits[0][1]), (work, rs)
+    _expect(best is not None, f"no res_chain plan fits C={C} at {H}x{W} in {SMEM_MAX} bytes of "
+                              f"shared memory a block")
+    return best
+
+
 @functools.lru_cache(maxsize=None)
 def _kernels() -> ctypes.CDLL:
     lib = build.load("res_chain")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.dfd_res_chain.argtypes = [vp] * 5 + [i32] * 7 + [vp]
+    lib.dfd_res_chain.argtypes = [vp] * 4 + [i32] * 15 + [vp]
     lib.dfd_res_chain.restype = i32
     return lib
 
@@ -121,13 +198,14 @@ def res_chain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, H: int, W: int,
     minor = layout == "channel_minor"
     P, J = w.shape[:2]
     C = x.shape[2] if minor else x.shape[1]
+    bf16 = compute_dtype is not None
+    p = res_chain_plan(P, C, H, W, layout, bf16)
     out = torch.empty_like(x)
-    scratch = torch.empty_like(x) if J > 1 else out
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         build.raise_on(_kernels().dfd_res_chain(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-            P, J, C, H, W, int(minor), int(compute_dtype is not None), stream,
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), P, J, C, H, W, int(minor),
+            int(bf16), *p[:-1], stream,
         ), "res_chain")
     res_chain.launches += 1
     return out

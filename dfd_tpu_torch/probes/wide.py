@@ -12,7 +12,10 @@ M-major) with f32 and bf16 operands.  Beside each: its plain version (rolls
 and masks, as the TPU kernel builds the taps), and the library route, the
 probe's "XLA production lowering": patches then one batched product per
 conv, as the port's ``conv_impl="patches"`` builds them
-(:func:`patches_chain`), on the channel-major inputs.  The same chain as
+(:func:`patches_chain`), on the channel-major inputs.  Each row gives the
+kernel's bound (f32: as 3xTF32 tensor-core products at 165 TFLOP/s, and on
+the CUDA cores at 67, ``cuda_core_bound_ms``; bf16 at 989), its ratio to
+the library route and its launch plan.  The same chain as
 grouped ``F.conv2d`` calls (:func:`conv2d_chain`) is timed too; in f32 it is
 checked, in bf16 its operands and outputs are bf16 tensors (cuDNN rounds each
 conv's output), so it is timed only.
@@ -27,9 +30,9 @@ import torch
 import torch.nn.functional as F
 
 from dfd_tpu_torch.models.impala import conv3x3_patches
-from dfd_tpu_torch.ops.res_chain import res_chain, res_chain_plain
+from dfd_tpu_torch.ops.res_chain import res_chain, res_chain_plain, res_chain_plan
 from dfd_tpu_torch.probes import _common as c
-from dfd_tpu_torch.utils.profiling import BF16_RATE, F32_RATE, time_ms
+from dfd_tpu_torch.utils.profiling import BF16_RATE, BYTES_RATE, F32_RATE, TF32X3_RATE, time_ms
 
 # (C, H, W): tools/probe_pallas_wide.py::main, in its order
 STAGES = ((128, 16, 16), (64, 32, 32), (16, 32, 32))
@@ -113,8 +116,14 @@ def chain_rows(probe: str, xs: torch.Tensor, ws: torch.Tensor, bs: torch.Tensor,
         other = None if cd is None else (lambda: res_chain_plain(x, w, bs, H, W, layout, None))
         row = c.measure(probe, case, "res_chain",
                         lambda: res_chain(x, w, bs, H, W, layout, cd), plain, tol=tol,
-                        flops=flops, rate=F32_RATE if cd is None else BF16_RATE,
+                        flops=flops, rate=TF32X3_RATE if cd is None else BF16_RATE,
                         nbytes=nbytes, dev=dev, n=n, library=library, other=other)
+        if cd is None:  # f32: bound_ms as 3xTF32 products, and on the CUDA cores
+            row["cuda_core_bound_ms"] = max(flops / F32_RATE, nbytes / BYTES_RATE) * 1e3
+        row["vs_library"] = row["ms"] / row["library_ms"]
+        p = res_chain_plan(P, C, H, W, layout, cd is not None)
+        row["plan"] = (f"{p.rs} bands x {p.cs} channel groups, {P * p.rs * p.cs} blocks, "
+                       f"taps by {p.wt}")
         row["conv2d_ms"] = conv_ms[cd]
         row["tflops"] = 2.0 * P * J * S * C * 9 * C / (row["ms"] * 1e-3) / 1e12
         rows.append(row)

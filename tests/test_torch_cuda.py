@@ -76,13 +76,40 @@ def test_perturb_kernel_noise_is_exact(cuda, P, d, anti):
     assert (got - want).abs().max().item() == 0.0
 
 
-@pytest.mark.parametrize("P, d, anti", SHAPES)
+# beside SHAPES, every combine plan: P = 1; a cluster whose last rank's slice
+# is short (1001 draws over 8 ranks of 126); odd P under antithetic with the
+# members split over groups and clusters; d < 128; d no multiple of 1024 with
+# groups and no cluster; the three trained shapes
+COMBINE_SHAPES = SHAPES + [(1, 777, False), (1, 5000, True), (1001, 5197, False),
+                           (2049, 5197, True), (9, 100, True), (37, 3000, False),
+                           (2048, 5197, True), (128, 1_156_139, False), (64, 7_872_651, False)]
+
+
+@pytest.mark.parametrize("P, d, anti", COMBINE_SHAPES)
 def test_combine_kernel_matches_plain(cuda, P, d, anti):
     coefs = torch.randn(P, device=cuda)
     got = pk.combine(coefs, 9, 4, d, antithetic=anti)
     want = pk.combine_plain(coefs, 9, 4, d, antithetic=anti)
     torch.cuda.synchronize()
     assert ((got - want).norm() / want.norm()).item() <= 1e-5
+
+
+@pytest.mark.parametrize("P, d, anti", [(2048, 5197, False), (2049, 5197, True),
+                                        (64, 7_872_651, False), (13, 777, False)])
+def test_combine_kernel_is_deterministic(cuda, P, d, anti):
+    """A fixed order of sums: two calls on the same inputs give the same bits."""
+    coefs = torch.randn(P, device=cuda)
+    first = pk.combine(coefs, 3, 1, d, antithetic=anti)
+    assert torch.equal(first, pk.combine(coefs, 3, 1, d, antithetic=anti))
+
+
+def test_combine_entry_refuses_another_plan(cuda):
+    coefs, g = torch.randn(2048, device=cuda), torch.empty(5197, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    lt, mg, cl = pk.combine_plan(2048, 5197)
+    for wrong in ((lt * 2, mg // 2, cl), (lt, mg, cl // 2), (256, 1, 1)):
+        assert pk._kernels().dfd_combine(coefs.data_ptr(), g.data_ptr(), 2048, 5197, 0, 0, 0,
+                                         *wrong, stream) != 0
 
 
 def test_wrappers_count_launches_and_check_inputs(cuda):
@@ -428,21 +455,34 @@ def test_relayout_kernels_are_exact(cuda):
     assert torch.isnan(out[:, 1]).all()  # index 5 is outside [0, 1)
 
 
-@pytest.mark.parametrize("P, C, H, W", [(2, 8, 8, 8), (3, 12, 5, 7), (2, 20, 17, 19),
-                                        (2, 128, 16, 16), (2, 64, 32, 32)])
+# the probes' shapes (P = 64), then
+# every cluster size (1: P = 132, or one row of 6 channels; 2, 4, 8) and split (rows, channels,
+# both), ragged bands and channel groups, C no multiple of 4, 8 or 16, warp grids of 2
+# x 4 warps, P = 1
+RES_CHAIN_SHAPES = [(2, 8, 8, 8), (3, 12, 5, 7), (2, 20, 17, 19), (2, 128, 16, 16),
+                    (2, 64, 32, 32), (64, 128, 16, 16), (64, 64, 32, 32), (64, 16, 32, 32),
+                    (200, 16, 8, 8), (1, 8, 8, 8), (1, 40, 4, 4), (1, 64, 2, 3), (1, 33, 3, 5),
+                    (1, 130, 2, 2), (2, 128, 4, 8), (3, 6, 1, 40), (132, 16, 32, 32)]
+
+
+def _res_chain_args(P, C, H, W, layout, cuda):
+    g = torch.Generator(cuda).manual_seed(C)
+    S = H * W
+    minor = layout == "channel_minor"
+    x = 0.1 * torch.randn((P, S, C) if minor else (P, C, S), device=cuda, generator=g)
+    w = torch.randn((P, 4, 9 * C, C) if minor else (P, 4, C, 9 * C), device=cuda, generator=g)
+    b = 0.1 * torch.randn(P, 4, C, device=cuda, generator=g)
+    return x, w / (3 * C ** 0.5), b
+
+
+@pytest.mark.parametrize("P, C, H, W", RES_CHAIN_SHAPES)
 @pytest.mark.parametrize("layout", ["channel_major", "channel_minor"])
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
 def test_res_chain_kernel_matches_plain(cuda, P, C, H, W, layout, bf16):
     from dfd_tpu_torch.ops import res_chain as rc
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    g = torch.Generator(cuda).manual_seed(C)
-    S = H * W
-    minor = layout == "channel_minor"
-    x = 0.1 * torch.randn((P, S, C) if minor else (P, C, S), device=cuda, generator=g)
-    w = torch.randn((P, 4, 9 * C, C) if minor else (P, 4, C, 9 * C), device=cuda, generator=g)
-    w = w / (3 * C ** 0.5)
-    b = 0.1 * torch.randn(P, 4, C, device=cuda, generator=g)
+    x, w, b = _res_chain_args(P, C, H, W, layout, cuda)
     cd = torch.bfloat16 if bf16 else None
     got = rc.res_chain(x, w, b, H, W, layout, cd)
     want = rc.res_chain_plain(x, w, b, H, W, layout, cd)
@@ -452,6 +492,26 @@ def test_res_chain_kernel_matches_plain(cuda, P, C, H, W, layout, bf16):
     assert err <= (5e-4 if bf16 else 1e-5) * max(1.0, want.abs().max().item()), err
     if bf16:
         assert err < (got - rc.res_chain_plain(x, w, b, H, W, layout, None)).abs().max().item()
+    # and the same bits again
+    assert torch.equal(got, rc.res_chain(x, w, b, H, W, layout, cd))
+
+
+def test_res_chain_refuses_what_no_plan_fits(cuda):
+    from dfd_tpu_torch.ops import res_chain as rc
+
+    x, w, b = _res_chain_args(1, 1024, 8, 8, "channel_major", cuda)
+    with pytest.raises(ValueError, match="no res_chain plan"):
+        rc.res_chain(x, w, b, 8, 8)
+    # the entry point recomputes the plan and refuses another
+    x, w, b = _res_chain_args(2, 20, 17, 19, "channel_major", cuda)
+    out = torch.empty_like(x)
+    p = rc.res_chain_plan(2, 20, 17, 19)
+    stream = torch.cuda.current_stream().cuda_stream
+    for wrong in (p._replace(rs=p.rs * 2), p._replace(cs=p.cs * 2), p._replace(wt=1),
+                  p._replace(nt=p.nt + 1)):
+        assert rc._kernels().dfd_res_chain(x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                                           out.data_ptr(), 2, 4, 20, 17, 19, 0, 0, *wrong[:-1],
+                                           stream) != 0
 
 
 def test_probe_wrappers_count_launches_and_check_inputs(cuda):

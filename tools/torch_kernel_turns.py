@@ -1,17 +1,21 @@
-"""Time the port's perturb and gemm_chain kernels against another checkout's, in turns, on one card.
+"""Time the port's perturb, combine, gemm_chain and res_chain kernels against another checkout's, in turns, on one card.
 
     python3 tools/torch_kernel_turns.py --parent DIR [--out FILE]
 
 DIR is the root of another checkout of this repository (an earlier commit,
-unpacked with ``git archive``).  Its ``dfd_tpu_torch/ops/csrc/perturb.cu``
-and ``gemm_chain.cu`` are built with the same ``nvcc`` flags as this
-checkout's (``dfd_tpu_torch/ops/build.py``) into ``build/kernel_turns/``
-and called through their own C entry points; this checkout's kernels go
-through their wrappers.  Each case is timed parent, change, change, parent
-(``time_ms``, CUDA events), so the two versions share the card, its clocks
-and its power limit: perturb at the trained cells' shapes, and gemm_chain at
-the gemm probe's ten cases, the torso probe's seven chains and the pool
-probe's Sel-GEMM.  Each output is checked against the plain version first.
+unpacked with ``git archive``) whose C entry points have the interfaces of
+commit 94ca06d: ``dfd_combine`` without a plan, ``dfd_res_chain`` with a
+scratch buffer and no plan, ``dfd_gemm_chain`` with its plan.  Its ``dfd_tpu_torch/ops/csrc/perturb.cu``,
+``gemm_chain.cu`` and ``res_chain.cu`` are built with the same ``nvcc``
+flags as this checkout's (``dfd_tpu_torch/ops/build.py``) into
+``build/kernel_turns/`` and called through their own C entry points; this
+checkout's kernels go through their wrappers.  Each case is timed parent,
+change, change, parent (``time_ms``, CUDA events), so the two versions share
+the card, its clocks and its power limit: perturb and combine at the trained
+cells' shapes (combine also antithetic at ``mlp_trap``'s), gemm_chain at the
+gemm probe's ten cases, the torso probe's seven chains and the pool probe's
+Sel-GEMM, and res_chain at the wide probe's twelve chains and the pool
+probe's three.  Each output is checked against the plain version first.
 Prints one line a case and writes them as JSON to ``--out``.
 """
 
@@ -33,9 +37,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from dfd_tpu_torch.ops import build  # noqa: E402
 from dfd_tpu_torch.ops import gemm_chain as gc  # noqa: E402
 from dfd_tpu_torch.ops import perturb as pk  # noqa: E402
+from dfd_tpu_torch.ops import res_chain as rc  # noqa: E402
 from dfd_tpu_torch.probes import gemm as pgemm  # noqa: E402
-from dfd_tpu_torch.probes.pool import even_positions  # noqa: E402
+from dfd_tpu_torch.probes import pool as ppool  # noqa: E402
 from dfd_tpu_torch.probes import torso as ptorso  # noqa: E402
+from dfd_tpu_torch.probes import wide as pwide  # noqa: E402
+from dfd_tpu_torch.probes.pool import even_positions  # noqa: E402
 from dfd_tpu_torch.utils.profiling import time_ms  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -43,11 +50,11 @@ PERTURB_SHAPES = ((2048, 5197), (128, 1_156_139), (64, 7_872_651))
 
 
 def build_parent(parent: Path) -> dict:
-    """The parent's two libraries, compiled together."""
+    """The parent's three libraries, compiled together."""
     out_dir = ROOT / "build" / "kernel_turns"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in ("perturb", "gemm_chain"):
+    for name in ("perturb", "gemm_chain", "res_chain"):
         lib = out_dir / f"lib{name}_parent.so"
         cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib),
                str(parent / "dfd_tpu_torch" / "ops" / "csrc" / f"{name}.cu")]
@@ -61,7 +68,10 @@ def build_parent(parent: Path) -> dict:
         libs[name] = ctypes.CDLL(str(lib))
     vp, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     libs["perturb"].dfd_perturb.argtypes = [vp, vp, i32, i32, ctypes.c_float, u32, u32, i32, vp]
-    libs["gemm_chain"].dfd_gemm_chain.argtypes = [vp] * 4 + [i32] * 5 + [ctypes.c_float, vp]
+    libs["perturb"].dfd_combine.argtypes = [vp, vp, i32, i32, u32, u32, i32, vp]
+    libs["gemm_chain"].dfd_gemm_chain.argtypes = ([vp] * 4 + [i32] * 5 + [ctypes.c_float]
+                                                  + [i32] * 8 + [vp])
+    libs["res_chain"].dfd_res_chain.argtypes = [vp] * 5 + [i32] * 7 + [vp]
     return libs
 
 
@@ -110,6 +120,23 @@ def main() -> int:
                           20))
         del out
 
+    for P, d, anti in [(P, d, False) for P, d in PERTURB_SHAPES] + [(2048, 5197, True)]:
+        coefs = torch.randn(P, device=dev)
+        g = torch.empty(d, device=dev)
+
+        def parent():
+            build.raise_on(libs["perturb"].dfd_combine(coefs.data_ptr(), g.data_ptr(), P, d, 0, 7,
+                                                       int(anti), stream()), "parent combine")
+            return g
+
+        change = lambda: pk.combine(coefs, 0, 7, d, antithetic=anti)
+        want = pk.combine_plain(coefs, 0, 7, d, antithetic=anti)
+        for f in (parent, change):
+            assert ((f() - want).norm() / want.norm()).item() <= 1e-5
+        del want
+        rows.append(turns(f"combine P={P} d={d}" + (" antithetic" if anti else ""), parent,
+                          change, 20))
+
     sel = np.zeros((4096, 1024), np.float32)
     sel[even_positions(64, 64), np.arange(1024)] = 1.0
     chains = [(f"gemm [{mode}] [{M}x{K}]x[{K}x{N}] iters={iters}", M, K, N, iters, mode, 0.01)
@@ -128,10 +155,14 @@ def main() -> int:
         out = torch.empty(M, N, device=dev)
         carry = torch.empty(2, device=dev)
 
+        ordered = gc.ordered_route(iters, mode)
+        p = gc.gemm_chain_plan(M, K, N, ordered, resident=mode == "feed")
+
         def parent():
             build.raise_on(libs["gemm_chain"].dfd_gemm_chain(
                 a.data_ptr(), b.data_ptr(), out.data_ptr(), carry.data_ptr(), M, K, N, iters,
-                gc.MODES.index(mode), gc._inv(iters), stream()), "parent gemm_chain")
+                gc.MODES.index(mode), gc._inv(iters), p.wm, p.wn, p.wk, p.mt, p.nt, p.cluster,
+                p.ks, int(ordered), stream()), "parent gemm_chain")
             return out
 
         change = lambda: gc.gemm_chain(a, b, iters, mode)
@@ -140,6 +171,36 @@ def main() -> int:
         for f in (parent, change):
             assert (f() - want).abs().max().item() <= tol, name
         rows.append(turns(name, parent, change, 5))
+
+    # res_chain: the wide probe's chains and the pool probe's, on the probes' inputs
+    chains = [("wide", C, H, W, layout, tag, cd) for C, H, W in pwide.STAGES
+              for layout in ("channel_major", "channel_minor") for tag, cd in pwide.DTYPES]
+    chains += [("pool", 16, 32, 32, layout, tag, cd) for tag, layout, cd in ppool.CHAINS]
+    for probe, C, H, W, layout, tag, cd in chains:
+        P, S, minor = 64, H * W, layout == "channel_minor"
+        rng = np.random.RandomState(2)
+        xs = torch.from_numpy(rng.randn(P, C, S).astype(np.float32) * 0.1).to(dev)
+        ws = torch.from_numpy(rng.randn(P, 4, C, C * 9).astype(np.float32)
+                              * (0.02 if probe == "wide" else 0.05)).to(dev)
+        bs = torch.from_numpy(rng.randn(P, 4, C).astype(np.float32) * 0.01).to(dev)
+        x = xs.transpose(1, 2).contiguous() if minor else xs
+        w = ws.transpose(2, 3).contiguous() if minor else ws
+        out, tmp = torch.empty_like(x), torch.empty_like(x)
+
+        def parent():
+            build.raise_on(libs["res_chain"].dfd_res_chain(
+                x.data_ptr(), w.data_ptr(), bs.data_ptr(), out.data_ptr(), tmp.data_ptr(), P, 4,
+                C, H, W, int(minor), int(cd is not None), stream()), "parent res_chain")
+            return out
+
+        change = lambda: rc.res_chain(x, w, bs, H, W, layout, cd)
+        want = rc.res_chain_plain(x, w, bs, H, W, layout, cd)
+        tol = (1e-5 if cd is None else 5e-4) * max(1.0, want.abs().max().item())
+        for f in (parent, change):
+            assert (f() - want).abs().max().item() <= tol
+        del want
+        rows.append(turns(f"res_chain {probe} {layout} {tag} {C}ch@{H}x{W} P={P}", parent,
+                          change, 10))
 
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
