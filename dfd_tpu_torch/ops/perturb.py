@@ -101,18 +101,6 @@ def perturb_plain(flat: torch.Tensor, sigma: float, base_seed: int, epoch: int, 
     return flat[None, :] + sigma * eps
 
 
-def draw_coefs(coefs: torch.Tensor, antithetic: bool = False) -> torch.Tensor:
-    """The coefficient of each draw as ``combine_kernel`` stages it: under
-    antithetic, members 2m and 2m + 1 share draw m with opposite signs, so
-    draw m takes ``c[2m] - c[2m + 1]`` (a lone last member its own); else
-    ``coefs`` itself.  ``draw_coefs(c, a) @ noise_plain(.., len(draws), ..)``
-    is the combine."""
-    if not antithetic:
-        return coefs
-    pairs = coefs[: coefs.shape[0] // 2 * 2].reshape(-1, 2)
-    return torch.cat([pairs[:, 0] - pairs[:, 1], coefs[pairs.shape[0] * 2:]])
-
-
 def combine_plain(coefs: torch.Tensor, base_seed: int, epoch: int, d: int,
                   antithetic: bool = False) -> torch.Tensor:
     eps = noise_plain(base_seed, epoch, coefs.shape[0], d, antithetic, coefs.device)

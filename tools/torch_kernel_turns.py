@@ -15,8 +15,17 @@ the card, its clocks and its power limit: perturb and combine at the trained
 cells' shapes (combine also antithetic at ``mlp_trap``'s), gemm_chain at the
 gemm probe's ten cases, the torso probe's seven chains and the pool probe's
 Sel-GEMM, and res_chain at the wide probe's twelve chains and the pool
-probe's three.  Each output is checked against the plain version first.
-Prints one line a case and writes them as JSON to ``--out``.
+probe's three.  Combine takes five such rounds, and its spread (the
+fastest and slowest round's ratio) is printed.  Each output is checked
+against the plain version first.
+
+Then combine's plans at ``impala_procmaze``'s and ``impala_prod_bf16``'s
+shapes: this checkout's ``perturb.cu`` is built once more with the entry's
+refusal of another plan taken out of its text, and every plan of one
+cluster rank (``lt`` from 256 down to 16 threads a row, ``mg = 256 / lt``
+groups) is timed in four rounds, in turn with the parent and the wrapper
+(the plan ``combine_plan`` picks); each round runs them forward or
+backward.  Prints one line a case and writes them as JSON to ``--out``.
 """
 
 from __future__ import annotations
@@ -49,41 +58,90 @@ ROOT = Path(__file__).resolve().parents[1]
 PERTURB_SHAPES = ((2048, 5197), (128, 1_156_139), (64, 7_872_651))
 
 
+# dfd_combine's refusal of any plan but combine_plan's, and what the sweep builds instead
+PLAN_CHECK = "p.lt != lt || p.mg != mg || p.cl != cl"
+PLAN_SWEEP_SHAPES = ((128, 1_156_139), (64, 7_872_651))
+
+
 def build_parent(parent: Path) -> dict:
-    """The parent's three libraries, compiled together."""
+    """The parent's three libraries and this checkout's perturb taking any
+    plan (``anyplan``), compiled together."""
     out_dir = ROOT / "build" / "kernel_turns"
     out_dir.mkdir(parents=True, exist_ok=True)
+    src = (ROOT / "dfd_tpu_torch" / "ops" / "csrc" / "perturb.cu").read_text()
+    if PLAN_CHECK not in src:
+        raise RuntimeError("perturb.cu's dfd_combine no longer holds its plan check")
+    anyplan = out_dir / "perturb_anyplan.cu"
+    anyplan.write_text(src.replace(PLAN_CHECK, "false"))
     procs = {}
-    for name in ("perturb", "gemm_chain", "res_chain"):
-        lib = out_dir / f"lib{name}_parent.so"
-        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib),
-               str(parent / "dfd_tpu_torch" / "ops" / "csrc" / f"{name}.cu")]
+    for name in ("perturb", "gemm_chain", "res_chain", "anyplan"):
+        lib = out_dir / (f"lib{name}.so" if name == "anyplan" else f"lib{name}_parent.so")
+        cu = anyplan if name == "anyplan" else parent / "dfd_tpu_torch/ops/csrc" / f"{name}.cu"
+        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib), str(cu)]
         procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (lib, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for the parent's {name}.cu:\n{log}")
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
         libs[name] = ctypes.CDLL(str(lib))
     vp, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     libs["perturb"].dfd_perturb.argtypes = [vp, vp, i32, i32, ctypes.c_float, u32, u32, i32, vp]
     libs["perturb"].dfd_combine.argtypes = [vp, vp, i32, i32, u32, u32, i32, vp]
+    libs["anyplan"].dfd_combine.argtypes = [vp, vp, i32, i32, u32, u32] + [i32] * 4 + [vp]
     libs["gemm_chain"].dfd_gemm_chain.argtypes = ([vp] * 4 + [i32] * 5 + [ctypes.c_float]
                                                   + [i32] * 8 + [vp])
     libs["res_chain"].dfd_res_chain.argtypes = [vp] * 5 + [i32] * 7 + [vp]
     return libs
 
 
-def turns(name: str, parent, change, iters: int) -> dict:
-    """parent, change, change, parent; the mean of each version's two."""
-    t = [time_ms(f, torch.device("cuda"), iters) for f in (parent, change, change, parent)]
-    row = {"case": name, "parent_ms": (t[0] + t[3]) / 2, "change_ms": (t[1] + t[2]) / 2,
-           "turns_ms": t}
+def turns(name: str, parent, change, iters: int, rounds: int = 1) -> dict:
+    """``rounds`` times parent, change, change, parent; the mean of each
+    version's times, and each round's ratio."""
+    t = [time_ms(f, torch.device("cuda"), iters)
+         for _ in range(rounds) for f in (parent, change, change, parent)]
+    row = {"case": name, "parent_ms": sum(t[0::4] + t[3::4]) / (2 * rounds),
+           "change_ms": sum(t[1::4] + t[2::4]) / (2 * rounds), "turns_ms": t}
     row["speedup"] = row["parent_ms"] / row["change_ms"]
+    ratios = [(t[i] + t[i + 3]) / (t[i + 1] + t[i + 2]) for i in range(0, len(t), 4)]
+    row["speedup_min"], row["speedup_max"] = min(ratios), max(ratios)
+    spread = f", rounds {min(ratios):.4f}-{max(ratios):.4f}x" if rounds > 1 else ""
     print(f"turns: {name}: parent {row['parent_ms']:.4f} ms, change {row['change_ms']:.4f} ms "
-          f"({row['speedup']:.2f}x; turns {', '.join(f'{x:.4f}' for x in t)})", flush=True)
+          f"({row['speedup']:.4f}x{spread}; turns {', '.join(f'{x:.4f}' for x in t)})", flush=True)
     return row
+
+
+def combine_plan_sweep(libs: dict, dev: torch.device) -> list:
+    """Every one-rank plan of combine at PLAN_SWEEP_SHAPES, in rounds with
+    the parent and the wrapper's plan."""
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    rows = []
+    for P, d in PLAN_SWEEP_SHAPES:
+        coefs = torch.randn(P, device=dev)
+        g = torch.empty(d, device=dev)
+        fns = {"parent": lambda: (build.raise_on(libs["perturb"].dfd_combine(
+            coefs.data_ptr(), g.data_ptr(), P, d, 0, 7, 0, stream()), "parent combine"), g)[1],
+               "combine_plan": lambda: pk.combine(coefs, 0, 7, d)}
+        for lt in (256, 128, 64, 32, 16):
+            fns[f"({lt}, {256 // lt}, 1)"] = lambda lt=lt: (build.raise_on(
+                libs["anyplan"].dfd_combine(coefs.data_ptr(), g.data_ptr(), P, d, 0, 7, 0, lt,
+                                            256 // lt, 1, stream()), "anyplan combine"), g)[1]
+        want = pk.combine_plain(coefs, 0, 7, d)
+        for f in fns.values():
+            assert ((f() - want).norm() / want.norm()).item() <= 1e-5
+        del want
+        times = {k: [] for k in fns}
+        for r in range(4):
+            for k in list(fns)[:: 1 if r % 2 == 0 else -1]:
+                times[k].append(time_ms(fns[k], dev, 20))
+        print(f"plans: combine P={P} d={d}, combine_plan {pk.combine_plan(P, d)}", flush=True)
+        for k, t in times.items():
+            rows.append({"case": f"combine plan P={P} d={d} {k}", "mean_ms": sum(t) / len(t),
+                         "min_ms": min(t), "max_ms": max(t), "rounds_ms": t})
+            print(f"plans:   {k:>14}: mean {sum(t) / len(t):.4f} ms, rounds {min(t):.4f}-"
+                  f"{max(t):.4f}", flush=True)
+    return rows
 
 
 def main() -> int:
@@ -135,7 +193,8 @@ def main() -> int:
             assert ((f() - want).norm() / want.norm()).item() <= 1e-5
         del want
         rows.append(turns(f"combine P={P} d={d}" + (" antithetic" if anti else ""), parent,
-                          change, 20))
+                          change, 20, rounds=5))
+    rows += combine_plan_sweep(libs, dev)
 
     sel = np.zeros((4096, 1024), np.float32)
     sel[even_positions(64, 64), np.arange(1024)] = 1.0

@@ -1,6 +1,6 @@
 """Where the tensor-core kernels' time goes on the card, by removing one part.
 
-    python3 tools/torch_mma_variants.py [--source {bf16,tf32,res_chain,both,all}]
+    python3 tools/torch_mma_variants.py [--source {bf16,tf32,res_chain,both}]
 
 Builds each tensor-core source as it is and in variants, each with one part
 of the work taken out of the source text, and times every variant's res
@@ -34,12 +34,12 @@ stage and feature pool at its main path's rollout shapes:
   products unrolled by 2, so the next step's loads are issued before this
   step's products).
 
-``both`` runs ``bf16`` and ``tf32``, ``all`` the three.  The difference between ``base`` and a variant is what that part costs
-where it does not overlap the rest.  The variants compute wrong outputs;
-only their times are printed.  Times come from ``time_ms`` (CUDA events,
-the calls queued behind a spin kernel), beside the card's name and power
-limit.  Needs a CUDA device and ``nvcc``; builds under
-``build/dfd_tpu_torch/variants/``.
+``both`` runs ``bf16`` and ``tf32``.  The difference between ``base`` and
+a variant is what that part costs where it does not overlap the rest.  The
+variants compute wrong outputs; only their times are printed.  Times come
+from ``time_ms`` (CUDA events, the calls queued behind a spin kernel),
+beside the card's name and power limit.  Needs a CUDA device and ``nvcc``;
+builds under ``build/dfd_tpu_torch/variants/``.
 """
 
 from __future__ import annotations
@@ -241,7 +241,7 @@ def run(key: str, dev: torch.device) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--source", choices=("bf16", "tf32", "res_chain", "both", "all"),
+    ap.add_argument("--source", choices=("bf16", "tf32", "res_chain", "both"),
                     default="both")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -250,9 +250,7 @@ def main() -> int:
     import chip_smoke
 
     print(chip_smoke.card_line())
-    keys = {"both": ("bf16", "tf32"), "all": ("bf16", "tf32", "res_chain")}.get(args.source,
-                                                                              (args.source,))
-    for key in keys:
+    for key in ("bf16", "tf32") if args.source == "both" else (args.source,):
         if key == "res_chain":
             run_res_chain(torch.device("cuda"))
         else:
