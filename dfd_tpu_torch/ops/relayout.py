@@ -22,19 +22,33 @@ for the same function) on a CPU tensor; other devices, dtypes or shapes raise.
 Every output is bit-exact against the plain version.  ``launches`` on each
 wrapper counts kernel launches.  What bounds them on an H100 is bytes: each
 input read once and each output written once, at 3.35 TB/s.
+
+The roll and the strided copy run one kernel body over the copy seen as rows
+(:func:`rows_plan`): a strided view is collapsed first, so a contiguous view
+is one flat row; a roll along lanes is rows of ``cols`` shifted by ``shift``,
+along rows one flat row shifted by ``shift * cols``.  The plan picks float4
+stores where output rows are 16-byte aligned, float4 loads where the source
+is unit-stride and aligned too, 32- or 64-bit offsets, the threads a row and
+the grid.  The C entries recompute it and refuse a plan that differs.
+:func:`empty` launches an empty kernel: the card's cost of a launch.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
 from dfd_tpu_torch.ops import build
 
 MAX_SCALES = 8
+THREADS = 256                # a block of the roll and strided copy kernels
+UNROLL = 4                   # units of a row a thread takes at once
+MAX_BLOCKS = 132 * 16        # the grid at large sizes: 16 blocks an SM, 2-4 waves
+MAX_GRID_Y = 65535
+LIMIT32 = 2 ** 31 - 4096     # 32-bit offsets below this
 
 
 # -- plain PyTorch versions ------------------------------------------------------------
@@ -60,6 +74,107 @@ def concat_scaled_plain(x: torch.Tensor, scales: Sequence[float]) -> torch.Tenso
     return torch.cat([x * float(s) for s in scales], 0)
 
 
+# -- the plan of the roll and the strided copy -----------------------------------------
+
+
+class RowsPlan(NamedTuple):
+    """A copy as ``n0 x n1`` rows of ``L`` output elements: row ``i0 * n1 +
+    i1`` reads ``x[i0 * s0 + i1 * s1 + src(c) * s2]`` for column c, where
+    src(c) is c, or ``(c - k) mod L`` for a roll; then how the kernel runs it
+    (``csrc/relayout.cu::rows_plan``, which this mirrors)."""
+
+    n0: int
+    n1: int
+    L: int
+    s0: int
+    s1: int
+    s2: int
+    k: int
+    width: int       # 4: float4 stores (L % 4 == 0, or one row); 1: scalar stores
+    vec_load: int    # float4 loads: unit stride, every gathered float4 16-byte aligned
+    wide: int        # 64-bit offsets: some offset reaches LIMIT32
+    g: int           # threads a row, a power of two up to THREADS
+    unroll: int      # units a thread takes of a row: 1, or UNROLL where the card is full
+    bx: int          # chunks of g * unroll units of a row (gridDim.x)
+    by: int          # runs of THREADS // g rows, looped in grid strides (gridDim.y)
+
+    @property
+    def launch(self) -> Tuple[int, ...]:
+        """The fields the C entry checks, in its argument order."""
+        return self.width, self.vec_load, self.wide, self.g, self.unroll, self.bx, self.by
+
+    @property
+    def route(self) -> str:
+        """"flat" (one row) or "rows"; "vector" (float4 loads and stores),
+        "aligned stores" (scalar loads, float4 stores) or "scalar"; 32- or
+        64-bit offsets."""
+        load = "vector" if self.vec_load else "aligned stores" if self.width == 4 else "scalar"
+        return (f"{'flat' if self.n0 * self.n1 == 1 else 'rows'}, {load}, "
+                f"{64 if self.wide else 32}-bit")
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def rows_plan(n0: int, n1: int, L: int, s0: int, s1: int, s2: int, k: int,
+              x_addr: int) -> RowsPlan:
+    """The plan of a copy as rows from ``x`` at address ``x_addr`` (see
+    :class:`RowsPlan`): float4 stores where output rows are 16-byte aligned,
+    float4 loads where every source float4 is too, ``g`` threads a row
+    taking one unit each where that needs at most ``MAX_BLOCKS`` blocks (a
+    small copy is latency), else ``UNROLL`` each (loads in flight) in a grid
+    of about ``MAX_BLOCKS`` blocks, rows looped in grid strides."""
+    rows = n0 * n1
+    width = 4 if L % 4 == 0 or rows == 1 else 1  # a flat row's short last unit goes by element
+    vec_load = int(width == 4 and s2 == 1 and k % 4 == 0 and (k == 0 or L % 4 == 0)
+                   and x_addr % 16 == 0 and (n0 == 1 or s0 % 4 == 0) and (n1 == 1 or s1 % 4 == 0))
+    reach = (n0 - 1) * s0 + (n1 - 1) * s1 + (L - 1) * s2
+    wide = int(rows * L > LIMIT32 or reach >= LIMIT32)
+    units = _cdiv(L, width)
+
+    def threads_a_row(unroll: int) -> int:
+        g = 1
+        while g < THREADS and g * unroll < units:
+            g *= 2
+        return g
+
+    unroll, g = 1, threads_a_row(1)
+    if _cdiv(units, g) * _cdiv(rows * g, THREADS) > MAX_BLOCKS:
+        unroll, g = UNROLL, threads_a_row(UNROLL)
+    bx = _cdiv(units, g * unroll)
+    by = min(_cdiv(rows * g, THREADS), _cdiv(MAX_BLOCKS, bx), MAX_GRID_Y)
+    return RowsPlan(n0, n1, L, s0, s1, s2, k, width, vec_load, wide, g, unroll, bx, by)
+
+
+def roll_plan(x_addr: int, rows: int, cols: int, shift: int, axis: int) -> RowsPlan:
+    """The roll of a contiguous ``[rows, cols]`` at ``x_addr`` by ``shift``
+    (in ``[0, len)``) along ``axis``: along lanes rows of ``cols``, along
+    rows one flat row shifted by whole rows."""
+    if axis == 0:
+        return rows_plan(1, 1, rows * cols, 0, 0, 1, shift * cols, x_addr)
+    return rows_plan(1, rows, cols, 0, cols, 1, shift, x_addr)
+
+
+def strided_copy_plan(x_addr: int, sizes: Sequence[int], strides: Sequence[int]) -> RowsPlan:
+    """The copy of a view of up to three axes (``sizes``, ``strides`` in
+    elements, from ``x_addr``) as rows: size-1 axes dropped, an axis merged
+    into the next one where its stride is that axis's extent (a contiguous
+    view becomes one flat row)."""
+    dims = []  # (size, stride), innermost first
+    for n, st in zip(reversed(tuple(sizes)), reversed(tuple(strides))):
+        if n == 1:
+            continue
+        if dims and st == dims[-1][0] * dims[-1][1]:
+            dims[-1] = (dims[-1][0] * n, dims[-1][1])
+        else:
+            dims.append((n, st))
+    dims += [(1, 1)] if not dims else []
+    dims += [(1, 0)] * (3 - len(dims))
+    (L, s2), (n1, s1), (n0, s0) = dims
+    return rows_plan(n0, n1, L, s0, s1, s2, 0, x_addr)
+
+
 # -- the kernels -----------------------------------------------------------------------
 
 
@@ -79,8 +194,9 @@ def _kernels() -> ctypes.CDLL:
     lib = build.load("relayout")
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for name, args in (
-        ("dfd_roll", [vp, vp, i64, i64, i64, i32, vp]),
-        ("dfd_strided_copy", [vp, vp] + [i64] * 6 + [vp]),
+        ("dfd_roll", [vp, vp, i64, i64, i64, i32] + [i32] * 5 + [i64, i32, vp]),
+        ("dfd_strided_copy", [vp, vp] + [i64] * 6 + [i32] * 5 + [i64, i32, vp]),
+        ("dfd_empty", [vp]),
         ("dfd_gather_cols", [vp, vp, vp, i64, i64, i64, vp]),
         ("dfd_transpose", [vp, vp, i32, i32, vp]),
         ("dfd_concat_scaled", [vp, vp, i64, vp, i32, vp]),
@@ -106,8 +222,12 @@ def roll(x: torch.Tensor, shift: int, axis: int) -> torch.Tensor:
     _check_cuda(x)
     axis %= 2
     out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
     rows, cols = x.shape
-    _launch(x, "dfd_roll", x.data_ptr(), out.data_ptr(), rows, cols, shift % x.shape[axis], axis)
+    shift %= x.shape[axis]
+    p = roll_plan(x.data_ptr(), rows, cols, shift, axis)
+    _launch(x, "dfd_roll", x.data_ptr(), out.data_ptr(), rows, cols, shift, axis, *p.launch)
     roll.launches += 1
     return out
 
@@ -125,7 +245,9 @@ def strided_copy(view: torch.Tensor) -> torch.Tensor:
     pad = 3 - view.ndim
     sizes = (1,) * pad + tuple(view.shape)
     strides = (0,) * pad + tuple(view.stride())
-    _launch(view, "dfd_strided_copy", view.data_ptr(), out.data_ptr(), *sizes, *strides)
+    p = strided_copy_plan(view.data_ptr(), sizes, strides)
+    _launch(view, "dfd_strided_copy", view.data_ptr(), out.data_ptr(), *sizes, *strides,
+            *p.launch)
     strided_copy.launches += 1
     return out
 
@@ -175,6 +297,14 @@ def concat_scaled(x: torch.Tensor, scales: Sequence[float]) -> torch.Tensor:
     _launch(x, "dfd_concat_scaled", x.data_ptr(), out.data_ptr(), x.numel(), host, len(scales))
     concat_scaled.launches += 1
     return out
+
+
+def empty(device: torch.device) -> None:
+    """Launch an empty kernel (one block of 32 threads) on ``device``'s
+    current stream; counted nowhere."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        build.raise_on(_kernels().dfd_empty(stream), "empty")
 
 
 KERNELS = (roll, strided_copy, gather_cols, transpose, concat_scaled)

@@ -454,6 +454,87 @@ def test_relayout_kernels_are_exact(cuda):
     out = rl.gather_cols(x, torch.tensor([0, 5], device=cuda, dtype=torch.int32))
     assert torch.isnan(out[:, 1]).all()  # index 5 is outside [0, 1)
 
+    # every route of the roll and the strided copy: storage offsets off 16 bytes, rows of
+    # 1, 3 and 5, shifts 1, 4 and L - 1 along lanes, more row runs than gridDim.y holds
+    routes = set()
+
+    def roll(x, shift, axis):
+        routes.add(rl.roll_plan(x.data_ptr(), *x.shape, shift % x.shape[axis], axis % 2).route)
+        assert torch.equal(rl.roll(x, shift, axis), torch.roll(x, shift, axis)), (x.shape, shift)
+
+    def copy(view):
+        pad = 3 - view.ndim
+        routes.add(rl.strided_copy_plan(view.data_ptr(), (1,) * pad + tuple(view.shape),
+                                        (0,) * pad + view.stride()).route)
+        assert torch.equal(rl.strided_copy(view), view.contiguous()), (view.shape, view.stride())
+
+    for R, L in ((7, 1), (9, 3), (5, 5), (33, 64), (6, 1030), (300, 1024), (2 ** 20, 1),
+                 (2 ** 20, 3), (3000, 16)):
+        base = torch.randn(R * L + 3, device=cuda)
+        for off in (0, 1, 2, 3):
+            x = base[off:off + R * L].view(R, L)
+            for shift in {1, 4, L - 1, L + 2}:
+                roll(x, shift, 1)
+            for shift in {1, R - 1, 4}:
+                roll(x, shift, 0)
+            for view in (x, x[::2, :], x[:, ::2], x[1:, 3::5], x[:, 1:], x[:, :1], x.t(),
+                         x[:1, :].expand(3, L)):
+                if view.numel():
+                    copy(view)
+            if L % 8 == 0:
+                y = x.view(R, L // 8, 8)
+                for view in (y, y[:, ::2, :], y[:, :, :4], y[1:, :, ::3], y.transpose(0, 2)):
+                    copy(view)
+    assert routes >= {f"{where}, {load}, 32-bit" for where, load in (
+        ("flat", "vector"), ("flat", "aligned stores"), ("rows", "vector"),
+        ("rows", "aligned stores"), ("rows", "scalar"))}, routes
+
+
+def test_relayout_kernels_past_2_31_take_the_64_bit_route(cuda):
+    """A [2, 2^30 + 8] tensor (8.6 GB): its last offset passes 2^31."""
+    from dfd_tpu_torch.ops import relayout as rl
+
+    x = torch.randn(2, 2 ** 30 + 8, device=cuda)
+    routes = set()
+    for shift, axis in ((1, 1), (2 ** 30 + 7, 1), (1, 0)):
+        routes.add(rl.roll_plan(x.data_ptr(), *x.shape, shift, axis).route)
+        got = rl.roll(x, shift, axis)
+        assert torch.equal(got, torch.roll(x, shift, axis)), (shift, axis)
+        del got
+    for view in (x[:, 3:], x[:, ::2]):
+        routes.add(rl.strided_copy_plan(view.data_ptr(), (1, *view.shape),
+                                        (0, *view.stride())).route)
+        got = rl.strided_copy(view)
+        assert torch.equal(got, view.contiguous())
+        del got
+    del x
+    torch.cuda.empty_cache()
+    assert routes == {"rows, aligned stores, 64-bit", "flat, vector, 64-bit",
+                      "rows, scalar, 64-bit", "flat, aligned stores, 64-bit"}, routes
+
+
+def test_relayout_entries_refuse_another_plan(cuda):
+    from dfd_tpu_torch.ops import relayout as rl
+
+    x = torch.randn(64, 1024, device=cuda)
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = rl._kernels()
+    p = rl.roll_plan(x.data_ptr(), 64, 1024, 1, 1)
+    v = x[:, ::2]
+    q = rl.strided_copy_plan(v.data_ptr(), (1, 64, 512), (0, 1024, 2))
+    for i in range(len(p.launch)):
+        bad = list(p.launch)
+        bad[i] += 1
+        assert lib.dfd_roll(x.data_ptr(), out.data_ptr(), 64, 1024, 1, 1, *bad, stream) != 0
+        bad = list(q.launch)
+        bad[i] += 1
+        assert lib.dfd_strided_copy(v.data_ptr(), out.data_ptr(), 1, 64, 512, 0, 1024, 2, *bad,
+                                    stream) != 0
+    assert lib.dfd_roll(x.data_ptr(), out.data_ptr(), 64, 1024, 1, 1, *p.launch, stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.roll(x, 1, 1))
+
 
 # the probes' shapes (P = 64), then
 # every cluster size (1: P = 132, or one row of 6 channels; 2, 4, 8) and split (rows, channels,

@@ -1,23 +1,30 @@
-"""Time the port's perturb, combine, gemm_chain and res_chain kernels against another checkout's, in turns, on one card.
+"""Time the port's kernels against another checkout's, in turns, on one card.
 
     python3 tools/torch_kernel_turns.py --parent DIR [--out FILE]
 
 DIR is the root of another checkout of this repository (an earlier commit,
 unpacked with ``git archive``) whose C entry points have the interfaces of
-commit 94ca06d: ``dfd_combine`` without a plan, ``dfd_res_chain`` with a
-scratch buffer and no plan, ``dfd_gemm_chain`` with its plan.  Its ``dfd_tpu_torch/ops/csrc/perturb.cu``,
-``gemm_chain.cu`` and ``res_chain.cu`` are built with the same ``nvcc``
-flags as this checkout's (``dfd_tpu_torch/ops/build.py``) into
-``build/kernel_turns/`` and called through their own C entry points; this
-checkout's kernels go through their wrappers.  Each case is timed parent,
+commit 994b17a: ``dfd_combine``, ``dfd_res_chain`` and ``dfd_gemm_chain``
+with their plans, ``dfd_roll`` and ``dfd_strided_copy`` without one.  Its
+``dfd_tpu_torch/ops/csrc/perturb.cu``, ``gemm_chain.cu``, ``res_chain.cu``
+and ``relayout.cu`` are built with the same ``nvcc`` flags as this
+checkout's (``dfd_tpu_torch/ops/build.py``) into ``build/kernel_turns/`` and
+called through their own C entry points; this checkout's kernels go through
+their wrappers.  Each case is timed parent,
 change, change, parent (``time_ms``, CUDA events), so the two versions share
 the card, its clocks and its power limit: perturb and combine at the trained
 cells' shapes (combine also antithetic at ``mlp_trap``'s), gemm_chain at the
 gemm probe's ten cases, the torso probe's seven chains and the pool probe's
-Sel-GEMM, and res_chain at the wide probe's twelve chains and the pool
-probe's three.  Combine takes five such rounds, and its spread (the
-fastest and slowest round's ratio) is printed.  Each output is checked
-against the plain version first.
+Sel-GEMM, res_chain at the wide probe's twelve chains and the pool
+probe's three, and roll and strided_copy at the torso and pool probes'
+cases and at ``impala_prod_bf16``'s stage-0 novelty activation seen as
+``x [33280, 1024]`` (rolls by 1 and 32 along lanes and by 1 along rows;
+``x[::2, :]``, ``x[:, ::2]``, ``x3[:, ::2, :]`` and the reshape copy of
+``x3 = x.view(33280, 32, 32)``), with their PyTorch call (``torch.roll``,
+``clone``) in the same turns: parent, change, PyTorch, PyTorch, change,
+parent.  Combine and the relayouts take five such rounds, and their spread
+(the fastest and slowest round's ratio) is printed.  Each output is
+checked against the plain version first (the relayouts bit for bit).
 
 Then combine's plans at ``impala_procmaze``'s and ``impala_prod_bf16``'s
 shapes: this checkout's ``perturb.cu`` is built once more with the entry's
@@ -46,6 +53,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from dfd_tpu_torch.ops import build  # noqa: E402
 from dfd_tpu_torch.ops import gemm_chain as gc  # noqa: E402
 from dfd_tpu_torch.ops import perturb as pk  # noqa: E402
+from dfd_tpu_torch.ops import relayout as rl  # noqa: E402
 from dfd_tpu_torch.ops import res_chain as rc  # noqa: E402
 from dfd_tpu_torch.probes import gemm as pgemm  # noqa: E402
 from dfd_tpu_torch.probes import pool as ppool  # noqa: E402
@@ -64,7 +72,7 @@ PLAN_SWEEP_SHAPES = ((128, 1_156_139), (64, 7_872_651))
 
 
 def build_parent(parent: Path) -> dict:
-    """The parent's three libraries and this checkout's perturb taking any
+    """The parent's four libraries and this checkout's perturb taking any
     plan (``anyplan``), compiled together."""
     out_dir = ROOT / "build" / "kernel_turns"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -74,7 +82,7 @@ def build_parent(parent: Path) -> dict:
     anyplan = out_dir / "perturb_anyplan.cu"
     anyplan.write_text(src.replace(PLAN_CHECK, "false"))
     procs = {}
-    for name in ("perturb", "gemm_chain", "res_chain", "anyplan"):
+    for name in ("perturb", "gemm_chain", "res_chain", "relayout", "anyplan"):
         lib = out_dir / (f"lib{name}.so" if name == "anyplan" else f"lib{name}_parent.so")
         cu = anyplan if name == "anyplan" else parent / "dfd_tpu_torch/ops/csrc" / f"{name}.cu"
         cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib), str(cu)]
@@ -86,30 +94,100 @@ def build_parent(parent: Path) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
         libs[name] = ctypes.CDLL(str(lib))
-    vp, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+    vp, i32, u32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_longlong
     libs["perturb"].dfd_perturb.argtypes = [vp, vp, i32, i32, ctypes.c_float, u32, u32, i32, vp]
-    libs["perturb"].dfd_combine.argtypes = [vp, vp, i32, i32, u32, u32, i32, vp]
+    libs["perturb"].dfd_combine.argtypes = [vp, vp, i32, i32, u32, u32] + [i32] * 4 + [vp]
     libs["anyplan"].dfd_combine.argtypes = [vp, vp, i32, i32, u32, u32] + [i32] * 4 + [vp]
     libs["gemm_chain"].dfd_gemm_chain.argtypes = ([vp] * 4 + [i32] * 5 + [ctypes.c_float]
                                                   + [i32] * 8 + [vp])
-    libs["res_chain"].dfd_res_chain.argtypes = [vp] * 5 + [i32] * 7 + [vp]
+    libs["res_chain"].dfd_res_chain.argtypes = [vp] * 4 + [i32] * 15 + [vp]
+    libs["relayout"].dfd_roll.argtypes = [vp, vp, i64, i64, i64, i32, vp]
+    libs["relayout"].dfd_strided_copy.argtypes = [vp, vp] + [i64] * 6 + [vp]
     return libs
 
 
-def turns(name: str, parent, change, iters: int, rounds: int = 1) -> dict:
-    """``rounds`` times parent, change, change, parent; the mean of each
-    version's times, and each round's ratio."""
-    t = [time_ms(f, torch.device("cuda"), iters)
-         for _ in range(rounds) for f in (parent, change, change, parent)]
-    row = {"case": name, "parent_ms": sum(t[0::4] + t[3::4]) / (2 * rounds),
-           "change_ms": sum(t[1::4] + t[2::4]) / (2 * rounds), "turns_ms": t}
+def turns(name: str, parent, change, iters: int, rounds: int = 1, library=None) -> dict:
+    """``rounds`` times parent, change, change, parent (parent, change,
+    library, library, change, parent with a ``library`` call); the mean of
+    each version's times, and each round's ratio of parent to change."""
+    order = (parent, change, change, parent) if library is None else (
+        parent, change, library, library, change, parent)
+    n = len(order)
+    t = [time_ms(f, torch.device("cuda"), iters) for _ in range(rounds) for f in order]
+    at = lambda f: [x for i, x in enumerate(t) if order[i % n] is f]
+    mean = lambda xs: sum(xs) / len(xs)
+    row = {"case": name, "parent_ms": mean(at(parent)), "change_ms": mean(at(change)),
+           "turns_ms": t}
     row["speedup"] = row["parent_ms"] / row["change_ms"]
-    ratios = [(t[i] + t[i + 3]) / (t[i + 1] + t[i + 2]) for i in range(0, len(t), 4)]
+    ratios = [sum(x for j, x in enumerate(t[i:i + n]) if order[j] is parent)
+              / sum(x for j, x in enumerate(t[i:i + n]) if order[j] is change)
+              for i in range(0, len(t), n)]
     row["speedup_min"], row["speedup_max"] = min(ratios), max(ratios)
     spread = f", rounds {min(ratios):.4f}-{max(ratios):.4f}x" if rounds > 1 else ""
+    lib = ""
+    if library is not None:
+        row["library_ms"] = mean(at(library))
+        lib = (f", PyTorch {row['library_ms']:.4f} ms (change "
+               f"{row['change_ms'] / row['library_ms']:.4f}x of it)")
     print(f"turns: {name}: parent {row['parent_ms']:.4f} ms, change {row['change_ms']:.4f} ms "
-          f"({row['speedup']:.4f}x{spread}; turns {', '.join(f'{x:.4f}' for x in t)})", flush=True)
+          f"({row['speedup']:.4f}x{spread}){lib}; turns {', '.join(f'{x:.4f}' for x in t)}",
+          flush=True)
     return row
+
+
+def relayout_turns(libs: dict, dev: torch.device) -> list:
+    """roll and strided_copy against the parent's and their PyTorch call, at
+    the torso and pool probes' cases and at x [33280, 1024]."""
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    lib = libs["relayout"]
+    rows = []
+    for size, (R, L), split in (("probe", (128, 1024), 64), ("production", (33280, 1024), 32)):
+        x = torch.from_numpy(np.random.RandomState(0).randn(R, L).astype(np.float32)).to(dev)
+        x3 = x.view(R, L // split, split)
+        cases = [(f"roll lanes shift={s}", (x, s, 1)) for s in ((1, 64) if size == "probe"
+                                                                else (1, 32))]
+        cases.append(("roll rows shift=1", (x, 1, 0)))
+        cases += [(name, (v,)) for name, v in (("x[::2, :]", x[::2, :]), ("x[:, ::2]", x[:, ::2]),
+                                               ("x3[:, ::2, :]", x3[:, ::2, :]),
+                                               (f"reshape [{R},{L}]->{list(x3.shape)}", x3))]
+        cases = [(f"{size} {name} of x [{R}, {L}]", args) for name, args in cases]
+        if size == "probe":
+            xp = torch.from_numpy(np.random.RandomState(0).randn(16, 4096).astype(
+                np.float32)).to(dev)
+            cases.append(("probe pool B x[:, ::2] of [16, 4096]", (xp[:, ::2],)))
+        for name, args in cases:
+            out = torch.empty(args[0].shape, device=dev)
+            if len(args) == 3:
+                xx, shift, axis = args
+
+                def parent():
+                    build.raise_on(lib.dfd_roll(xx.data_ptr(), out.data_ptr(), *xx.shape, shift,
+                                                axis, stream()), "parent roll")
+                    return out
+
+                change = lambda: rl.roll(*args)
+                library = lambda: torch.roll(*args)
+            else:
+                v = args[0]
+                pad = 3 - v.ndim
+
+                def parent():
+                    build.raise_on(lib.dfd_strided_copy(
+                        v.data_ptr(), out.data_ptr(), *((1,) * pad + tuple(v.shape)),
+                        *((0,) * pad + v.stride()), stream()), "parent strided_copy")
+                    return out
+
+                change = lambda: rl.strided_copy(*args)
+                library = lambda: args[0].clone(memory_format=torch.contiguous_format)
+            want = library()
+            for f in (parent, change):
+                assert torch.equal(f(), want), name
+            del want
+            rows.append(turns(name, parent, change, 20, rounds=5, library=library))
+            del out
+        del x, x3
+        torch.cuda.empty_cache()
+    return rows
 
 
 def combine_plan_sweep(libs: dict, dev: torch.device) -> list:
@@ -121,7 +199,8 @@ def combine_plan_sweep(libs: dict, dev: torch.device) -> list:
         coefs = torch.randn(P, device=dev)
         g = torch.empty(d, device=dev)
         fns = {"parent": lambda: (build.raise_on(libs["perturb"].dfd_combine(
-            coefs.data_ptr(), g.data_ptr(), P, d, 0, 7, 0, stream()), "parent combine"), g)[1],
+            coefs.data_ptr(), g.data_ptr(), P, d, 0, 7, 0, *pk.combine_plan(P, d), stream()),
+            "parent combine"), g)[1],
                "combine_plan": lambda: pk.combine(coefs, 0, 7, d)}
         for lt in (256, 128, 64, 32, 16):
             fns[f"({lt}, {256 // lt}, 1)"] = lambda lt=lt: (build.raise_on(
@@ -184,7 +263,8 @@ def main() -> int:
 
         def parent():
             build.raise_on(libs["perturb"].dfd_combine(coefs.data_ptr(), g.data_ptr(), P, d, 0, 7,
-                                                       int(anti), stream()), "parent combine")
+                                                       int(anti), *pk.combine_plan(P, d, anti),
+                                                       stream()), "parent combine")
             return g
 
         change = lambda: pk.combine(coefs, 0, 7, d, antithetic=anti)
@@ -244,12 +324,13 @@ def main() -> int:
         bs = torch.from_numpy(rng.randn(P, 4, C).astype(np.float32) * 0.01).to(dev)
         x = xs.transpose(1, 2).contiguous() if minor else xs
         w = ws.transpose(2, 3).contiguous() if minor else ws
-        out, tmp = torch.empty_like(x), torch.empty_like(x)
+        out = torch.empty_like(x)
+        plan = rc.res_chain_plan(P, C, H, W, layout, cd is not None)
 
         def parent():
             build.raise_on(libs["res_chain"].dfd_res_chain(
-                x.data_ptr(), w.data_ptr(), bs.data_ptr(), out.data_ptr(), tmp.data_ptr(), P, 4,
-                C, H, W, int(minor), int(cd is not None), stream()), "parent res_chain")
+                x.data_ptr(), w.data_ptr(), bs.data_ptr(), out.data_ptr(), P, 4, C, H, W,
+                int(minor), int(cd is not None), *plan[:-1], stream()), "parent res_chain")
             return out
 
         change = lambda: rc.res_chain(x, w, bs, H, W, layout, cd)
@@ -260,6 +341,8 @@ def main() -> int:
         del want
         rows.append(turns(f"res_chain {probe} {layout} {tag} {C}ch@{H}x{W} P={P}", parent,
                           change, 10))
+
+    rows += relayout_turns(libs, dev)
 
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
