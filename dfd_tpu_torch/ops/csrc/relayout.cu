@@ -13,9 +13,7 @@
 //                      stride 2, and the reshape copy [128, 1024] -> [128, 16, 64]);
 //   dfd_gather_cols:   out[r, j] = x[r, idx[j]] (k_take: jnp.take on lanes by an int32
 //                      index vector); an index outside [0, cols) gives NaN;
-//   dfd_transpose:     out = x^T of a 2-D x (k_transpose) through 32 x 32 shared-memory
-//                      tiles, padded to 33 columns so that neither the row-wise load nor the
-//                      column-wise store has bank conflicts;
+//   dfd_transpose:     out = x^T of a 2-D x (k_transpose);
 //   dfd_concat_scaled: out = concat([x * s_0, x * s_1, ...], axis 0) (concat_sublanes with
 //                      scales 1, 2, 3), each product rounded once (__fmul_rn).
 //
@@ -50,8 +48,38 @@
 //     split into whole runs of n1 on the host), with one carry from i1 into i0.
 //   - 32-bit offsets where every offset the view reaches is below 2^31 - 4096; a 64-bit
 //     form of the same kernels beyond.
-// The element-wise gather and concat run one thread per output element in a grid-stride
-// loop, neighbouring threads on neighbouring outputs, so every store is coalesced.
+//
+// The transpose (redesigned for Hopper; plan transpose_plan, mirrored by
+// relayout.py::transpose_plan and refused by the C entry when the caller's differs):
+//   - Tiles of tr x tc = 4096 elements of x, square unless x is skinny: [16, S] takes
+//     16 x 256, [S, 16] 256 x 16, so no tile is half empty.  Where that leaves fewer than
+//     two tiles an SM (the probes' [16, 4096] and [48, 1024]), a launch's latency decides,
+//     and tiles of 64 x 16 were the fastest on an H100 (tools/torch_relayout_variants.py).
+//     A block of tr * tc / 16 threads walks the tiles in a linear tile index, in grid
+//     strides, so no dimension of the grid limits the shape.  The grid
+//     is at most kMaxBlocks: 16 blocks an SM, of which 4 of 256 threads stay resident, so
+//     blocks start and end at staggered times (on an H100 a resident grid of 528 reached
+//     0.82 of the bytes bound at x [33280, 1024], this one 0.85:
+//     tools/torch_relayout_variants.py).
+//   - A two-stage ring in shared memory: the next tile's cp.async loads are in flight while
+//     the current tile is stored.  Loads are 16-byte cp.async where x's rows are 16-byte
+//     aligned (cols % 4 == 0 and x aligned), else 4-byte ones.  Each thread then reads a
+//     4 x 4 block of the tile as four float4s, transposes it in registers and stores four
+//     float4s to out's rows where they are aligned (rows % 4 == 0), else 16 scalars.
+//   - The stage keeps x's layout, its float4 units XOR-swizzled (unit u at u ^ key(u), key
+//     from the unit's 4-row group): neither the loads' rows nor the stores' 4 x 4 columns
+//     hit one bank group twice in a quarter warp (padding would break float4 alignment).
+//   - 32-bit offsets where rows * cols is below 2^31 - 4096; a 64-bit form beyond.
+// The gather (redesigned for Hopper; plan gather_cols_plan, mirrored and enforced alike):
+//   - Each thread owns one unit of output columns (four where n_idx % 4 == 0, stored as a
+//     float4; else one), reads their indices once into registers, and walks rows in grid
+//     strides, `unroll` rows at a time: every gathered load of those rows is issued before
+//     any store.  No division anywhere: a row's base moves by fixed increments.
+//   - g threads a row (a power of two, at most 256) cover a chunk of units (blockIdx.x);
+//     runs of rows go over blockIdx.y (at most 65,535) and loop in grid strides.
+//   - 32- or 64-bit offsets, as the transpose.
+// The concat runs one thread per output element in a grid-stride loop, neighbouring threads
+// on neighbouring outputs, so every store is coalesced.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -63,8 +91,11 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 132 * 16;         // a grid-stride loop over 16 blocks an SM
-constexpr int kTr = 32;                      // transpose tile side
-constexpr int kTrRows = 8;                   // transpose block: 32 x 8 threads
+constexpr int kTrArea = 4096;                // transpose tile: elements
+constexpr int kTrSmallRows = 64, kTrSmallCols = 16;  // the tile where kTrArea's leave < 2 an SM
+constexpr int kTrThreads = kTrArea / 16;     // a block: one 4 x 4 block of the tile a thread
+constexpr int kTrBlocksPerSM = 4;            // resident transpose blocks: <= 64 registers
+constexpr int kSMs = 132;
 constexpr int kMaxScales = 8;
 constexpr int kUnroll = 4;                   // units of a row a thread takes at once
 constexpr int kMaxGridY = 65535;
@@ -273,31 +304,288 @@ int run_rows(const float* x, float* out, const RowsPlan& p, int width, int vec_l
 
 __global__ void empty_kernel() {}
 
+// -- cp.async ------------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+
+// Wait for every group of this thread's cp.async but the last committed.
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// -- the gather ----------------------------------------------------------------------------
+
+template <typename I>
+struct Gather {
+  I rows, cols, n_idx, units;
+  int unroll;  // rows a thread takes at once: 1 or kUnroll
+};
+
+// out[r, j * W + e] = x[r, idx[j * W + e]] for this thread's unit j, over its rows (see the
+// head of this file).
+template <typename I, int W>
 __global__ void __launch_bounds__(kThreads)
 gather_cols_kernel(const float* __restrict__ x, const int* __restrict__ idx,
-                   float* __restrict__ out, long long rows, long long cols, long long n_idx) {
-  const long long n = rows * n_idx;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    const long long r = i / n_idx, j = i % n_idx;
-    const int c = idx[j];
-    out[i] = (c >= 0 && c < cols) ? x[r * cols + c] : CUDART_NAN_F;
+                   float* __restrict__ out, Gather<I> a, int g_log2) {
+  using U = typename std::make_unsigned<I>::type;  // offsets: wrap is defined past the end
+  const int G = 1 << g_log2;
+  const U per_block = kThreads >> g_log2, rows = (U)a.rows;
+  const U j = (U)blockIdx.x * G + (threadIdx.x & (G - 1));
+  U r = (U)blockIdx.y * per_block + (threadIdx.x >> g_log2);
+  if (j >= (U)a.units || r >= rows) return;
+  U c[W];
+  bool ok[W];
+#pragma unroll
+  for (int e = 0; e < W; ++e) {
+    const int k = __ldg(idx + (j * W + e));
+    ok[e] = k >= 0 && (I)k < a.cols;
+    c[e] = ok[e] ? (U)k : 0;
+  }
+  const U step = (U)gridDim.y * per_block, d_src = step * (U)a.cols, d_dst = step * (U)a.n_idx;
+  U src = r * (U)a.cols, dst = r * (U)a.n_idx + j * W;
+  for (; r < rows; r += a.unroll * step, src += a.unroll * d_src, dst += a.unroll * d_dst) {
+    float v[kUnroll][W];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (u < a.unroll && r + u * step < rows) {
+        const float* row = x + (src + u * d_src);
+#pragma unroll
+        for (int e = 0; e < W; ++e) v[u][e] = ok[e] ? __ldg(row + c[e]) : CUDART_NAN_F;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (u < a.unroll && r + u * step < rows) {
+        float* o = out + (dst + u * d_dst);
+        if constexpr (W == 4) {
+          *reinterpret_cast<float4*>(o) = make_float4(v[u][0], v[u][1], v[u][2], v[u][3]);
+        } else {
+          o[0] = v[u][0];
+        }
+      }
+    }
   }
 }
 
-// blockIdx.x: tile of x's columns, blockIdx.y: tile of x's rows
-__global__ void __launch_bounds__(kTr * kTrRows)
-transpose_kernel(const float* __restrict__ x, float* __restrict__ out, int rows, int cols) {
-  __shared__ float tile[kTr][kTr + 1];
-  const int c0 = blockIdx.x * kTr, r0 = blockIdx.y * kTr;
-  for (int j = threadIdx.y; j < kTr; j += kTrRows) {
-    const int r = r0 + j, c = c0 + threadIdx.x;
-    if (r < rows && c < cols) tile[j][threadIdx.x] = x[(size_t)r * cols + c];
+// -- the transpose -------------------------------------------------------------------------
+
+template <typename I>
+struct Tr {
+  I rows, cols, tiles_c, tiles;  // tiles_c tiles a tile row, tiles in all
+  I q, rem;                      // a grid stride of tiles: q tile rows and rem tiles
+  int tr_log2, w_log2;           // tr = 2^tr_log2 rows; tc / 4 = 2^w_log2 float4 units
+  int key_shift;                 // 1 where tr = 16 (4 row groups spread over 3 key bits)
+};
+
+// Where a stage keeps its float4 unit u = row * tc / 4 + b: u ^ key, the key taken from the
+// row's 4-row group.  A quarter warp of loads (8 units of a row, or 2 rows of 4 units) and of
+// the store phase's reads (one unit of 8 row groups, or of 4 groups in 2 units where tr = 16)
+// then meets 8 different bank groups.
+__device__ __forceinline__ int swizzle(int u, int w_log2, int key_shift) {
+  return u ^ (((u >> (w_log2 + 2)) << key_shift) & 7);
+}
+
+// Issue the loads of tile (ti, tj) into the stage st: 4 units a thread, neighbouring threads
+// on neighbouring units of a row.
+template <typename I, bool VL>
+__device__ __forceinline__ void load_tile(const float* __restrict__ x, float4* st,
+                                          const Tr<I>& a,
+                                          typename std::make_unsigned<I>::type ti,
+                                          typename std::make_unsigned<I>::type tj) {
+  using U = typename std::make_unsigned<I>::type;
+  const U r0 = ti << a.tr_log2, c0 = tj << (a.w_log2 + 2), rows = (U)a.rows, cols = (U)a.cols;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int u = threadIdx.x + k * blockDim.x;
+    const U r = r0 + (U)(u >> a.w_log2), c = c0 + 4 * (U)(u & ((1 << a.w_log2) - 1));
+    if (r < rows) {
+      float* dst = reinterpret_cast<float*>(st + swizzle(u, a.w_log2, a.key_shift));
+      const float* src = x + (r * cols + c);
+      if constexpr (VL) {
+        if (c < cols) cp_async16(dst, src);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (c + e < cols) cp_async4(dst + e, src + e);
+        }
+      }
+    }
   }
-  __syncthreads();
-  for (int j = threadIdx.y; j < kTr; j += kTrRows) {
-    const int r = c0 + j, c = r0 + threadIdx.x;  // out is [cols, rows]
-    if (r < cols && c < rows) out[(size_t)r * rows + c] = tile[threadIdx.x][j];
+}
+
+// Store tile (ti, tj) from the stage st: a thread's 4 x 4 block, x's rows r..r+3 and columns
+// c..c+3, read as four float4s and written to out's rows c..c+3 at columns r..r+3;
+// neighbouring threads on neighbouring columns of out.
+template <typename I, bool VS>
+__device__ __forceinline__ void store_tile(float* __restrict__ out, const float4* st,
+                                           const Tr<I>& a,
+                                           typename std::make_unsigned<I>::type ti,
+                                           typename std::make_unsigned<I>::type tj) {
+  using U = typename std::make_unsigned<I>::type;
+  const int a4 = threadIdx.x & ((1 << (a.tr_log2 - 2)) - 1), b = threadIdx.x >> (a.tr_log2 - 2);
+  float v[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 t = st[swizzle(((4 * a4 + i) << a.w_log2) + b, a.w_log2, a.key_shift)];
+    v[i][0] = t.x;
+    v[i][1] = t.y;
+    v[i][2] = t.z;
+    v[i][3] = t.w;
+  }
+  const U rows = (U)a.rows, r = (ti << a.tr_log2) + 4 * (U)a4;
+  const U c = (tj << (a.w_log2 + 2)) + 4 * (U)b;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if (c + e < (U)a.cols) {
+      float* o = out + ((c + e) * rows + r);
+      if constexpr (VS) {
+        if (r < rows) {
+          *reinterpret_cast<float4*>(o) = make_float4(v[0][e], v[1][e], v[2][e], v[3][e]);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (r + i < rows) o[i] = v[i][e];
+        }
+      }
+    }
+  }
+}
+
+// out = x^T through a two-stage ring of tiles (see the head of this file).  VL: 16-byte
+// loads; VS: float4 stores.
+template <typename I, bool VL, bool VS>
+__global__ void __launch_bounds__(kTrThreads, kTrBlocksPerSM)
+transpose_kernel(const float* __restrict__ x, float* __restrict__ out, Tr<I> a) {
+  using U = typename std::make_unsigned<I>::type;
+  extern __shared__ float4 ring[];  // two stages of tr * tc / 4 units
+  const int units = 4 * blockDim.x;
+  const U tiles_c = (U)a.tiles_c, tiles = (U)a.tiles;
+  U t = blockIdx.x, ti = t / tiles_c, tj = t - ti * tiles_c;  // the grid holds <= tiles blocks
+  load_tile<I, VL>(x, ring, a, ti, tj);
+  cp_async_commit();
+  for (int s = 0;; s ^= 1) {
+    t += gridDim.x;
+    U ni = ti + (U)a.q, nj = tj + (U)a.rem;
+    if (nj >= tiles_c) {
+      nj -= tiles_c;
+      ++ni;
+    }
+    const bool more = t < tiles;  // the same for every thread of the block
+    if (more) load_tile<I, VL>(x, ring + (s ^ 1) * units, a, ni, nj);
+    cp_async_commit();
+    cp_async_wait_prior();  // this tile's loads have landed
+    __syncthreads();
+    store_tile<I, VS>(out, ring + s * units, a, ti, tj);
+    if (!more) break;
+    __syncthreads();  // the stage is read before the loads after next overwrite it
+    ti = ni;
+    tj = nj;
+  }
+}
+
+// The plan of a gather (see the head of this file).
+struct GatherPlan {
+  int width, wide, g, unroll;  // columns a unit; 64-bit offsets; threads a row; rows at once
+  long long bx;                // chunks of g units (gridDim.x)
+  int by;                      // runs of kThreads / g rows (gridDim.y)
+};
+
+GatherPlan gather_cols_plan(long long rows, long long cols, long long n_idx) {
+  GatherPlan p = {n_idx % 4 == 0 ? 4 : 1, rows * cols > kLimit32 || rows * n_idx > kLimit32,
+                  1, 1, 1, 1};
+  const long long units = n_idx / p.width;
+  while (p.g < kThreads && p.g < units) p.g *= 2;
+  p.bx = cdiv(units, p.g);
+  const long long need = cdiv(rows * p.g, kThreads), fill = cdiv(kMaxBlocks, p.bx);
+  if (p.bx * need > kMaxBlocks) p.unroll = kUnroll;
+  p.by = (int)(need < fill ? (need < kMaxGridY ? need : kMaxGridY)
+                           : (fill < kMaxGridY ? fill : kMaxGridY));
+  return p;
+}
+
+template <typename I, int W>
+void launch_gather(const float* x, const int* idx, float* out, long long rows, long long cols,
+                   long long n_idx, const GatherPlan& p, cudaStream_t stream) {
+  const Gather<I> a = {(I)rows, (I)cols, (I)n_idx, (I)(n_idx / W), p.unroll};
+  int g_log2 = 0;
+  while ((1 << g_log2) < p.g) ++g_log2;
+  gather_cols_kernel<I, W><<<dim3((unsigned)p.bx, (unsigned)p.by), kThreads, 0, stream>>>(
+      x, idx, out, a, g_log2);
+}
+
+// The plan of a transpose (see the head of this file).
+struct TrPlan {
+  int tr, tc;                     // the tile: rows x columns of x
+  int vec_load, vec_store, wide;  // 16-byte loads; float4 stores; 64-bit offsets
+  int grid;                       // blocks, each walking tiles in grid strides
+};
+
+TrPlan transpose_plan(long long rows, long long cols, const float* x) {
+  TrPlan p = {};
+  // 64 x 64 unless x is thinner than that, then as thin as x allows (at least 16)
+  if (rows < 64 || cols < 64) {
+    int thin = 16;
+    while (thin < (rows < 64 ? rows : cols)) thin *= 2;
+    p.tr = rows < 64 ? thin : kTrArea / thin;
+  } else {
+    p.tr = 64;
+  }
+  p.tc = kTrArea / p.tr;
+  long long tiles = cdiv(rows, p.tr) * cdiv(cols, p.tc);
+  if (tiles < 2 * kSMs) {  // a launch's latency decides
+    p.tr = kTrSmallRows;
+    p.tc = kTrSmallCols;
+    tiles = cdiv(rows, p.tr) * cdiv(cols, p.tc);
+  }
+  p.vec_load = cols % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  p.vec_store = rows % 4 == 0;
+  p.wide = rows * cols > kLimit32;
+  p.grid = (int)(tiles < kMaxBlocks ? tiles : kMaxBlocks);
+  return p;
+}
+
+bool differs(const TrPlan& p, const TrPlan& q) {
+  return p.tr != q.tr || p.tc != q.tc || p.vec_load != q.vec_load ||
+         p.vec_store != q.vec_store || p.wide != q.wide || p.grid != q.grid;
+}
+
+template <typename I, bool VL, bool VS>
+void launch_transpose_form(const float* x, float* out, long long rows, long long cols,
+                           const TrPlan& p, cudaStream_t stream) {
+  const long long tiles_c = cdiv(cols, p.tc), tiles = cdiv(rows, p.tr) * tiles_c;
+  int tr_log2 = 0, w_log2 = 0;
+  while ((1 << tr_log2) < p.tr) ++tr_log2;
+  while ((4 << w_log2) < p.tc) ++w_log2;
+  const Tr<I> a = {(I)rows, (I)cols, (I)tiles_c, (I)tiles, (I)(p.grid / tiles_c),
+                   (I)(p.grid % tiles_c), tr_log2, w_log2, p.tr == 16 ? 1 : 0};
+  transpose_kernel<I, VL, VS><<<p.grid, p.tr * p.tc / 16, 2 * p.tr * p.tc * sizeof(float),
+                                stream>>>(x, out, a);
+}
+
+template <typename I>
+void launch_transpose(const float* x, float* out, long long rows, long long cols,
+                      const TrPlan& p, cudaStream_t stream) {
+  if (p.vec_load && p.vec_store) {
+    launch_transpose_form<I, true, true>(x, out, rows, cols, p, stream);
+  } else if (p.vec_load) {
+    launch_transpose_form<I, true, false>(x, out, rows, cols, p, stream);
+  } else if (p.vec_store) {
+    launch_transpose_form<I, false, true>(x, out, rows, cols, p, stream);
+  } else {
+    launch_transpose_form<I, false, false>(x, out, rows, cols, p, stream);
   }
 }
 
@@ -344,18 +632,41 @@ extern "C" int dfd_empty(void* stream) {
   return (int)cudaGetLastError();
 }
 
+// width .. by: the plan of relayout.py::gather_cols_plan, refused unless it is
+// gather_cols_plan's.  cols may be 0: every index is then outside and gives NaN.
 extern "C" int dfd_gather_cols(const float* x, const int* idx, float* out, long long rows,
-                               long long cols, long long n_idx, void* stream) {
-  if (rows <= 0 || cols <= 0 || n_idx <= 0) return (int)cudaErrorInvalidValue;
-  gather_cols_kernel<<<blocks_for(rows * n_idx), kThreads, 0, (cudaStream_t)stream>>>(
-      x, idx, out, rows, cols, n_idx);
+                               long long cols, long long n_idx, int width, int wide, int g,
+                               int unroll, long long bx, int by, void* stream) {
+  if (rows <= 0 || cols < 0 || n_idx <= 0) return (int)cudaErrorInvalidValue;
+  const GatherPlan p = gather_cols_plan(rows, cols, n_idx);
+  if (p.width != width || p.wide != wide || p.g != g || p.unroll != unroll || p.bx != bx ||
+      p.by != by || (width == 4 && reinterpret_cast<uintptr_t>(out) % 16 != 0))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (wide) {
+    if (width == 4) launch_gather<long long, 4>(x, idx, out, rows, cols, n_idx, p, s);
+    else launch_gather<long long, 1>(x, idx, out, rows, cols, n_idx, p, s);
+  } else {
+    if (width == 4) launch_gather<int, 4>(x, idx, out, rows, cols, n_idx, p, s);
+    else launch_gather<int, 1>(x, idx, out, rows, cols, n_idx, p, s);
+  }
   return (int)cudaGetLastError();
 }
 
-extern "C" int dfd_transpose(const float* x, float* out, int rows, int cols, void* stream) {
+// tr .. grid: the plan of relayout.py::transpose_plan, refused unless it is transpose_plan's.
+extern "C" int dfd_transpose(const float* x, float* out, long long rows, long long cols, int tr,
+                             int tc, int vec_load, int vec_store, int wide, int grid,
+                             void* stream) {
   if (rows <= 0 || cols <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((cols + kTr - 1) / kTr, (rows + kTr - 1) / kTr), block(kTr, kTrRows);
-  transpose_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(x, out, rows, cols);
+  const TrPlan p = transpose_plan(rows, cols, x);
+  const TrPlan q = {tr, tc, vec_load, vec_store, wide, grid};
+  if (differs(p, q) || (vec_store && reinterpret_cast<uintptr_t>(out) % 16 != 0))
+    return (int)cudaErrorInvalidValue;
+  if (wide) {
+    launch_transpose<long long>(x, out, rows, cols, q, (cudaStream_t)stream);
+  } else {
+    launch_transpose<int>(x, out, rows, cols, q, (cudaStream_t)stream);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -29,8 +29,13 @@ is one flat row; a roll along lanes is rows of ``cols`` shifted by ``shift``,
 along rows one flat row shifted by ``shift * cols``.  The plan picks float4
 stores where output rows are 16-byte aligned, float4 loads where the source
 is unit-stride and aligned too, 32- or 64-bit offsets, the threads a row and
-the grid.  The C entries recompute it and refuse a plan that differs.
-:func:`empty` launches an empty kernel: the card's cost of a launch.
+the grid.  The transpose (:func:`transpose_plan`) walks tiles of x in grid
+strides through a two-stage ring in shared memory, with 16-byte loads and
+float4 stores where rows are aligned; the gather (:func:`gather_cols_plan`)
+gives each thread a fixed unit of output columns, its indices read once, and
+walks rows.  The C entries recompute each plan and refuse one that differs.
+An empty input gives its empty output without a launch.  :func:`empty`
+launches an empty kernel: the card's cost of a launch.
 """
 
 from __future__ import annotations
@@ -49,6 +54,9 @@ UNROLL = 4                   # units of a row a thread takes at once
 MAX_BLOCKS = 132 * 16        # the grid at large sizes: 16 blocks an SM, 2-4 waves
 MAX_GRID_Y = 65535
 LIMIT32 = 2 ** 31 - 4096     # 32-bit offsets below this
+SMS = 132
+TR_AREA = 4096               # transpose tiles: elements
+TR_SMALL = (64, 16)          # the tile where TR_AREA's leave fewer than two an SM
 
 
 # -- plain PyTorch versions ------------------------------------------------------------
@@ -175,6 +183,93 @@ def strided_copy_plan(x_addr: int, sizes: Sequence[int], strides: Sequence[int])
     return rows_plan(n0, n1, L, s0, s1, s2, 0, x_addr)
 
 
+# -- the plans of the gather and the transpose -----------------------------------------
+
+
+class GatherPlan(NamedTuple):
+    """How the gather kernel runs (``csrc/relayout.cu::gather_cols_plan``,
+    which this mirrors, its fields in the C entry's argument order): each
+    thread owns one unit of ``width`` output columns and walks rows in grid
+    strides, ``unroll`` rows at a time."""
+
+    width: int       # 4: float4 stores of 4 columns (n_idx % 4 == 0); else 1
+    wide: int        # 64-bit offsets: rows * cols or rows * n_idx passes LIMIT32
+    g: int           # threads a row, a power of two up to THREADS
+    unroll: int      # rows a thread takes at once: 1, or UNROLL where the card is full
+    bx: int          # chunks of g units (gridDim.x)
+    by: int          # runs of THREADS // g rows, looped in grid strides (gridDim.y)
+
+    @property
+    def route(self) -> str:
+        return (f"{'float4' if self.width == 4 else 'scalar'} stores, "
+                f"{64 if self.wide else 32}-bit")
+
+
+def gather_cols_plan(rows: int, cols: int, n_idx: int) -> GatherPlan:
+    """The plan of ``out[r, j] = x[r, idx[j]]`` for ``x [rows, cols]`` and
+    ``n_idx`` indices: float4 units where ``n_idx % 4 == 0``, ``g`` threads
+    a row, one row a thread where that needs at most ``MAX_BLOCKS`` blocks,
+    else ``UNROLL`` at once in a grid of about ``MAX_BLOCKS``."""
+    width = 4 if n_idx % 4 == 0 else 1
+    wide = int(rows * cols > LIMIT32 or rows * n_idx > LIMIT32)
+    units = n_idx // width
+    g = 1
+    while g < THREADS and g < units:
+        g *= 2
+    bx = _cdiv(units, g)
+    need = _cdiv(rows * g, THREADS)
+    unroll = UNROLL if bx * need > MAX_BLOCKS else 1
+    return GatherPlan(width, wide, g, unroll, bx, min(need, _cdiv(MAX_BLOCKS, bx), MAX_GRID_Y))
+
+
+class TransposePlan(NamedTuple):
+    """How the transpose kernel runs (``csrc/relayout.cu::transpose_plan``,
+    which this mirrors, its fields in the C entry's argument order): tiles
+    of ``tr x tc`` elements of x, one block of ``tr * tc // 16`` threads
+    walking them in grid strides."""
+
+    tr: int          # a tile's rows of x (16 to 256, a power of two)
+    tc: int          # a tile's columns of x: tr * tc = TR_AREA, or TR_SMALL
+    vec_load: int    # 16-byte cp.async loads: x's rows 16-byte aligned
+    vec_store: int   # float4 stores: out's rows 16-byte aligned (rows % 4 == 0)
+    wide: int        # 64-bit offsets: rows * cols passes LIMIT32
+    grid: int        # blocks: the tiles, at most MAX_BLOCKS
+
+    @property
+    def threads(self) -> int:
+        return self.tr * self.tc // 16
+
+    @property
+    def route(self) -> str:
+        """"vector" (16-byte loads and float4 stores), "vector loads",
+        "vector stores" or "scalar"; 32- or 64-bit offsets."""
+        load = {(1, 1): "vector", (1, 0): "vector loads", (0, 1): "vector stores",
+                (0, 0): "scalar"}[self.vec_load, self.vec_store]
+        return f"{self.tr}x{self.tc}, {load}, {64 if self.wide else 32}-bit"
+
+
+def transpose_plan(x_addr: int, rows: int, cols: int) -> TransposePlan:
+    """The plan of ``x.t()`` for a contiguous ``x [rows, cols]`` at
+    ``x_addr``: ``TR_AREA`` tiles, 64 x 64 unless x is thinner than that,
+    then as thin as x allows (a power of two, at least 16); ``TR_SMALL``
+    where those would leave fewer than two tiles an SM; 16-byte loads and
+    float4 stores where x's and out's rows are aligned; a grid of the tiles,
+    at most ``MAX_BLOCKS`` (4 blocks of 256 threads an SM stay resident, the
+    rest start as they end)."""
+    tiles = lambda tr, tc: _cdiv(rows, tr) * _cdiv(cols, tc)
+    tr = 64
+    if rows < 64 or cols < 64:
+        thin = 16
+        while thin < (rows if rows < 64 else cols):
+            thin *= 2
+        tr = thin if rows < 64 else TR_AREA // thin
+    tc = TR_AREA // tr
+    if tiles(tr, tc) < 2 * SMS:
+        tr, tc = TR_SMALL
+    return TransposePlan(tr, tc, int(cols % 4 == 0 and x_addr % 16 == 0), int(rows % 4 == 0),
+                         int(rows * cols > LIMIT32), min(tiles(tr, tc), MAX_BLOCKS))
+
+
 # -- the kernels -----------------------------------------------------------------------
 
 
@@ -197,8 +292,8 @@ def _kernels() -> ctypes.CDLL:
         ("dfd_roll", [vp, vp, i64, i64, i64, i32] + [i32] * 5 + [i64, i32, vp]),
         ("dfd_strided_copy", [vp, vp] + [i64] * 6 + [i32] * 5 + [i64, i32, vp]),
         ("dfd_empty", [vp]),
-        ("dfd_gather_cols", [vp, vp, vp, i64, i64, i64, vp]),
-        ("dfd_transpose", [vp, vp, i32, i32, vp]),
+        ("dfd_gather_cols", [vp, vp, vp, i64, i64, i64] + [i32] * 4 + [i64, i32, vp]),
+        ("dfd_transpose", [vp, vp, i64, i64] + [i32] * 6 + [vp]),
         ("dfd_concat_scaled", [vp, vp, i64, vp, i32, vp]),
     ):
         fn = getattr(lib, name)
@@ -264,8 +359,11 @@ def gather_cols(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     _expect(idx.device == x.device and idx.is_contiguous(),
             f"idx must be contiguous and lie on {x.device}, got {idx.device}")
     out = torch.empty((x.shape[0], idx.shape[0]), dtype=torch.float32, device=x.device)
-    _launch(x, "dfd_gather_cols", x.data_ptr(), idx.data_ptr(), out.data_ptr(), x.shape[0],
-            x.shape[1], idx.shape[0])
+    if out.numel() == 0:
+        return out
+    p = gather_cols_plan(*x.shape, idx.shape[0])
+    _launch(x, "dfd_gather_cols", x.data_ptr(), idx.data_ptr(), out.data_ptr(), *x.shape,
+            idx.shape[0], *p)
     gather_cols.launches += 1
     return out
 
@@ -278,7 +376,10 @@ def transpose(x: torch.Tensor) -> torch.Tensor:
     _check_cuda(x)
     rows, cols = x.shape
     out = torch.empty((cols, rows), dtype=torch.float32, device=x.device)
-    _launch(x, "dfd_transpose", x.data_ptr(), out.data_ptr(), rows, cols)
+    if out.numel() == 0:
+        return out
+    p = transpose_plan(x.data_ptr(), rows, cols)
+    _launch(x, "dfd_transpose", x.data_ptr(), out.data_ptr(), rows, cols, *p)
     transpose.launches += 1
     return out
 
@@ -293,6 +394,8 @@ def concat_scaled(x: torch.Tensor, scales: Sequence[float]) -> torch.Tensor:
     _check_cuda(x)
     out = torch.empty((len(scales) * x.shape[0], *x.shape[1:]), dtype=torch.float32,
                       device=x.device)
+    if out.numel() == 0:
+        return out
     host = (ctypes.c_float * len(scales))(*(float(s) for s in scales))
     _launch(x, "dfd_concat_scaled", x.data_ptr(), out.data_ptr(), x.numel(), host, len(scales))
     concat_scaled.launches += 1

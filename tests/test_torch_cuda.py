@@ -489,9 +489,53 @@ def test_relayout_kernels_are_exact(cuda):
         ("flat", "vector"), ("flat", "aligned stores"), ("rows", "vector"),
         ("rows", "aligned stores"), ("rows", "scalar"))}, routes
 
+    # every route and tile of the transpose: storage offsets off 16 bytes, ragged and skinny
+    # shapes, [2129920, 16] (66,560 row tiles of 32: past gridDim.y), grids that loop
+    routes = set()
+    for R, L in ((16, 4096), (48, 1024), (4096, 16), (7, 130), (5, 5), (6, 1024), (1024, 6),
+                 (300, 1024), (33, 4096), (20, 70000), (70000, 20), (2129920, 16),
+                 (16, 2129920), (3000, 3001)):
+        base = torch.randn(R * L + 3, device=cuda)
+        for off in (0, 1, 2, 3):
+            x = base[off:off + R * L].view(R, L)
+            routes.add(rl.transpose_plan(x.data_ptr(), R, L).route)
+            assert torch.equal(rl.transpose(x), x.t().contiguous()), (R, L, off)
+    assert {r.split(", ")[1] for r in routes} == {"vector", "vector loads", "vector stores",
+                                                  "scalar"}, routes
+    assert {r.split(", ")[0] for r in routes} == {"64x16", "16x256", "64x64", "256x16", "32x128",
+                                                  "128x32"}, routes
+    # every route of the gather: float4 and scalar units, one row a thread or UNROLL, indices
+    # outside [0, cols) (NaN), x at an offset off 16 bytes
+    routes = set()
+    for R, C, n in ((16, 4096, 1024), (7, 130, 3), (9, 17, 1025), (2 ** 20, 3, 1),
+                    (600000, 16, 4), (20000, 64, 1024), (33, 64, 8)):
+        base = torch.randn(R * C + 1, device=cuda)
+        for off in (0, 1):
+            x = base[off:off + R * C].view(R, C)
+            idx = torch.randint(-2, C + 2, (n,), device=cuda, dtype=torch.int32)
+            p = rl.gather_cols_plan(R, C, n)
+            routes.add((p.route, p.unroll))
+            got = rl.gather_cols(x, idx)
+            ok = (idx >= 0) & (idx < C)
+            want = torch.where(ok, x[:, idx.clamp(0, C - 1).long()], float("nan"))
+            assert torch.equal(got.isnan(), want.isnan()) and torch.equal(
+                got.nan_to_num(), want.nan_to_num()), (R, C, n, off)
+    assert routes == {(f"{w} stores, 32-bit", u) for w in ("float4", "scalar") for u in (1, 4)}
+    # empty inputs: empty outputs, no launch
+    before = [k.launches for k in rl.KERNELS]
+    x = torch.randn(4, 5, device=cuda)
+    idx = torch.tensor([0, 2], device=cuda, dtype=torch.int32)
+    assert rl.gather_cols(x[:0], idx).shape == (0, 2)
+    assert rl.gather_cols(x, idx[:0]).shape == (4, 0)
+    assert rl.transpose(x[:0]).shape == (5, 0) and rl.transpose(x[:, :0]).shape == (0, 4)
+    assert rl.concat_scaled(x[:0], (1.0, 2.0)).shape == (0, 5)
+    torch.cuda.synchronize()
+    assert [k.launches for k in rl.KERNELS] == before
+
 
 def test_relayout_kernels_past_2_31_take_the_64_bit_route(cuda):
-    """A [2, 2^30 + 8] tensor (8.6 GB): its last offset passes 2^31."""
+    """A [2, 2^30 + 8] tensor (8.6 GB): its last offset passes 2^31.  Each
+    output is freed at once, so at most three such tensors are held."""
     from dfd_tpu_torch.ops import relayout as rl
 
     x = torch.randn(2, 2 ** 30 + 8, device=cuda)
@@ -507,10 +551,33 @@ def test_relayout_kernels_past_2_31_take_the_64_bit_route(cuda):
         got = rl.strided_copy(view)
         assert torch.equal(got, view.contiguous())
         del got
+    # the transpose to [2^30 + 8, 2] and back, and gathers from x's far end
+    tr_routes = set()
+    got = rl.transpose(x)
+    tr_routes.add(rl.transpose_plan(x.data_ptr(), *x.shape).route)
+    assert torch.equal(got, x.t().contiguous())
+    tr_routes.add(rl.transpose_plan(got.data_ptr(), *got.shape).route)
+    back = rl.transpose(got)
+    del got
+    assert torch.equal(back, x)
+    del back
+    for n in (8, 3):
+        idx = torch.tensor([0, 2 ** 30 + 7, 5, 2 ** 30, 1, 3, 2 ** 30 + 8, 9][:n], device=cuda,
+                           dtype=torch.int32)
+        routes.add("gather " + rl.gather_cols_plan(*x.shape, n).route)
+        got = rl.gather_cols(x, idx)
+        want = x[:, idx.clamp(max=2 ** 30 + 7).long()]
+        if n == 8:
+            want[:, 6] = float("nan")  # index 2^30 + 8 is outside [0, cols)
+        assert torch.equal(got.nan_to_num(), want.nan_to_num()) and torch.equal(
+            got.isnan(), want.isnan())
+        del got, want
     del x
     torch.cuda.empty_cache()
     assert routes == {"rows, aligned stores, 64-bit", "flat, vector, 64-bit",
-                      "rows, scalar, 64-bit", "flat, aligned stores, 64-bit"}, routes
+                      "rows, scalar, 64-bit", "flat, aligned stores, 64-bit",
+                      "gather float4 stores, 64-bit", "gather scalar stores, 64-bit"}, routes
+    assert tr_routes == {"16x256, vector loads, 64-bit", "256x16, vector stores, 64-bit"}
 
 
 def test_relayout_entries_refuse_another_plan(cuda):
@@ -534,6 +601,26 @@ def test_relayout_entries_refuse_another_plan(cuda):
     assert lib.dfd_roll(x.data_ptr(), out.data_ptr(), 64, 1024, 1, 1, *p.launch, stream) == 0
     torch.cuda.synchronize()
     assert torch.equal(out, torch.roll(x, 1, 1))
+    # the transpose and the gather
+    t = rl.transpose_plan(x.data_ptr(), 64, 1024)
+    for i in range(len(t)):
+        bad = list(t)
+        bad[i] += 1
+        assert lib.dfd_transpose(x.data_ptr(), out.data_ptr(), 64, 1024, *bad, stream) != 0
+    idx = torch.arange(0, 1024, 2, device=cuda, dtype=torch.int32)
+    g = rl.gather_cols_plan(64, 1024, 512)
+    for i in range(len(g)):
+        bad = list(g)
+        bad[i] += 1
+        assert lib.dfd_gather_cols(x.data_ptr(), idx.data_ptr(), out.data_ptr(), 64, 1024, 512,
+                                   *bad, stream) != 0
+    # float4 stores to an output off 16 bytes are refused
+    assert lib.dfd_transpose(x.data_ptr(), out.data_ptr() + 4, 64, 1024, *t, stream) != 0
+    assert lib.dfd_gather_cols(x.data_ptr(), idx.data_ptr(), out.data_ptr() + 4, 64, 1024, 512,
+                               *g, stream) != 0
+    assert lib.dfd_transpose(x.data_ptr(), out.data_ptr(), 64, 1024, *t, stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(1024, 64), x.t())
 
 
 # the probes' shapes (P = 64), then

@@ -1,4 +1,4 @@
-"""The launch plans of the roll and strided copy kernels, on the CPU.
+"""The launch plans of the relayout kernels, on the CPU.
 
 The kernels run only on the card (``tests/test_torch_cuda.py``); their plan
 is a Python mirror (``ops/relayout.py::rows_plan``) that the C entry points
@@ -11,6 +11,10 @@ storage offsets, the kernel's index arithmetic (``csrc/relayout.cu::
 copy_rows``: a thread's first row, then fixed increments with one carry, in
 32- or 64-bit unsigned offsets) emulated in numpy writes each output element
 exactly once, from the right source element, with every float4 aligned.
+The same for the transpose (``transpose_plan``: tiles walked in grid
+strides, the stage's swizzle, 4 x 4 blocks stored as float4s) and the
+gather (``gather_cols_plan``: a unit of columns a thread, rows in grid
+strides); and the CPU wrappers' empty outputs for empty inputs.
 """
 
 import numpy as np
@@ -214,3 +218,222 @@ def test_wide_plans_emulate_with_a_lowered_limit(monkeypatch):
         p = _view_plan(v, 4 * off)
         assert p.wide == 1
         _check_cover(p, off, False, (v.contiguous() - off).numpy().ravel())
+
+
+# -- the transpose and the gather ---------------------------------------------------------
+
+TALL = 2129920            # x.view(TALL, 16) of the production x: 66,560 row tiles of 32
+
+
+@pytest.mark.parametrize("rows, cols, tile, route, grid", [
+    # the pool probe's [16, 4096] and [48, 1024]: TR_AREA tiles would be 16, so TR_SMALL ones
+    (16, 4096, (64, 16), "vector", 256), (48, 1024, (64, 16), "vector", 64),
+    # the production cases, views of x [33280, 1024]: 8320 tiles of 4096 in 2112 blocks
+    (PR, PL, (64, 64), "vector", 2112), (64, 532480, (64, 64), "vector", 2112),
+    (532480, 64, (64, 64), "vector", 2112), (16, TALL, (16, 256), "vector", 2112),
+    (TALL, 16, (256, 16), "vector", 2112),
+    # ragged: scalar routes
+    (7, 130, (64, 16), "scalar", 9), (5, 5, (64, 16), "scalar", 1),
+    (6, 1024, (64, 16), "vector loads", 64), (1024, 6, (64, 16), "vector stores", 16),
+    (3000, 1024, (64, 64), "vector", 752), (20, 70000, (32, 128), "vector", 547),
+])
+def test_transpose_routes(rows, cols, tile, route, grid):
+    p = rl.transpose_plan(0, rows, cols)
+    assert (p.tr, p.tc) == tile and p.route == f"{tile[0]}x{tile[1]}, {route}, 32-bit"
+    assert p.grid == grid and p.threads == tile[0] * tile[1] // 16
+    # a storage offset off 16 bytes loses the 16-byte loads only
+    assert rl.transpose_plan(4, rows, cols).vec_load == 0
+    assert rl.transpose_plan(4, rows, cols).vec_store == p.vec_store
+
+
+def test_transpose_past_2_31_takes_the_64_bit_route_in_a_small_grid():
+    tall = rl.transpose_plan(0, WIDE, 2)
+    assert tall.route == "256x16, vector stores, 64-bit" and tall.grid == rl.MAX_BLOCKS
+    assert rl.transpose_plan(0, 2, WIDE).route == "16x256, vector loads, 64-bit"
+    # x.view(TALL, 16) needs 66,560 tiles of 32 rows: the parent's gridDim.y refused it
+    assert -(-TALL // 32) > rl.MAX_GRID_Y
+    assert rl.transpose_plan(0, 2 ** 31 // 4096, 4096).wide == 1
+    assert rl.transpose_plan(0, 2 ** 31 // 4096 - 1, 4096).wide == 0
+
+
+@pytest.mark.parametrize("rows, cols, n_idx, width, g, unroll, by", [
+    (16, 4096, 1024, 4, 256, 1, 16),        # the pool probe's even positions
+    (PR, 4096, 1024, 4, 256, 4, 2112),      # impala_prod_bf16's stage-0 pool, x_pool
+    (PR, PL, 1024, 4, 256, 4, 2112),        # a permutation of x's columns
+    (7, 130, 3, 1, 4, 1, 1), (5000, 3, 1, 1, 1, 1, 20), (2 ** 20, 3, 1, 1, 1, 4, 2112),
+    (3, 17, 1025, 1, 256, 1, 3),
+])
+def test_gather_routes(rows, cols, n_idx, width, g, unroll, by):
+    p = rl.gather_cols_plan(rows, cols, n_idx)
+    assert (p.width, p.wide, p.g, p.unroll, p.by) == (width, 0, g, unroll, by), p
+    assert p.bx == -(-(n_idx // width) // g)
+    assert rl.gather_cols_plan(2, WIDE, 4).route == "float4 stores, 64-bit"
+    assert rl.gather_cols_plan(WIDE, 1, 2).route == "scalar stores, 64-bit"
+
+
+def _swizzle(u, p: rl.TransposePlan):
+    w_log2 = (p.tc // 4).bit_length() - 1
+    return u ^ (((u >> (w_log2 + 2)) << int(p.tr == 16)) & 7)
+
+
+TILES = [(64, 16), (16, 256), (32, 128), (64, 64), (128, 32), (256, 16)]  # every tile a plan picks
+
+
+@pytest.mark.parametrize("tr, tc", TILES)
+def test_transpose_stage_swizzle_is_a_bijection_without_bank_conflicts(tr, tc):
+    """Every tile shape's swizzle permutes the stage's float4 units, and a
+    quarter warp (8 threads) of the loads or of the store phase's reads
+    meets 8 different 16-byte bank groups."""
+    p = rl.TransposePlan(tr, tc, 1, 1, 0, 1)
+    W, T = tc // 4, p.threads
+    u = np.arange(4 * T)
+    assert np.array_equal(np.sort(_swizzle(u, p)), u)
+    for k in range(4):  # loads: thread t's k-th unit is t + k * T
+        phys = _swizzle(u[:T] + k * T, p) % 8
+        assert all(len(set(phys[q:q + 8])) == 8 for q in range(0, T, 8)), k
+    th = np.arange(T)
+    a4, b = th % (tr // 4), th // (tr // 4)
+    for i in range(4):  # store phase: thread (a4, b) reads unit (4 a4 + i) * W + b
+        phys = _swizzle((4 * a4 + i) * W + b, p) % 8
+        assert all(len(set(phys[q:q + 8])) == 8 for q in range(0, T, 8)), i
+
+
+def _emulate_transpose(p: rl.TransposePlan, rows: int, cols: int, x_off: int):
+    """(output index, source index) of every element the kernel stores,
+    following ``transpose_kernel`` tile by tile: each block's tiles in grid
+    strides (q tile rows and rem tiles, with a carry), the loads into the
+    swizzled stage, each thread's 4 x 4 block out; asserts every 16-byte
+    load and float4 store is aligned and nothing unloaded is stored."""
+    tr, tc, T = p.tr, p.tc, p.threads
+    W = tc // 4
+    tiles_c = -(-cols // tc)
+    tiles = -(-rows // tr) * tiles_c
+    q, rem = divmod(p.grid, tiles_c)
+    u = np.arange(4 * T)
+    th = np.arange(T)
+    a4, b = th % (tr // 4), th // (tr // 4)
+    outs, srcs = [], []
+    for block in range(p.grid):
+        t, (ti, tj) = block, divmod(block, tiles_c)
+        while t < tiles:
+            stage = np.full((4 * T, 4), -1, np.int64)
+            r, c = ti * tr + u // W, tj * tc + 4 * (u % W)
+            for e in range(4):
+                ok = (r < rows) & (c + e < cols)
+                stage[_swizzle(u[ok], p), e] = r[ok] * cols + c[ok] + e
+            if p.vec_load:
+                ok = (r < rows) & (c < cols)
+                assert ((x_off + r[ok] * cols + c[ok]) % 4 == 0).all()
+                assert (c[ok] + 4 <= cols).all()
+            v = np.stack([stage[_swizzle((4 * a4 + i) * W + b, p)] for i in range(4)], 1)
+            rr, cc = ti * tr + 4 * a4, tj * tc + 4 * b
+            for e in range(4):
+                oc = cc + e
+                if p.vec_store:
+                    ok = (oc < cols) & (rr < rows)
+                    assert ((oc[ok] * rows + rr[ok]) % 4 == 0).all() and (rr[ok] + 4 <= rows).all()
+                for i in range(4):
+                    ok = (oc < cols) & (rr + i < rows)
+                    outs.append(oc[ok] * rows + rr[ok] + i)
+                    srcs.append(v[ok, i, e])
+            t += p.grid
+            ti, tj = ti + q, tj + rem
+            if tj >= tiles_c:
+                ti, tj = ti + 1, tj - tiles_c
+    out, src = np.concatenate(outs), np.concatenate(srcs)
+    assert (src >= 0).all()  # every stored element was loaded
+    return out, src
+
+
+RAGGED = (1, 3, 5, 16, 17, 33, 48, 130)
+
+
+@pytest.mark.parametrize("rows", RAGGED)
+def test_transpose_plans_write_each_output_once(rows, monkeypatch):
+    """Ragged shapes, storage offsets 0-3, and the same with 2 SMs and a
+    grid of at most 4 blocks: more tiles than the grid holds, so blocks loop
+    over tiles."""
+    for sms, max_blocks in ((rl.SMS, rl.MAX_BLOCKS), (2, 4)):
+        monkeypatch.setattr(rl, "SMS", sms)
+        monkeypatch.setattr(rl, "MAX_BLOCKS", max_blocks)
+        for cols in RAGGED + ((260,) if sms == 2 else ()):
+            want = np.arange(rows * cols).reshape(rows, cols).T.ravel()
+            for x_off in (0, 1, 3):
+                p = rl.transpose_plan(4 * x_off, rows, cols)
+                _check_cover_pairs(_emulate_transpose(p, rows, cols, x_off), want, p)
+
+
+def _check_cover_pairs(pairs, want, p):
+    out, src = pairs
+    assert out.size == want.size and np.bincount(out, minlength=want.size).max() == 1, p
+    got = np.empty(want.size, np.int64)
+    got[out] = src
+    assert np.array_equal(got, want), p
+
+
+def test_transpose_grid_strides_cover_every_tile(monkeypatch):
+    """With 2 SMs and a grid of at most 8 blocks: [200, 260] (20 tiles of
+    64 x 64), [3000, 16] and [16, 3000] (12 of 256 x 16 and 16 x 256) and
+    [130, 1024] (48) loop, with the tile-row carry; and the same in the
+    64-bit route's arithmetic, LIMIT32 lowered."""
+    monkeypatch.setattr(rl, "SMS", 2)
+    monkeypatch.setattr(rl, "MAX_BLOCKS", 8)
+    for rows, cols in ((200, 260), (3000, 16), (16, 3000), (130, 1024)):
+        for limit in (rl.LIMIT32, 1000):
+            monkeypatch.setattr(rl, "LIMIT32", limit)
+            p = rl.transpose_plan(0, rows, cols)
+            assert p.wide == int(limit == 1000)
+            assert p.grid < -(-rows // p.tr) * -(-cols // p.tc), p
+            _check_cover_pairs(_emulate_transpose(p, rows, cols, 0),
+                               np.arange(rows * cols).reshape(rows, cols).T.ravel(), p)
+
+
+def _emulate_gather(p: rl.GatherPlan, rows: int, n_idx: int):
+    """(output index, (row, column) of idx) of every element
+    ``gather_cols_kernel`` stores: thread t of block (bx, by) owns unit
+    ``bx * g + t % g`` and rows from ``by * (THREADS // g) + t // g`` in grid
+    strides, ``unroll`` at a time; asserts every float4 store is aligned."""
+    W, per_block = p.width, rl.THREADS // p.g
+    bx, by, t = (a.ravel() for a in np.meshgrid(np.arange(p.bx), np.arange(p.by),
+                                                np.arange(rl.THREADS), indexing="ij"))
+    j, r = bx * p.g + t % p.g, by * per_block + t // p.g
+    live = (j < n_idx // W) & (r < rows)
+    j, r = j[live], r[live]
+    step = p.by * per_block
+    outs, cols = [], []
+    while r.size:
+        for u in range(p.unroll):
+            rr = r + u * step
+            ok = rr < rows
+            if W == 4:
+                assert ((rr[ok] * n_idx + j[ok] * 4) % 4 == 0).all()
+            for e in range(W):
+                outs.append(rr[ok] * n_idx + j[ok] * W + e)
+                cols.append(j[ok] * W + e)
+        r = r + p.unroll * step
+        j, r = j[r < rows], r[r < rows]
+    return np.concatenate(outs), np.concatenate(cols)
+
+
+@pytest.mark.parametrize("n_idx", [1, 3, 4, 1025])
+def test_gather_plans_write_each_output_once(n_idx, monkeypatch):
+    """Rows among the ragged sizes and more than the grid holds, with the
+    grid cut (MAX_BLOCKS 32) so that threads take UNROLL rows and loop."""
+    for max_blocks in (rl.MAX_BLOCKS, 32):
+        monkeypatch.setattr(rl, "MAX_BLOCKS", max_blocks)
+        for rows in RAGGED + (9000,):
+            p = rl.gather_cols_plan(rows, 7, n_idx)
+            out, col = _emulate_gather(p, rows, n_idx)
+            assert out.size == rows * n_idx
+            assert np.bincount(out, minlength=rows * n_idx).max() == 1, p
+            assert np.array_equal(out % n_idx, col), p
+        assert max_blocks == rl.MAX_BLOCKS or p.unroll == rl.UNROLL
+
+
+def test_cpu_wrappers_give_empty_outputs_for_empty_inputs():
+    idx = torch.tensor([0, 2], dtype=torch.int32)
+    assert rl.gather_cols(torch.zeros(0, 5), idx).shape == (0, 2)
+    assert rl.gather_cols(torch.zeros(4, 5), idx[:0]).shape == (4, 0)
+    assert rl.transpose(torch.zeros(0, 5)).shape == (5, 0)
+    assert rl.transpose(torch.zeros(3, 0)).shape == (0, 3)
+    assert rl.concat_scaled(torch.zeros(0, 5), (1.0, 2.0)).shape == (0, 5)
