@@ -17,9 +17,12 @@ subsample, layout changes):
 - :func:`concat_scaled`: ``torch.cat([x * s for s in scales], 0)``.
 
 Each wrapper runs its CUDA kernel (``csrc/relayout.cu``) on a CUDA tensor and
-its plain PyTorch version (``*_plain``, which is also the PyTorch library call
-for the same function) on a CPU tensor; other devices, dtypes or shapes raise.
-Every output is bit-exact against the plain version.  ``launches`` on each
+its plain PyTorch version (``*_plain``) on a CPU tensor; other devices raise.
+Each checks what its kernel needs (float32 ``x``, contiguous where the kernel
+reads it so: all but the strided copy; int32 ``idx``) before it branches, so
+the CPU refuses, with the same ``ValueError``, what the card refuses; the
+plain versions take anything PyTorch takes.  Every output is bit-exact
+against the plain version.  ``launches`` on each
 wrapper counts kernel launches.  What bounds them on an H100 is bytes: each
 input read once and each output written once, at 3.35 TB/s.
 
@@ -33,7 +36,12 @@ the grid.  The transpose (:func:`transpose_plan`) walks tiles of x in grid
 strides through a two-stage ring in shared memory, with 16-byte loads and
 float4 stores where rows are aligned; the gather (:func:`gather_cols_plan`)
 gives each thread a fixed unit of output columns, its indices read once, and
-walks rows.  The C entries recompute each plan and refuse one that differs.
+walks rows.  The concat (:func:`concat_plan`) reads x once: each thread
+loads its units of x (float4s where ``n % 4 == 0`` and x is aligned) and
+stores the k products of each, one to each segment of the output, which
+moves exactly the bytes of the bound; at small sizes the scales may go over
+a grid dimension instead.  The C entries recompute each plan and refuse one
+that differs.
 An empty input gives its empty output without a launch.  :func:`empty`
 launches an empty kernel: the card's cost of a launch.
 """
@@ -57,6 +65,8 @@ LIMIT32 = 2 ** 31 - 4096     # 32-bit offsets below this
 SMS = 132
 TR_AREA = 4096               # transpose tiles: elements
 TR_SMALL = (64, 16)          # the tile where TR_AREA's leave fewer than two an SM
+CAT_SMALL_THREADS = 128      # a concat block where THREADS a block leave SMs idle
+CAT_SPLIT_UNITS = 2 ** 16    # the concat splits its scales over blockIdx.y up to here
 
 
 # -- plain PyTorch versions ------------------------------------------------------------
@@ -270,6 +280,44 @@ def transpose_plan(x_addr: int, rows: int, cols: int) -> TransposePlan:
                          int(rows * cols > LIMIT32), min(tiles(tr, tc), MAX_BLOCKS))
 
 
+class ConcatPlan(NamedTuple):
+    """How the concat kernel runs (``csrc/relayout.cu::concat_plan``, which
+    this mirrors, its fields in the C entry's argument order): each thread
+    owns units of ``width`` elements of x, loads ``unroll`` of them
+    ``threads`` apart and stores each one's k products; blocks walk chunks of
+    ``threads * unroll`` units in grid strides."""
+
+    width: int       # 4: float4 units (n % 4 == 0, x 16-byte aligned); else 1
+    wide: int        # 64-bit offsets: k * n passes LIMIT32
+    threads: int     # a block: THREADS, or CAT_SMALL_THREADS where that leaves SMs idle
+    unroll: int      # units a thread takes at once: 1, or UNROLL where the card is full
+    grid: int        # blocks (gridDim.x), at most MAX_BLOCKS
+    split: int       # 1: blockIdx.y is the one scale a block stores (x in L2)
+
+    @property
+    def route(self) -> str:
+        """"vector" (float4 loads and stores) or "scalar"; "split" where the
+        scales go over blockIdx.y; 32- or 64-bit offsets."""
+        return (f"{'vector' if self.width == 4 else 'scalar'}"
+                f"{', split' if self.split else ''}, {64 if self.wide else 32}-bit")
+
+
+def concat_plan(x_addr: int, n: int, k: int) -> ConcatPlan:
+    """The plan of ``concat([x * s_0, ..., x * s_{k-1}])`` for a contiguous
+    x of ``n`` elements at ``x_addr``: float4 units where ``n % 4 == 0`` and
+    x is 16-byte aligned; the scales over blockIdx.y where x has at most
+    ``CAT_SPLIT_UNITS`` units; one unit a thread where that needs at most
+    ``MAX_BLOCKS`` blocks (``CAT_SMALL_THREADS`` a block where ``THREADS``
+    would leave SMs idle), else ``UNROLL`` at once over ``MAX_BLOCKS``."""
+    width = 4 if n % 4 == 0 and x_addr % 16 == 0 else 1
+    units = n // width
+    split = int(k > 1 and units <= CAT_SPLIT_UNITS)
+    threads = CAT_SMALL_THREADS if _cdiv(units, THREADS) * (k if split else 1) < SMS else THREADS
+    unroll = UNROLL if _cdiv(units, threads) > MAX_BLOCKS else 1
+    return ConcatPlan(width, int(k * n > LIMIT32), threads, unroll,
+                      min(_cdiv(units, threads * unroll), MAX_BLOCKS), split)
+
+
 # -- the kernels -----------------------------------------------------------------------
 
 
@@ -278,10 +326,16 @@ def _expect(ok: bool, what: str) -> None:
         raise ValueError(what)
 
 
-def _check_cuda(x: torch.Tensor, contiguous: bool = True) -> None:
-    _expect(x.device.type == "cuda", f"x must lie on the CPU or a CUDA device, got {x.device}")
+def _on_cpu(x: torch.Tensor, contiguous: bool = True) -> bool:
+    """Checks what the kernel needs of ``x`` on any device, so that the CPU
+    refuses what the card does; then whether x lies on the CPU (else it
+    must lie on a CUDA device)."""
     _expect(x.dtype == torch.float32, f"x must be float32, got {x.dtype}")
     _expect(not contiguous or x.is_contiguous(), "x must be contiguous")
+    if x.device.type == "cpu":
+        return True
+    _expect(x.device.type == "cuda", f"x must lie on the CPU or a CUDA device, got {x.device}")
+    return False
 
 
 @functools.lru_cache(maxsize=None)
@@ -294,7 +348,7 @@ def _kernels() -> ctypes.CDLL:
         ("dfd_empty", [vp]),
         ("dfd_gather_cols", [vp, vp, vp, i64, i64, i64] + [i32] * 4 + [i64, i32, vp]),
         ("dfd_transpose", [vp, vp, i64, i64] + [i32] * 6 + [vp]),
-        ("dfd_concat_scaled", [vp, vp, i64, vp, i32, vp]),
+        ("dfd_concat_scaled", [vp, vp, i64, vp] + [i32] * 7 + [vp]),
     ):
         fn = getattr(lib, name)
         fn.argtypes = args
@@ -312,9 +366,8 @@ def roll(x: torch.Tensor, shift: int, axis: int) -> torch.Tensor:
     """``torch.roll(x, shift, axis)`` of a 2-D float32 x."""
     _expect(x.ndim == 2 and axis in (0, 1, -1, -2), f"a 2-D x and axis 0 or 1 expected, got "
                                                     f"{tuple(x.shape)} and {axis}")
-    if x.device.type == "cpu":
+    if _on_cpu(x):
         return roll_plain(x, shift, axis)
-    _check_cuda(x)
     axis %= 2
     out = torch.empty_like(x)
     if out.numel() == 0:
@@ -331,9 +384,8 @@ def strided_copy(view: torch.Tensor) -> torch.Tensor:
     """A contiguous copy of ``view``, a strided view (1 to 3 axes) of a
     float32 tensor: ``view.clone(memory_format=torch.contiguous_format)``."""
     _expect(1 <= view.ndim <= 3, f"a view of 1 to 3 axes expected, got {tuple(view.shape)}")
-    if view.device.type == "cpu":
+    if _on_cpu(view, contiguous=False):
         return strided_copy_plain(view)
-    _check_cuda(view, contiguous=False)
     out = torch.empty(view.shape, dtype=torch.float32, device=view.device)
     if out.numel() == 0:
         return out
@@ -353,11 +405,10 @@ def gather_cols(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     _expect(x.ndim == 2 and idx.ndim == 1, f"x [R, C] and idx [n] expected, got "
                                            f"{tuple(x.shape)} and {tuple(idx.shape)}")
     _expect(idx.dtype == torch.int32, f"idx must be int32, got {idx.dtype}")
-    if x.device.type == "cpu" and idx.device.type == "cpu":
+    _expect(idx.is_contiguous(), "idx must be contiguous")
+    if _on_cpu(x) and idx.device.type == "cpu":
         return gather_cols_plain(x, idx)
-    _check_cuda(x)
-    _expect(idx.device == x.device and idx.is_contiguous(),
-            f"idx must be contiguous and lie on {x.device}, got {idx.device}")
+    _expect(idx.device == x.device, f"idx must lie on {x.device}, got {idx.device}")
     out = torch.empty((x.shape[0], idx.shape[0]), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
@@ -371,9 +422,8 @@ def gather_cols(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def transpose(x: torch.Tensor) -> torch.Tensor:
     """``x.t().contiguous()`` of a 2-D float32 x."""
     _expect(x.ndim == 2, f"a 2-D x expected, got {tuple(x.shape)}")
-    if x.device.type == "cpu":
+    if _on_cpu(x):
         return transpose_plain(x)
-    _check_cuda(x)
     rows, cols = x.shape
     out = torch.empty((cols, rows), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
@@ -389,15 +439,16 @@ def concat_scaled(x: torch.Tensor, scales: Sequence[float]) -> torch.Tensor:
     _expect(1 <= len(scales) <= MAX_SCALES, f"1 to {MAX_SCALES} scales expected, "
                                             f"got {len(scales)}")
     _expect(x.ndim >= 1, "x must have at least one axis")
-    if x.device.type == "cpu":
+    if _on_cpu(x):
         return concat_scaled_plain(x, scales)
-    _check_cuda(x)
     out = torch.empty((len(scales) * x.shape[0], *x.shape[1:]), dtype=torch.float32,
                       device=x.device)
     if out.numel() == 0:
         return out
     host = (ctypes.c_float * len(scales))(*(float(s) for s in scales))
-    _launch(x, "dfd_concat_scaled", x.data_ptr(), out.data_ptr(), x.numel(), host, len(scales))
+    p = concat_plan(x.data_ptr(), x.numel(), len(scales))
+    _launch(x, "dfd_concat_scaled", x.data_ptr(), out.data_ptr(), x.numel(), host, len(scales),
+            *p)
     concat_scaled.launches += 1
     return out
 

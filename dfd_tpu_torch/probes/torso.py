@@ -10,7 +10,9 @@ kernel of :mod:`dfd_tpu_torch.ops.relayout` on the probe's ``x [128, 1024]``
 the strided slices ``x[::2, :]``, ``x[:, ::2]`` and ``x3[:, ::2, :]`` of
 ``x3 = x.view(128, 16, 64)``, the reshape copy to ``[128, 16, 64]`` and the
 row concat ``[x, 2x, 3x]``; each is held bit-exact to its PyTorch expression,
-which is also the library call timed beside it.  The seven product shapes
+which is also the library call timed beside it, but for the concat: its
+PyTorch expression is ``torch.cat`` of three products, and its library call
+is one broadcasting multiply (:func:`concat_library`).  The seven product shapes
 (stage-0 and stage-1 res convs as im2col or split products, big dimension
 in M or in N, and the 3-channel feature conv) run as
 :func:`dfd_tpu_torch.ops.gemm_chain.gemm_chain` chains of 256 products
@@ -31,6 +33,7 @@ from dfd_tpu_torch.probes.gemm import chain_case
 from dfd_tpu_torch.utils.profiling import F32_RATE
 
 ITERS = 256
+SCALES = (1.0, 2.0, 3.0)  # the concat's
 # (name, M, K, N): tools/probe_pallas_torso.py::main's shapes, in its order
 GEMM_SHAPES = (
     ("im2col M-major [1024,144]x[144,16]", 1024, 144, 16),
@@ -65,14 +68,28 @@ def relayout_cases(x: torch.Tensor):
          nb),
         (f"reshape [{R},{L}]->[{R},{L // 64},64] (split lanes)", rl.strided_copy,
          lambda: rl.strided_copy(x3), lambda: rl.strided_copy_plain(x3), 2 * nb),
-        ("concat along sublanes x3", rl.concat_scaled, lambda: rl.concat_scaled(x, (1.0, 2.0, 3.0)),
-         lambda: rl.concat_scaled_plain(x, (1.0, 2.0, 3.0)), 4 * nb),
+        ("concat along sublanes x3", rl.concat_scaled, lambda: rl.concat_scaled(x, SCALES),
+         lambda: rl.concat_scaled_plain(x, SCALES), 4 * nb),
     )
 
 
-def relayout_row(probe: str, name: str, kernel, run, plain, nbytes: float, dev, n: int) -> dict:
+def concat_library(x: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """One PyTorch call computing ``concat_scaled(x, scales)``: a
+    broadcasting multiply by the float32 ``scales`` on x's device (each
+    product rounded once, as the kernel's), its ``[k, *x.shape]`` result
+    seen as ``[k * x.shape[0], *x.shape[1:]]``.  A yardstick only: the port
+    never calls it."""
+    k = scales.numel()
+    return (x.unsqueeze(0) * scales.view(k, *[1] * x.ndim)).view(k * x.shape[0], *x.shape[1:])
+
+
+def relayout_row(probe: str, name: str, kernel, run, plain, nbytes: float, dev, n: int,
+                 library=None) -> dict:
+    """One relayout case; its plain version is also its library call unless
+    ``library`` is given."""
     return c.measure(probe, name, kernel.__name__, run, plain, tol=c.TOL_EXACT, flops=0.0,
-                     rate=F32_RATE, nbytes=nbytes, dev=dev, n=n, plain_is_library=True)
+                     rate=F32_RATE, nbytes=nbytes, dev=dev, n=n, library=library,
+                     plain_is_library=library is None)
 
 
 def run(device=None, rows: int = 128, cols: int = 1024, gemm_shapes=GEMM_SHAPES,
@@ -81,7 +98,11 @@ def run(device=None, rows: int = 128, cols: int = 1024, gemm_shapes=GEMM_SHAPES,
     ``gemm_shapes`` ((name, M, K, N) tuples, ``iters`` products each)."""
     dev = c.probe_device(device)
     x = torch.from_numpy(np.random.RandomState(0).randn(rows, cols).astype(np.float32)).to(dev)
-    out = [relayout_row("torso", *case, dev=dev, n=n) for case in relayout_cases(x)]
+    scales = torch.tensor(SCALES, dtype=torch.float32, device=dev)
+    out = [relayout_row("torso", *case, dev=dev, n=n,
+                        library=(lambda: concat_library(x, scales))
+                        if case[1] is rl.concat_scaled else None)
+           for case in relayout_cases(x)]
     rng = np.random.RandomState(0)
     for name, M, K, N in gemm_shapes:
         a = torch.from_numpy(rng.randn(M, K).astype(np.float32)).to(dev)

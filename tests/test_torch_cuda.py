@@ -22,6 +22,7 @@ nearer its bf16 plain version than its f32 one; the trainer's mean reward to rto
 division differently.
 """
 
+import ctypes
 import math
 
 import pytest
@@ -521,6 +522,21 @@ def test_relayout_kernels_are_exact(cuda):
             assert torch.equal(got.isnan(), want.isnan()) and torch.equal(
                 got.nan_to_num(), want.nan_to_num()), (R, C, n, off)
     assert routes == {(f"{w} stores, 32-bit", u) for w in ("float4", "scalar") for u in (1, 4)}
+    # every route of the concat: k = 1 to 8, float4 and scalar units (x.view(-1)[1:], ragged
+    # n), split and not, one unit a thread or UNROLL in grid strides, 1-D and 3-D x
+    routes = set()
+    for shape in ((1,), (5,), (4096,), (131071,), (128, 1024), (7, 130), (3, 5, 7),
+                  (33, 64, 64), (300, 1024), (2 ** 20, 3), (1025, 4096)):
+        base = torch.randn(math.prod(shape) + 1, device=cuda)
+        for x in (base[:-1].view(shape), base[1:].view(shape), base.view(-1)[1:]):
+            for k in (1, 3, 8):
+                scales = [0.5 * i - 1.25 for i in range(k)]
+                p = rl.concat_plan(x.data_ptr(), x.numel(), k)
+                routes.add((p.route, p.unroll))
+                assert torch.equal(rl.concat_scaled(x, scales),
+                                   torch.cat([x * s for s in scales])), (shape, k, p)
+    assert routes == {(f"{w}{split}, 32-bit", u) for w in ("vector", "scalar")
+                      for split, u in ((", split", 1), ("", 1), ("", 4))}, routes
     # empty inputs: empty outputs, no launch
     before = [k.launches for k in rl.KERNELS]
     x = torch.randn(4, 5, device=cuda)
@@ -578,6 +594,20 @@ def test_relayout_kernels_past_2_31_take_the_64_bit_route(cuda):
                       "rows, scalar, 64-bit", "flat, aligned stores, 64-bit",
                       "gather float4 stores, 64-bit", "gather scalar stores, 64-bit"}, routes
     assert tr_routes == {"16x256, vector loads, 64-bit", "256x16, vector stores, 64-bit"}
+    # the concat of 2^28 + 4 floats by 8 scales (8.6 GB out): k * n passes 2^31 - 4096; in
+    # float4 units from an aligned x, in scalars from one 4 bytes off; each segment compared
+    base = torch.randn(2 ** 28 + 5, device=cuda)
+    scales = [1.0, -2.0, 0.5, 3.0, 0.1, -0.25, 7.0, 1e-3]
+    routes = set()
+    for x in (base[:-1], base[1:]):
+        routes.add(rl.concat_plan(x.data_ptr(), x.numel(), 8).route)
+        got = rl.concat_scaled(x, scales)
+        for i, s in enumerate(scales):
+            assert torch.equal(got[i * x.numel():(i + 1) * x.numel()], x * s), (i, routes)
+        del got
+    del base
+    torch.cuda.empty_cache()
+    assert routes == {"vector, 64-bit", "scalar, 64-bit"}, routes
 
 
 def test_relayout_entries_refuse_another_plan(cuda):
@@ -621,6 +651,23 @@ def test_relayout_entries_refuse_another_plan(cuda):
     assert lib.dfd_transpose(x.data_ptr(), out.data_ptr(), 64, 1024, *t, stream) == 0
     torch.cuda.synchronize()
     assert torch.equal(out.view(1024, 64), x.t())
+    # the concat: another plan, or float4 stores to an output off 16 bytes, are refused
+    scales = (ctypes.c_float * 3)(1.0, 2.0, 3.0)
+    big = torch.empty(3 * x.numel() + 4, device=cuda)
+    for n in (x.numel(), x.numel() - 1, 4096):
+        c = rl.concat_plan(x.data_ptr(), n, 3)
+        for i in range(len(c)):
+            bad = list(c)
+            bad[i] += 1
+            assert lib.dfd_concat_scaled(x.data_ptr(), big.data_ptr(), n, scales, 3, *bad,
+                                         stream) != 0
+    c = rl.concat_plan(x.data_ptr(), x.numel(), 3)
+    assert lib.dfd_concat_scaled(x.data_ptr(), big.data_ptr() + 4, x.numel(), scales, 3, *c,
+                                 stream) != 0
+    assert lib.dfd_concat_scaled(x.data_ptr(), big.data_ptr(), x.numel(), scales, 3, *c,
+                                 stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(big[:-4].view(3 * 64, 1024), torch.cat([x, 2 * x, 3 * x]))
 
 
 # the probes' shapes (P = 64), then
@@ -700,6 +747,25 @@ def test_probe_wrappers_count_launches_and_check_inputs(cuda):
         gc.gemm_chain(x.double(), x.t().double(), 2)
     with pytest.raises(ValueError, match="contiguous"):
         rl.transpose(x[:, ::2])
+    # the inputs the CPU wrappers refuse (tests/test_torch_relayout.py::
+    # test_cpu_wrappers_refuse_what_the_card_refuses) are refused here with the same text
+    idx = torch.tensor([0, 2, 3], dtype=torch.int32, device=cuda)
+    wrappers = {rl.roll: (lambda v: rl.roll(v, 1, 1), True),
+                rl.strided_copy: (rl.strided_copy, False),
+                rl.gather_cols: (lambda v: rl.gather_cols(v, idx), True),
+                rl.transpose: (rl.transpose, True),
+                rl.concat_scaled: (lambda v: rl.concat_scaled(v, (1.0, 2.5)), True)}
+    x64 = torch.randn(4, 6, device=cuda, dtype=torch.float64)
+    for fn, contiguous in wrappers.values():
+        with pytest.raises(ValueError, match="x must be float32, got torch.float64"):
+            fn(x64)
+        if contiguous:
+            with pytest.raises(ValueError, match="x must be contiguous"):
+                fn(x64.float().t())
+    with pytest.raises(ValueError, match="float32"):
+        rl.concat_scaled(torch.arange(6, device=cuda).view(2, 3), (1.0, 2.5))
+    with pytest.raises(ValueError, match="idx must be contiguous"):
+        rl.gather_cols(x, torch.tensor([0, 1, 2, 1], dtype=torch.int32, device=cuda)[::2])
     with pytest.raises(ValueError, match="CPU or"):
         gc.gemm_chain(x, x.t().cpu().contiguous(), 2)
     with pytest.raises(ValueError, match="compute_dtype"):

@@ -14,7 +14,13 @@ exactly once, from the right source element, with every float4 aligned.
 The same for the transpose (``transpose_plan``: tiles walked in grid
 strides, the stage's swizzle, 4 x 4 blocks stored as float4s) and the
 gather (``gather_cols_plan``: a unit of columns a thread, rows in grid
-strides); and the CPU wrappers' empty outputs for empty inputs.
+strides) and the concat (``concat_plan``: units of x in grid strides, each
+stored once to every segment, or the scales over blockIdx.y); the CPU
+wrappers' empty outputs for empty inputs; and their refusal, before they
+branch to the plain version, of what the card refuses (float64 x, x
+non-contiguous where the kernel needs it), as
+``tests/test_torch_cuda.py::test_probe_wrappers_count_launches_and_check_inputs``
+shows on the card.
 """
 
 import numpy as np
@@ -437,3 +443,162 @@ def test_cpu_wrappers_give_empty_outputs_for_empty_inputs():
     assert rl.transpose(torch.zeros(0, 5)).shape == (5, 0)
     assert rl.transpose(torch.zeros(3, 0)).shape == (0, 3)
     assert rl.concat_scaled(torch.zeros(0, 5), (1.0, 2.0)).shape == (0, 5)
+
+
+# -- the concat ---------------------------------------------------------------------------
+
+PN = PR * PL              # the production x, flat: 34,078,720 floats
+
+
+@pytest.mark.parametrize("x_addr, n, k, route, threads, unroll, grid", [
+    (0, R * L, 3, "vector, split, 32-bit", 256, 1, 128),          # the probe's x [128, 1024]
+    (0, PN, 3, "vector, 32-bit", 256, 4, 2112),                   # x [33280, 1024], k = 3
+    (0, PN, 8, "vector, 32-bit", 256, 4, 2112),                   # k = MAX_SCALES
+    (4, PN - 1, 3, "scalar, 32-bit", 256, 4, 2112),               # x.view(-1)[1:]
+    (0, 2 ** 28 + 4, 8, "vector, 64-bit", 256, 4, 2112),          # k * n past LIMIT32
+    (0, 8192, 1, "vector, 32-bit", 128, 1, 16),                   # one scale: no split
+    (0, 8192, 2, "vector, split, 32-bit", 128, 1, 16),
+    (0, 5, 3, "scalar, split, 32-bit", 128, 1, 1),
+])
+def test_concat_routes(x_addr, n, k, route, threads, unroll, grid):
+    p = rl.concat_plan(x_addr, n, k)
+    assert (p.route, p.threads, p.unroll, p.grid) == (route, threads, unroll, grid), p
+
+
+def test_concat_takes_the_vector_route_exactly_where_x_is_aligned_in_float4s():
+    for n in range(1, 70):
+        for x_addr in range(0, 36, 4):
+            for k in (1, 3, 8):
+                p = rl.concat_plan(x_addr, n, k)
+                assert p.width == (4 if n % 4 == 0 and x_addr % 16 == 0 else 1), (n, x_addr, k)
+
+
+def _check_concat(p: rl.ConcatPlan, n: int, k: int):
+    """Follows ``concat_scaled_kernel`` step by step in its unsigned offsets,
+    in units of ``p.width`` floats: thread t of block (bx, by) starts at unit
+    ``bx * threads * unroll + t``, takes ``unroll`` units ``threads`` apart,
+    stores each to its segments (all k, or under split the one ``by``
+    picks), a segment's offset the last one's plus ``units``, and moves on in
+    grid strides.  Asserts that each store goes to the segment of its scale
+    at its source unit's place, and that every output unit is stored once."""
+    with np.errstate(over="ignore"):
+        U = np.uint64 if p.wide else np.uint32
+        units = n // p.width
+        assert p.width == 1 or n % 4 == 0
+        per, step = U(p.threads), U(p.grid * p.threads * p.unroll)
+        seen = np.zeros((k, units), bool)
+        stores = 0
+        bx, t = (a.ravel() for a in np.meshgrid(np.arange(p.grid), np.arange(p.threads),
+                                                 indexing="ij"))
+        for by in range(k if p.split else 1):
+            s0, ns = (by, 1) if p.split else (0, k)
+            first = U(by) * U(units) if p.split else U(0)
+            j0 = (bx * p.threads * p.unroll + t).astype(U)
+            while True:
+                j0 = j0[j0 < U(units)]
+                if not j0.size:
+                    break
+                o = first + j0
+                for s in range(ns):
+                    for u in range(p.unroll):
+                        j = j0 + U(u) * per
+                        ok = j < U(units)
+                        out, src = (o + U(u) * per)[ok], j[ok]
+                        assert np.array_equal(out, U(s0 + s) * U(units) + src), (p, s0 + s)
+                        seen[s0 + s, src.astype(np.int64)] = True
+                        stores += src.size
+                    o = o + U(units)
+                j0 = j0 + step
+        assert stores == k * units and seen.all(), p
+
+
+@pytest.mark.parametrize("k", range(1, rl.MAX_SCALES + 1))
+def test_concat_plans_write_each_output_once(k, monkeypatch):
+    """Ragged n (1, 3, 5, 4m +- 1) and aligned ones at x addresses off 16
+    bytes and on them; then the same with 2 SMs, a grid of at most 4 blocks
+    and a split up to 64 units, so blocks loop in grid strides and threads
+    take UNROLL units."""
+    for sms, max_blocks, split in ((rl.SMS, rl.MAX_BLOCKS, rl.CAT_SPLIT_UNITS), (2, 4, 64)):
+        monkeypatch.setattr(rl, "SMS", sms)
+        monkeypatch.setattr(rl, "MAX_BLOCKS", max_blocks)
+        monkeypatch.setattr(rl, "CAT_SPLIT_UNITS", split)
+        for n in (1, 3, 4, 5, 7, 8, 9, 63, 64, 65, 255, 256, 257, 1023, 1024, 1025, 4096, 5000):
+            for x_addr in (0, 4, 12):
+                _check_concat(rl.concat_plan(x_addr, n, k), n, k)
+        assert max_blocks == rl.MAX_BLOCKS or rl.concat_plan(0, 5000, k).unroll == rl.UNROLL
+
+
+@pytest.mark.parametrize("x_addr, n, k", [(0, R * L, 3), (0, PN, 3), (0, PN, 8),
+                                          (4, PN - 1, 3)],
+                         ids=["probe", "production k=3", "production k=8", "ragged"])
+def test_concat_plans_at_the_probe_and_production_sizes(x_addr, n, k):
+    _check_concat(rl.concat_plan(x_addr, n, k), n, k)
+
+
+def test_concat_wide_plans_emulate_with_a_lowered_limit(monkeypatch):
+    """The 64-bit forms' arithmetic at a small size: LIMIT32 lowered to 100
+    sends these to the 64-bit route, some with grid-stride loops (a grid of
+    at most 4 blocks) and some split (up to 64 units)."""
+    monkeypatch.setattr(rl, "LIMIT32", 100)
+    monkeypatch.setattr(rl, "MAX_BLOCKS", 4)
+    monkeypatch.setattr(rl, "CAT_SPLIT_UNITS", 64)
+    routes = set()
+    for n, x_addr, k in ((1024, 0, 1), (1028, 4, 3), (4096, 0, 8), (3001, 0, 2), (200, 0, 6),
+                         (45, 0, 3)):
+        p = rl.concat_plan(x_addr, n, k)
+        assert p.wide == 1
+        routes.add(p.route)
+        _check_concat(p, n, k)
+    assert routes == {"vector, 64-bit", "scalar, 64-bit", "vector, split, 64-bit",
+                      "scalar, split, 64-bit"}, routes
+
+
+def test_concat_plain_and_one_broadcasting_multiply_agree_bit_for_bit():
+    """The one PyTorch call timed beside the concat is the same function."""
+    from dfd_tpu_torch.probes.torso import concat_library
+
+    x = torch.from_numpy(np.random.RandomState(0).randn(5, 7, 3).astype(np.float32))
+    for scales in ((1.0, 2.0, 3.0), (0.1, -3.7, 1e-3, 7.25, 1 / 3, 2.5, -0.0, 9e9)):
+        s = torch.tensor(scales, dtype=torch.float32)
+        assert torch.equal(concat_library(x, s), rl.concat_scaled_plain(x, scales))
+
+
+# -- the wrappers refuse on the CPU what the card refuses ---------------------------------
+
+IDX = torch.tensor([0, 2, 3], dtype=torch.int32)
+WRAPPERS = {  # (wrapper, plain version, the kernel needs x contiguous)
+    "roll": (lambda x: rl.roll(x, 1, 1), lambda x: rl.roll_plain(x, 1, 1), True),
+    "strided_copy": (rl.strided_copy, rl.strided_copy_plain, False),
+    "gather_cols": (lambda x: rl.gather_cols(x, IDX), lambda x: rl.gather_cols_plain(x, IDX),
+                    True),
+    "transpose": (rl.transpose, rl.transpose_plain, True),
+    "concat_scaled": (lambda x: rl.concat_scaled(x, (1.0, 2.5)),
+                      lambda x: rl.concat_scaled_plain(x, (1.0, 2.5)), True),
+}
+
+
+@pytest.mark.parametrize("name", WRAPPERS)
+def test_cpu_wrappers_refuse_what_the_card_refuses(name):
+    fn, plain, contiguous = WRAPPERS[name]
+    x = torch.from_numpy(np.random.RandomState(0).randn(4, 6))  # float64
+    with pytest.raises(ValueError, match="x must be float32, got torch.float64"):
+        fn(x)
+    assert plain(x).dtype == torch.float64
+    xt = x.float().t()
+    if contiguous:
+        with pytest.raises(ValueError, match="x must be contiguous"):
+            fn(xt)
+    else:
+        assert torch.equal(fn(xt), plain(xt))
+    assert plain(xt).dtype == torch.float32
+    assert torch.equal(fn(x.float()), plain(x.float()))
+
+
+def test_cpu_wrappers_refuse_integer_x_and_strided_indices():
+    x = torch.arange(6).view(2, 3)
+    with pytest.raises(ValueError, match="float32"):
+        rl.concat_scaled(x, (1.0, 2.5))
+    assert rl.concat_scaled_plain(x, (1.0, 2.5)).dtype == torch.float32
+    idx = torch.tensor([0, 1, 2, 1], dtype=torch.int32)[::2]
+    with pytest.raises(ValueError, match="idx must be contiguous"):
+        rl.gather_cols(torch.zeros(2, 3), idx)

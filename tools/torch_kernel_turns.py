@@ -4,9 +4,10 @@
 
 DIR is the root of another checkout of this repository (an earlier commit,
 unpacked with ``git archive``) whose C entry points have the interfaces of
-commit 9d8e205: ``dfd_combine``, ``dfd_res_chain``, ``dfd_gemm_chain``,
-``dfd_roll`` and ``dfd_strided_copy`` with their plans, ``dfd_gather_cols``
-and ``dfd_transpose`` without one (``int`` dimensions for the transpose).
+commit 67921d8: ``dfd_combine``, ``dfd_res_chain``, ``dfd_gemm_chain``,
+``dfd_roll``, ``dfd_strided_copy``, ``dfd_gather_cols`` and
+``dfd_transpose`` with their plans, ``dfd_concat_scaled(x, out, n, scales,
+n_scales, stream)`` without one.
 Its ``dfd_tpu_torch/ops/csrc/perturb.cu``, ``gemm_chain.cu``,
 ``res_chain.cu`` and ``relayout.cu`` are built with the same ``nvcc`` flags
 as this checkout's (``dfd_tpu_torch/ops/build.py``) into
@@ -21,9 +22,10 @@ cells' shapes (combine also antithetic at ``mlp_trap``'s), gemm_chain at the
 gemm probe's ten cases, the torso probe's seven chains and the pool probe's
 Sel-GEMM, res_chain at the wide probe's twelve chains and the pool
 probe's three, and the relayouts with their PyTorch call (``torch.roll``,
-``clone``, ``index_select``, ``t().contiguous()``) in the same turns:
-parent, change, PyTorch, PyTorch, change, parent.  The relayouts run at the
-torso and pool probes' cases and where bytes decide: roll and strided_copy
+``clone``, ``index_select``, ``t().contiguous()``; for the concat one
+broadcasting multiply, ``probes/torso.py::concat_library``) in the same
+turns: parent, change, PyTorch, PyTorch, change, parent.  The relayouts run
+at the torso and pool probes' cases and where bytes decide: roll and strided_copy
 at ``impala_prod_bf16``'s stage-0 novelty activation seen as ``x [33280,
 1024]`` (rolls by 1 and 32 along lanes and by 1 along rows; ``x[::2, :]``,
 ``x[:, ::2]``, ``x3[:, ::2, :]`` and the reshape copy of ``x3 =
@@ -31,7 +33,9 @@ x.view(33280, 32, 32)``), the transpose of ``x`` seen as ``[33280, 1024]``,
 ``[64, 532480]``, ``[532480, 64]``, ``[16, 2129920]`` and ``[2129920, 16]``
 (where the parent refuses a case, that is printed and its turns are change,
 PyTorch, PyTorch, change), and the gather of the pool's even positions from
-``x_pool [33280, 4096]`` and of a permutation of ``x``'s columns.  Combine
+``x_pool [33280, 4096]`` and of a permutation of ``x``'s columns, and the
+concat of ``x`` by 3 and by 8 scales and of ``x.view(-1)[1:]`` by 3 (the
+probe's concat, of its ``x [128, 1024]`` by 3, among the probe cases).  Combine
 and the relayouts take five such rounds, and their spread (the fastest and
 slowest round's ratio) is printed.  Each output is checked against the
 plain version first (the relayouts bit for bit).
@@ -125,8 +129,9 @@ def build_parent(parent: Path, groups) -> dict:
         lib = libs["relayout"]
         lib.dfd_roll.argtypes = [vp, vp, i64, i64, i64, i32] + [i32] * 5 + [i64, i32, vp]
         lib.dfd_strided_copy.argtypes = [vp, vp] + [i64] * 6 + [i32] * 5 + [i64, i32, vp]
-        lib.dfd_gather_cols.argtypes = [vp, vp, vp, i64, i64, i64, vp]
-        lib.dfd_transpose.argtypes = [vp, vp, i32, i32, vp]
+        lib.dfd_gather_cols.argtypes = [vp, vp, vp, i64, i64, i64] + [i32] * 4 + [i64, i32, vp]
+        lib.dfd_transpose.argtypes = [vp, vp, i64, i64] + [i32] * 6 + [vp]
+        lib.dfd_concat_scaled.argtypes = [vp, vp, i64, vp, i32, vp]
     return libs
 
 
@@ -179,6 +184,8 @@ def relayout_cases(size: str, dev: torch.device) -> list:
         ("x[::2, :]", x[::2, :]), ("x[:, ::2]", x[:, ::2]), ("x3[:, ::2, :]", x3[:, ::2, :]),
         (f"reshape [{R},{L}]->{list(x3.shape)}", x3))]
     cases = [(f"{size} {name} of x [{R}, {L}]", fn, args) for name, fn, args in cases]
+    scales = (1.0, 2.0, 3.0)
+    cases.append((f"{size} concat k=3 of x [{R}, {L}]", rl.concat_scaled, (x, scales)))
     if size == "probe":
         xp = torch.from_numpy(np.random.RandomState(0).randn(16, 4096).astype(np.float32)).to(dev)
         xt = torch.from_numpy(np.random.RandomState(1).randn(48, 1024).astype(np.float32)).to(dev)
@@ -195,7 +202,11 @@ def relayout_cases(size: str, dev: torch.device) -> list:
     perm = torch.from_numpy(np.random.RandomState(3).permutation(L).astype(np.int32)).to(dev)
     return cases + [(f"production gather even positions of x_pool [{R}, 4096]", rl.gather_cols,
                      (x_pool, even)),
-                    ("production gather a permutation of x's columns", rl.gather_cols, (x, perm))]
+                    ("production gather a permutation of x's columns", rl.gather_cols, (x, perm)),
+                    (f"production concat k=8 of x [{R}, {L}]", rl.concat_scaled,
+                     (x, tuple(float(i) for i in range(1, 9)))),
+                    (f"production concat k=3 of x.view(-1)[1:] [{R * L - 1}]", rl.concat_scaled,
+                     (x.view(-1)[1:], scales))]
 
 
 def relayout_turns(libs: dict, dev: torch.device) -> list:
@@ -204,13 +215,18 @@ def relayout_turns(libs: dict, dev: torch.device) -> list:
     stream = lambda: torch.cuda.current_stream().cuda_stream
     lib = libs["relayout"]
     plain = {rl.roll: rl.roll_plain, rl.strided_copy: rl.strided_copy_plain,
-             rl.gather_cols: rl.gather_cols_plain, rl.transpose: rl.transpose_plain}
+             rl.gather_cols: rl.gather_cols_plain, rl.transpose: rl.transpose_plain,
+             rl.concat_scaled: rl.concat_scaled_plain}
     rows = []
     for size in ("probe", "production"):
         for name, fn, args in relayout_cases(size, dev):
             v = args[0]
             library = lambda fn=fn, args=args: plain[fn](*args)
             want = library()
+            if fn is rl.concat_scaled:
+                s = torch.tensor(args[1], dtype=torch.float32, device=dev)
+                library = lambda v=v, s=s: ptorso.concat_library(v, s)
+                assert torch.equal(library(), want), name
             out = torch.empty_like(want)
             if fn is rl.roll:
                 p = rl.roll_plan(v.data_ptr(), *v.shape, args[1], args[2])
@@ -223,11 +239,18 @@ def relayout_turns(libs: dict, dev: torch.device) -> list:
                 call = lambda: lib.dfd_strided_copy(v.data_ptr(), out.data_ptr(), *sizes,
                                                     *strides, *p.launch, stream())
             elif fn is rl.transpose:
-                call = lambda: lib.dfd_transpose(v.data_ptr(), out.data_ptr(), *v.shape, stream())
-            else:
+                t = rl.transpose_plan(v.data_ptr(), *v.shape)
+                call = lambda: lib.dfd_transpose(v.data_ptr(), out.data_ptr(), *v.shape, *t,
+                                                 stream())
+            elif fn is rl.gather_cols:
+                g = rl.gather_cols_plan(*v.shape, args[1].numel())
                 call = lambda: lib.dfd_gather_cols(v.data_ptr(), args[1].data_ptr(),
                                                    out.data_ptr(), *v.shape, args[1].numel(),
-                                                   stream())
+                                                   *g, stream())
+            else:
+                host = (ctypes.c_float * len(args[1]))(*args[1])
+                call = lambda: lib.dfd_concat_scaled(v.data_ptr(), out.data_ptr(), v.numel(),
+                                                     host, len(args[1]), stream())
 
             def parent(call=call, out=out, name=name):
                 build.raise_on(call(), f"parent {name}")

@@ -1,12 +1,14 @@
-"""What the transpose kernel's design gives, on one card: variants of
-``dfd_tpu_torch/ops/csrc/relayout.cu`` at the production transposes.
+"""What the transpose and concat kernels' designs give, on one card: variants
+of ``dfd_tpu_torch/ops/csrc/relayout.cu`` at the probes' and production sizes.
 
-    python3 tools/torch_relayout_variants.py [--out FILE]
+    python3 tools/torch_relayout_variants.py [--kernels transpose concat] [--out FILE]
 
-Builds three copies of this checkout's ``relayout.cu`` with the same
-``nvcc`` flags as ``dfd_tpu_torch/ops/build.py``, into
-``build/relayout_variants/``, each with the transpose entry's refusal of
-another plan taken out of its text, so that it runs the plan it is given:
+Builds copies of this checkout's ``relayout.cu`` with the same ``nvcc``
+flags as ``dfd_tpu_torch/ops/build.py``, into ``build/relayout_variants/``,
+each with the transpose's and the concat's refusal of another plan taken
+out of their entries' text, so that they run the plan they are given
+(``--kernels`` picks the kernels timed, both by default, and only their
+copies are built):
 
 - ``anyplan``: the kernel as it is;
 - ``one stage``: the ring cut to one stage: a tile's loads are issued after
@@ -18,7 +20,9 @@ another plan taken out of its text, so that it runs the plan it is given:
   tensor map from ``cuTensorMapEncodeTiled``, reached through
   ``cudaGetDriverEntryPoint``), the same two-stage ring and float4 stores;
   its tiles are 32 columns wide (the swizzle's span), ``tr`` rows (128, or
-  x's rows where fewer), its grid as the kernel's (at most ``MAX_BLOCKS``).
+  x's rows where fewer), its grid as the kernel's (at most ``MAX_BLOCKS``);
+- ``evict-first``: the concat's stores as ``st.global.cs`` (``__stcs``),
+  evict-first in the caches, since nothing rereads the output.
 
 Then each production transpose of ``x [33280, 1024]`` f32 (136 MB; seen as
 ``[33280, 1024]``, ``[64, 532480]``, ``[532480, 64]``, ``[16, 2129920]``,
@@ -32,8 +36,19 @@ blocks (2 to 32 an SM; 4 of 256 threads stay resident), and beside them
 Then the pool probe's transposes, ``[16, 4096]`` (``RandomState(0)``) and
 ``[48, 1024]`` (``RandomState(1)``), where a launch's latency decides: the
 wrapper and ``anyplan`` at every tile of 256, 1024 and 4096 elements, one
-tile a block, in eight rounds.  Prints one line a case and writes them as
-JSON to ``--out``.
+tile a block, in eight rounds.
+
+The concat's cases: ``x [33280, 1024]`` by 3 and by 8 scales, the ragged
+``x.view(-1)[1:]`` by 3 (four rounds), and the probe's ``x [128, 1024]``
+by 3 (eight rounds), each held bit for bit to ``torch.cat`` of the k
+products and timed: the wrapper (the plan ``concat_plan`` picks),
+``evict-first`` at that plan, ``anyplan`` at 128, 256 and 512 threads a
+block and 1, 2 or 4 units a thread (the grid every chunk a block, at most
+``MAX_BLOCKS`` where a thread takes more than one unit), at grids of 528
+to 4224 blocks, and at the probe's size with and without the scales over
+``blockIdx.y``; beside them the plain ``torch.cat`` and one broadcasting
+multiply (``probes/torso.py::concat_library``).  Prints one line a case
+and writes them as JSON to ``--out``.
 """
 
 from __future__ import annotations
@@ -53,6 +68,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from dfd_tpu_torch.ops import build  # noqa: E402
 from dfd_tpu_torch.ops import relayout as rl  # noqa: E402
+from dfd_tpu_torch.probes.torso import concat_library  # noqa: E402
 from dfd_tpu_torch.utils.profiling import BYTES_RATE, time_ms  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -61,6 +77,11 @@ TRANSPOSES = ((33280, 1024), (64, 532480), (532480, 64), (16, 2129920), (2129920
 TILES = ((16, 256), (32, 128), (64, 64), (128, 32), (256, 16))
 GRIDS = (264, 528, 1056, 2112, 4224)
 PROBE_TILES = ((16, 16), (16, 64), (32, 32), (64, 16), (16, 256), (64, 64), (256, 16))
+# (name, x's shape, scales, x.view(-1)[1:]), and the rounds each is timed in
+CONCATS = (("x [33280, 1024] k=3", SHAPE, 3, False, 4), ("x [33280, 1024] k=8", SHAPE, 8, False, 4),
+           ("x.view(-1)[1:] of [33280, 1024] k=3", SHAPE, 3, True, 4),
+           ("probe x [128, 1024] k=3", (128, 1024), 3, False, 8))
+PUT = "__device__ __forceinline__ void put(T* p, T v) { *p = v; }"
 
 PLAN_CHECK = "if (differs(p, q) ||"
 RING = """    if (more) load_tile<I, VL>(x, ring + (s ^ 1) * units, a, ni, nj);
@@ -211,16 +232,22 @@ extern "C" int dfd_transpose_tma(const float* x, float* out, long long rows, lon
 """
 
 
-def build_variants() -> dict:
-    """The three copies of relayout.cu, compiled together."""
+def build_variants(kernels) -> dict:
+    """The copies of relayout.cu that ``kernels`` time, compiled together."""
     src = (ROOT / "dfd_tpu_torch" / "ops" / "csrc" / "relayout.cu").read_text()
-    for part in (PLAN_CHECK, RING, RING_END):
+    for part in (PLAN_CHECK, RING, RING_END, PUT):
         if part not in src:
             raise RuntimeError(f"relayout.cu no longer holds {part!r}")
+    if src.count(PLAN_CHECK) != 2:
+        raise RuntimeError("relayout.cu's transpose and concat entries no longer check "
+                           f"their plans as {PLAN_CHECK!r}")
     anyplan = src.replace(PLAN_CHECK, "if (false ||")
-    sources = {"anyplan": anyplan,
-               "one stage": anyplan.replace(RING, ONE_STAGE).replace(RING_END, ONE_STAGE_END),
-               "tma": anyplan + TMA}
+    sources = {"anyplan": anyplan}
+    if "transpose" in kernels:
+        sources["one stage"] = anyplan.replace(RING, ONE_STAGE).replace(RING_END, ONE_STAGE_END)
+        sources["tma"] = anyplan + TMA
+    if "concat" in kernels:
+        sources["evict-first"] = anyplan.replace(PUT, PUT.replace("*p = v;", "__stcs(p, v);"))
     out_dir = ROOT / "build" / "relayout_variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -243,12 +270,81 @@ def build_variants() -> dict:
               flush=True)
         libs[name] = ctypes.CDLL(str(lib))
         libs[name].dfd_transpose.argtypes = [vp, vp, i64, i64] + [i32] * 6 + [vp]
-    libs["tma"].dfd_transpose_tma.argtypes = [vp, vp, i64, i64, i32, i32, vp]
+        libs[name].dfd_concat_scaled.argtypes = [vp, vp, i64, vp] + [i32] * 7 + [vp]
+    if "tma" in libs:
+        libs["tma"].dfd_transpose_tma.argtypes = [vp, vp, i64, i64, i32, i32, vp]
     return libs
+
+
+def timed_rounds(fns: dict, rounds: int, dev) -> dict:
+    """Each function's ``time_ms`` (20 calls) in ``rounds`` rounds, forward
+    and backward in turn."""
+    times = {k: [] for k in fns}
+    for r in range(rounds):
+        for k in list(fns)[:: 1 if r % 2 == 0 else -1]:
+            times[k].append(time_ms(fns[k], dev, 20))
+    return times
+
+
+def concat_variants(libs: dict, card: str, dev) -> list:
+    """The concat's plans and variants at CONCATS (see the head of this file)."""
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    rows = []
+    for name, shape, k, ragged, rounds in CONCATS:
+        x = torch.from_numpy(np.random.RandomState(0).randn(*shape).astype(np.float32)).to(dev)
+        v = x.view(-1)[1:] if ragged else x
+        n = v.numel()
+        scales = tuple(float(i) for i in range(1, k + 1))
+        host = (ctypes.c_float * k)(*scales)
+        s = torch.tensor(scales, dtype=torch.float32, device=dev)
+        want = rl.concat_scaled_plain(v, scales)
+        out = torch.empty_like(want)
+        p = rl.concat_plan(v.data_ptr(), n, k)
+        units = n // p.width
+        bound_ms = 4.0 * n * (1 + k) / BYTES_RATE * 1e3
+
+        def call(lib, plan):
+            build.raise_on(libs[lib].dfd_concat_scaled(v.data_ptr(), out.data_ptr(), n, host, k,
+                                                       *plan, stream()), lib)
+            return out
+
+        label = lambda q: (f"{q.threads} threads x {q.unroll} units, grid {q.grid}"
+                           f"{f' x {k} (split)' if q.split else ''}")
+        fns = {f"wrapper {label(p)}": lambda: rl.concat_scaled(v, scales),
+               f"evict-first {label(p)}": lambda: call("evict-first", p)}
+        plans = []
+        for threads in (128, 256, 512):
+            for unroll in (1, 2, 4):
+                chunks = -(-units // (threads * unroll))
+                for grid in (chunks, min(chunks, rl.MAX_BLOCKS)):
+                    plans.append(p._replace(threads=threads, unroll=unroll, grid=grid, split=0))
+        for q in dict.fromkeys(plans):
+            fns[f"anyplan {label(q)}"] = lambda q=q: call("anyplan", q)
+            fns[f"evict-first {label(q)}"] = lambda q=q: call("evict-first", q)
+        fns["torch.cat of k products"] = lambda: rl.concat_scaled_plain(v, scales)
+        fns["one broadcasting multiply"] = lambda: concat_library(v, s)
+        for key, f in fns.items():
+            out.fill_(float("nan"))
+            assert torch.equal(f(), want), (name, key)
+        del want
+        times = timed_rounds(fns, rounds, dev)
+        print(f"variants: concat {name}, plan {p.route}, bytes bound {bound_ms:.4f} ms "
+              f"({card}):", flush=True)
+        for key, t in times.items():
+            mean = sum(t) / len(t)
+            rows.append({"case": f"concat {name} {key}", "mean_ms": mean, "min_ms": min(t),
+                         "max_ms": max(t), "share_of_bound": bound_ms / mean, "rounds_ms": t})
+            print(f"variants:   {key:>44}: mean {mean:.5f} ms ({bound_ms / mean:.3f} of the "
+                  f"bound), rounds {min(t):.5f}-{max(t):.5f}", flush=True)
+        del out, x, v
+        torch.cuda.empty_cache()
+    return rows
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels", nargs="+", choices=("transpose", "concat"),
+                    default=["transpose", "concat"])
     ap.add_argument("--out", default=str(ROOT / "build" / "relayout_variants.json"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -257,8 +353,19 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
-    libs = build_variants()
+    libs = build_variants(args.kernels)
     dev = torch.device("cuda")
+    rows = concat_variants(libs, card, dev) if "concat" in args.kernels else []
+    if "transpose" in args.kernels:
+        rows += transpose_variants(libs, card, dev)
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump({"card": card, "rows": rows}, f, indent=1)
+    return 0
+
+
+def transpose_variants(libs: dict, card: str, dev) -> list:
+    """The transpose's tiles, grids and variants (see the head of this file)."""
     stream = lambda: torch.cuda.current_stream().cuda_stream
     x = torch.from_numpy(np.random.RandomState(0).randn(*SHAPE).astype(np.float32)).to(dev)
     bound_ms = 2 * 4.0 * x.numel() / BYTES_RATE * 1e3
@@ -298,10 +405,7 @@ def main() -> int:
                 out.fill_(float("nan"))
                 assert torch.equal(f(), want), (R, C, name)
         del want
-        times = {k: [] for k in fns}
-        for r in range(4):
-            for k in list(fns)[:: 1 if r % 2 == 0 else -1]:
-                times[k].append(time_ms(fns[k], dev, 20))
+        times = timed_rounds(fns, 4, dev)
         print(f"variants: transpose x.view({R}, {C}), bytes bound {bound_ms:.4f} ms "
               f"({card}):", flush=True)
         for k, t in times.items():
@@ -333,10 +437,7 @@ def main() -> int:
         for f in fns.values():
             out.fill_(float("nan"))
             assert torch.equal(f(), want), (R, C)
-        times = {k: [] for k in fns}
-        for r in range(8):
-            for k in list(fns)[:: 1 if r % 2 == 0 else -1]:
-                times[k].append(time_ms(fns[k], dev, 20))
+        times = timed_rounds(fns, 8, dev)
         print(f"variants: probe transpose [{R}, {C}] ({card}):", flush=True)
         for k, t in times.items():
             mean = sum(t) / len(t)
@@ -344,10 +445,7 @@ def main() -> int:
                          "min_ms": min(t), "max_ms": max(t), "rounds_ms": t})
             print(f"variants:   {k:>28}: mean {mean:.5f} ms, rounds {min(t):.5f}-{max(t):.5f}",
                   flush=True)
-    os.makedirs(os.path.dirname(args.out), exist_ok=True)
-    with open(args.out, "w") as f:
-        json.dump({"card": card, "rows": rows}, f, indent=1)
-    return 0
+    return rows
 
 
 if __name__ == "__main__":
