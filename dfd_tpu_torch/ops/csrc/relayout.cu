@@ -80,17 +80,17 @@
 //   - 32- or 64-bit offsets, as the transpose.
 // The concat (redesigned for Hopper; plan concat_plan, mirrored by relayout.py::concat_plan
 // and refused by the C entry when the caller's differs) moves exactly the bound's bytes:
-//   - x is read once.  Each thread owns units of x, a float4 where n % 4 == 0 and x is 16-byte
-//     aligned (every segment out + s * n then begins aligned too, out being aligned), else one
-//     element; it loads its `unroll` units (`threads` apart) before any store, then stores
-//     the k products of each unit, one to each segment.  A segment's offset is the last one's
-//     plus n: no division anywhere.
-//   - A block takes a chunk of threads * unroll units, and blocks walk chunks in grid strides.
-//     Where one unit a thread needs at most kMaxBlocks blocks, unroll is 1 (a small concat
-//     is latency, not bytes), with 128 threads a block where 256 would leave SMs idle;
-//     beyond, kUnroll units a thread over kMaxBlocks blocks.
-//   - split: where x has at most kCatSplitUnits units (it stays in L2), blockIdx.y is the one
-//     scale a block stores, so the grid is k times larger and x's repeat reads hit L2.
+//   - x is read once.  Each thread owns one unit of x, a float4 where n % 4 == 0 and x is
+//     16-byte aligned (every segment out + s * n then begins aligned too, out being aligned),
+//     else one element; it loads it, then stores its k products, one to each segment.  A
+//     segment's offset is the last one's plus n: no division anywhere.
+//   - A block of kCatThreads for every kCatThreads units: no grid-stride loop.  On an H100 at
+//     x [33280, 1024] (tools/torch_relayout_variants.py) a grid of 2,112 blocks looping with
+//     4 units a thread was 3-22 % slower, 2 or 4 units a thread 0.4-20 % slower, 128 or 512
+//     threads a block within 1.5 %, and at the probe's x [128, 1024] the scales over
+//     blockIdx.y (x in L2, k times the blocks) 1-4 % slower.
+//   - float4 stores evict-first (st.global.cs): nothing rereads the output (0.3-0.8 % faster
+//     there); scalar stores plain (evict-first lost 0.8-2.6 %).
 //   - 32-bit offsets where k * n is below 2^31 - 4096; a 64-bit form beyond.
 
 #include <cuda_runtime.h>
@@ -112,9 +112,7 @@ constexpr int kMaxScales = 8;
 constexpr int kUnroll = 4;                   // units of a row a thread takes at once
 constexpr int kMaxGridY = 65535;
 constexpr long long kLimit32 = (1LL << 31) - 4096;  // the 32-bit forms' offsets stay below
-constexpr int kCatMaxThreads = 512;          // a concat block: 128, 256 or 512 threads
-constexpr int kCatSmallThreads = 128;        // where 256 a block leave SMs idle
-constexpr long long kCatSplitUnits = 1 << 16;  // split the scales over blockIdx.y up to here
+constexpr int kCatThreads = 256;             // a concat block
 
 struct Scales {
   float v[kMaxScales];
@@ -615,90 +613,56 @@ __device__ __forceinline__ float4 mul(float4 v, float f) {
   return make_float4(__fmul_rn(v.x, f), __fmul_rn(v.y, f), __fmul_rn(v.z, f), __fmul_rn(v.w, f));
 }
 
-// A store of the concat's output.
-template <typename T>
-__device__ __forceinline__ void put(T* p, T v) { *p = v; }
+// The concat's stores: float4s evict-first, scalars plain (see the head of this file).
+__device__ __forceinline__ void put(float4* p, float4 v) { __stcs(p, v); }
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
 
 template <typename I>
 struct Cat {
-  I units;        // x's units of W floats, a segment of out
-  int k, unroll;  // scales; units a thread takes at once: 1 or kUnroll
-  int split;      // 1: blockIdx.y is the one scale a block stores
+  I units;  // x's units of W floats, a segment of out
+  int k;    // scales
   Scales s;
 };
 
 // out = concat([x * s_0, ..., x * s_{k-1}]) in units of W floats (see the head of this file).
 template <typename I, int W>
-__global__ void __launch_bounds__(kCatMaxThreads)
+__global__ void __launch_bounds__(kCatThreads)
 concat_scaled_kernel(const float* __restrict__ x, float* __restrict__ out,
                      const __grid_constant__ Cat<I> a) {
   using U = typename std::make_unsigned<I>::type;  // offsets: wrap is defined past the end
   using T = typename Vec<W>::T;
-  const T* xs = reinterpret_cast<const T*>(x);
+  const U units = (U)a.units, j = (U)blockIdx.x * kCatThreads + threadIdx.x;
+  if (j >= units) return;
+  const T v = __ldg(reinterpret_cast<const T*>(x) + j);
   T* os = reinterpret_cast<T*>(out);
-  const U units = (U)a.units, per = blockDim.x, step = (U)gridDim.x * per * (U)a.unroll;
-  // the scales this block stores: all k, or under split the one blockIdx.y picks
-  const int ns = a.split ? 1 : a.k;
-  float f0 = a.s.v[0];
-  if (a.split) {
+  U o = j;  // this thread's unit in segment s
 #pragma unroll
-    for (int s = 1; s < kMaxScales; ++s) {
-      if (s == (int)blockIdx.y) f0 = a.s.v[s];
-    }
-  }
-  const U first = a.split ? (U)blockIdx.y * units : 0;  // the first segment's offset
-  for (U j0 = (U)blockIdx.x * per * (U)a.unroll + threadIdx.x; j0 < units; j0 += step) {
-    T v[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const U j = j0 + u * per;
-      if (u < a.unroll && j < units) v[u] = __ldg(xs + j);
-    }
-    U o = first + j0;
-#pragma unroll
-    for (int s = 0; s < kMaxScales; ++s) {
-      if (s == ns) break;
-      const float f = s == 0 ? f0 : a.s.v[s];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const U j = j0 + u * per;
-        if (u < a.unroll && j < units) put(os + (o + u * per), mul(v[u], f));
-      }
-      o += units;
-    }
+  for (int s = 0; s < kMaxScales; ++s) {
+    if (s == a.k) break;
+    put(os + o, mul(v, a.s.v[s]));
+    o += units;
   }
 }
 
 // The plan of a concat (see the head of this file).
 struct CatPlan {
-  int width, wide;      // floats a unit (4 or 1); 64-bit offsets
-  int threads, unroll;  // a block; units a thread takes at once
-  int grid, split;      // blocks (gridDim.x); 1: the scales over blockIdx.y
+  int width, wide;  // floats a unit (4 or 1); 64-bit offsets
+  int grid;         // blocks of kCatThreads, a thread a unit
 };
 
 CatPlan concat_plan(long long n, int k, const float* x) {
   CatPlan p = {};
   p.width = n % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 ? 4 : 1;
   p.wide = (long long)k * n > kLimit32;
-  const long long units = n / p.width;
-  p.split = k > 1 && units <= kCatSplitUnits;
-  p.threads = cdiv(units, kThreads) * (p.split ? k : 1) < kSMs ? kCatSmallThreads : kThreads;
-  p.unroll = cdiv(units, p.threads) > kMaxBlocks ? kUnroll : 1;
-  const long long chunks = cdiv(units, (long long)p.threads * p.unroll);
-  p.grid = (int)(chunks < kMaxBlocks ? chunks : kMaxBlocks);
+  p.grid = (int)cdiv(n / p.width, kCatThreads);
   return p;
 }
 
-bool differs(const CatPlan& p, const CatPlan& q) {
-  return p.width != q.width || p.wide != q.wide || p.threads != q.threads ||
-         p.unroll != q.unroll || p.grid != q.grid || p.split != q.split;
-}
-
 template <typename I, int W>
-void launch_concat(const float* x, float* out, long long n, int k, const Scales& s,
-                   const CatPlan& p, cudaStream_t stream) {
-  const Cat<I> a = {(I)(n / W), k, p.unroll, p.split, s};
-  concat_scaled_kernel<I, W><<<dim3(p.grid, p.split ? k : 1), p.threads, 0, stream>>>(x, out, a);
+void launch_concat(const float* x, float* out, long long n, int k, const Scales& s, int grid,
+                   cudaStream_t stream) {
+  const Cat<I> a = {(I)(n / W), k, s};
+  concat_scaled_kernel<I, W><<<grid, kCatThreads, 0, stream>>>(x, out, a);
 }
 
 }  // namespace
@@ -772,24 +736,23 @@ extern "C" int dfd_transpose(const float* x, float* out, long long rows, long lo
   return (int)cudaGetLastError();
 }
 
-// width .. split: the plan of relayout.py::concat_plan, refused unless it is concat_plan's.
+// width .. grid: the plan of relayout.py::concat_plan, refused unless it is concat_plan's.
 extern "C" int dfd_concat_scaled(const float* x, float* out, long long n, const float* scales,
-                                 int n_scales, int width, int wide, int threads, int unroll,
-                                 int grid, int split, void* stream) {
+                                 int n_scales, int width, int wide, int grid, void* stream) {
   if (n <= 0 || n_scales <= 0 || n_scales > kMaxScales) return (int)cudaErrorInvalidValue;
   const CatPlan p = concat_plan(n, n_scales, x);
-  const CatPlan q = {width, wide, threads, unroll, grid, split};
-  if (differs(p, q) || (width == 4 && reinterpret_cast<uintptr_t>(out) % 16 != 0))
+  if (p.width != width || p.wide != wide || p.grid != grid ||
+      (width == 4 && reinterpret_cast<uintptr_t>(out) % 16 != 0))
     return (int)cudaErrorInvalidValue;
   Scales s{};
   for (int k = 0; k < n_scales; ++k) s.v[k] = scales[k];  // host memory
   const cudaStream_t st = (cudaStream_t)stream;
   if (wide) {
-    if (width == 4) launch_concat<long long, 4>(x, out, n, n_scales, s, q, st);
-    else launch_concat<long long, 1>(x, out, n, n_scales, s, q, st);
+    if (width == 4) launch_concat<long long, 4>(x, out, n, n_scales, s, grid, st);
+    else launch_concat<long long, 1>(x, out, n, n_scales, s, grid, st);
   } else {
-    if (width == 4) launch_concat<int, 4>(x, out, n, n_scales, s, q, st);
-    else launch_concat<int, 1>(x, out, n, n_scales, s, q, st);
+    if (width == 4) launch_concat<int, 4>(x, out, n, n_scales, s, grid, st);
+    else launch_concat<int, 1>(x, out, n, n_scales, s, grid, st);
   }
   return (int)cudaGetLastError();
 }

@@ -22,9 +22,9 @@ Each checks what its kernel needs (float32 ``x``, contiguous where the kernel
 reads it so: all but the strided copy; int32 ``idx``) before it branches, so
 the CPU refuses, with the same ``ValueError``, what the card refuses; the
 plain versions take anything PyTorch takes.  Every output is bit-exact
-against the plain version.  ``launches`` on each
-wrapper counts kernel launches.  What bounds them on an H100 is bytes: each
-input read once and each output written once, at 3.35 TB/s.
+against the plain version.  ``launches`` on each wrapper counts kernel
+launches.  What bounds them on an H100 is bytes: each input read once and
+each output written once, at 3.35 TB/s.
 
 The roll and the strided copy run one kernel body over the copy seen as rows
 (:func:`rows_plan`): a strided view is collapsed first, so a contiguous view
@@ -37,11 +37,10 @@ strides through a two-stage ring in shared memory, with 16-byte loads and
 float4 stores where rows are aligned; the gather (:func:`gather_cols_plan`)
 gives each thread a fixed unit of output columns, its indices read once, and
 walks rows.  The concat (:func:`concat_plan`) reads x once: each thread
-loads its units of x (float4s where ``n % 4 == 0`` and x is aligned) and
-stores the k products of each, one to each segment of the output, which
-moves exactly the bytes of the bound; at small sizes the scales may go over
-a grid dimension instead.  The C entries recompute each plan and refuse one
-that differs.
+loads its unit of x (a float4 where ``n % 4 == 0`` and x is aligned, else
+one element) and stores its k products, one to each segment of the output,
+which moves exactly the bytes of the bound.  The C entries recompute each
+plan and refuse one that differs.
 An empty input gives its empty output without a launch.  :func:`empty`
 launches an empty kernel: the card's cost of a launch.
 """
@@ -65,8 +64,7 @@ LIMIT32 = 2 ** 31 - 4096     # 32-bit offsets below this
 SMS = 132
 TR_AREA = 4096               # transpose tiles: elements
 TR_SMALL = (64, 16)          # the tile where TR_AREA's leave fewer than two an SM
-CAT_SMALL_THREADS = 128      # a concat block where THREADS a block leave SMs idle
-CAT_SPLIT_UNITS = 2 ** 16    # the concat splits its scales over blockIdx.y up to here
+CAT_THREADS = 256            # a concat block
 
 
 # -- plain PyTorch versions ------------------------------------------------------------
@@ -283,39 +281,26 @@ def transpose_plan(x_addr: int, rows: int, cols: int) -> TransposePlan:
 class ConcatPlan(NamedTuple):
     """How the concat kernel runs (``csrc/relayout.cu::concat_plan``, which
     this mirrors, its fields in the C entry's argument order): each thread
-    owns units of ``width`` elements of x, loads ``unroll`` of them
-    ``threads`` apart and stores each one's k products; blocks walk chunks of
-    ``threads * unroll`` units in grid strides."""
+    of a block of ``CAT_THREADS`` owns one unit of ``width`` elements of x,
+    loads it and stores its k products; the grid has a thread a unit."""
 
     width: int       # 4: float4 units (n % 4 == 0, x 16-byte aligned); else 1
     wide: int        # 64-bit offsets: k * n passes LIMIT32
-    threads: int     # a block: THREADS, or CAT_SMALL_THREADS where that leaves SMs idle
-    unroll: int      # units a thread takes at once: 1, or UNROLL where the card is full
-    grid: int        # blocks (gridDim.x), at most MAX_BLOCKS
-    split: int       # 1: blockIdx.y is the one scale a block stores (x in L2)
+    grid: int        # blocks (gridDim.x)
 
     @property
     def route(self) -> str:
-        """"vector" (float4 loads and stores) or "scalar"; "split" where the
-        scales go over blockIdx.y; 32- or 64-bit offsets."""
-        return (f"{'vector' if self.width == 4 else 'scalar'}"
-                f"{', split' if self.split else ''}, {64 if self.wide else 32}-bit")
+        """"vector" (float4 loads and stores) or "scalar"; 32- or 64-bit offsets."""
+        return f"{'vector' if self.width == 4 else 'scalar'}, {64 if self.wide else 32}-bit"
 
 
 def concat_plan(x_addr: int, n: int, k: int) -> ConcatPlan:
     """The plan of ``concat([x * s_0, ..., x * s_{k-1}])`` for a contiguous
     x of ``n`` elements at ``x_addr``: float4 units where ``n % 4 == 0`` and
-    x is 16-byte aligned; the scales over blockIdx.y where x has at most
-    ``CAT_SPLIT_UNITS`` units; one unit a thread where that needs at most
-    ``MAX_BLOCKS`` blocks (``CAT_SMALL_THREADS`` a block where ``THREADS``
-    would leave SMs idle), else ``UNROLL`` at once over ``MAX_BLOCKS``."""
+    x is 16-byte aligned, else scalars; 64-bit offsets where ``k * n``
+    passes ``LIMIT32``; a thread a unit."""
     width = 4 if n % 4 == 0 and x_addr % 16 == 0 else 1
-    units = n // width
-    split = int(k > 1 and units <= CAT_SPLIT_UNITS)
-    threads = CAT_SMALL_THREADS if _cdiv(units, THREADS) * (k if split else 1) < SMS else THREADS
-    unroll = UNROLL if _cdiv(units, threads) > MAX_BLOCKS else 1
-    return ConcatPlan(width, int(k * n > LIMIT32), threads, unroll,
-                      min(_cdiv(units, threads * unroll), MAX_BLOCKS), split)
+    return ConcatPlan(width, int(k * n > LIMIT32), _cdiv(n // width, CAT_THREADS))
 
 
 # -- the kernels -----------------------------------------------------------------------
@@ -348,7 +333,7 @@ def _kernels() -> ctypes.CDLL:
         ("dfd_empty", [vp]),
         ("dfd_gather_cols", [vp, vp, vp, i64, i64, i64] + [i32] * 4 + [i64, i32, vp]),
         ("dfd_transpose", [vp, vp, i64, i64] + [i32] * 6 + [vp]),
-        ("dfd_concat_scaled", [vp, vp, i64, vp] + [i32] * 7 + [vp]),
+        ("dfd_concat_scaled", [vp, vp, i64, vp] + [i32] * 4 + [vp]),
     ):
         fn = getattr(lib, name)
         fn.argtypes = args

@@ -12,8 +12,8 @@ the strided slices ``x[::2, :]``, ``x[:, ::2]`` and ``x3[:, ::2, :]`` of
 row concat ``[x, 2x, 3x]``; each is held bit-exact to its PyTorch expression,
 which is also the library call timed beside it, but for the concat: its
 PyTorch expression is ``torch.cat`` of three products, and its library call
-is one broadcasting multiply (:func:`concat_library`).  The seven product shapes
-(stage-0 and stage-1 res convs as im2col or split products, big dimension
+is one broadcasting multiply (:func:`concat_library`).  The seven product
+shapes (stage-0 and stage-1 res convs as im2col or split products, big dimension
 in M or in N, and the 3-channel feature conv) run as
 :func:`dfd_tpu_torch.ops.gemm_chain.gemm_chain` chains of 256 products
 summed as ``acc + y / 256`` (mode ``acc_scaled``), on ``RandomState(0)``

@@ -522,8 +522,8 @@ def test_relayout_kernels_are_exact(cuda):
             assert torch.equal(got.isnan(), want.isnan()) and torch.equal(
                 got.nan_to_num(), want.nan_to_num()), (R, C, n, off)
     assert routes == {(f"{w} stores, 32-bit", u) for w in ("float4", "scalar") for u in (1, 4)}
-    # every route of the concat: k = 1 to 8, float4 and scalar units (x.view(-1)[1:], ragged
-    # n), split and not, one unit a thread or UNROLL in grid strides, 1-D and 3-D x
+    # every route of the concat: k = 1, 3 and 8, float4 and scalar units (x.view(-1)[1:],
+    # ragged n, a last block part-filled), 1-D and 3-D x
     routes = set()
     for shape in ((1,), (5,), (4096,), (131071,), (128, 1024), (7, 130), (3, 5, 7),
                   (33, 64, 64), (300, 1024), (2 ** 20, 3), (1025, 4096)):
@@ -532,11 +532,10 @@ def test_relayout_kernels_are_exact(cuda):
             for k in (1, 3, 8):
                 scales = [0.5 * i - 1.25 for i in range(k)]
                 p = rl.concat_plan(x.data_ptr(), x.numel(), k)
-                routes.add((p.route, p.unroll))
+                routes.add(p.route)
                 assert torch.equal(rl.concat_scaled(x, scales),
                                    torch.cat([x * s for s in scales])), (shape, k, p)
-    assert routes == {(f"{w}{split}, 32-bit", u) for w in ("vector", "scalar")
-                      for split, u in ((", split", 1), ("", 1), ("", 4))}, routes
+    assert routes == {"vector, 32-bit", "scalar, 32-bit"}, routes
     # empty inputs: empty outputs, no launch
     before = [k.launches for k in rl.KERNELS]
     x = torch.randn(4, 5, device=cuda)

@@ -450,19 +450,18 @@ def test_cpu_wrappers_give_empty_outputs_for_empty_inputs():
 PN = PR * PL              # the production x, flat: 34,078,720 floats
 
 
-@pytest.mark.parametrize("x_addr, n, k, route, threads, unroll, grid", [
-    (0, R * L, 3, "vector, split, 32-bit", 256, 1, 128),          # the probe's x [128, 1024]
-    (0, PN, 3, "vector, 32-bit", 256, 4, 2112),                   # x [33280, 1024], k = 3
-    (0, PN, 8, "vector, 32-bit", 256, 4, 2112),                   # k = MAX_SCALES
-    (4, PN - 1, 3, "scalar, 32-bit", 256, 4, 2112),               # x.view(-1)[1:]
-    (0, 2 ** 28 + 4, 8, "vector, 64-bit", 256, 4, 2112),          # k * n past LIMIT32
-    (0, 8192, 1, "vector, 32-bit", 128, 1, 16),                   # one scale: no split
-    (0, 8192, 2, "vector, split, 32-bit", 128, 1, 16),
-    (0, 5, 3, "scalar, split, 32-bit", 128, 1, 1),
+@pytest.mark.parametrize("x_addr, n, k, route, grid", [
+    (0, R * L, 3, "vector, 32-bit", 128),          # the probe's x [128, 1024]
+    (0, PN, 3, "vector, 32-bit", 33280),           # x [33280, 1024], k = 3
+    (0, PN, 8, "vector, 32-bit", 33280),           # k = MAX_SCALES
+    (4, PN - 1, 3, "scalar, 32-bit", 133120),      # x.view(-1)[1:]
+    (0, 2 ** 28 + 4, 8, "vector, 64-bit", 262145),  # k * n past LIMIT32
+    (0, 2 ** 28 + 3, 8, "scalar, 64-bit", 1048577),
+    (0, 5, 3, "scalar, 32-bit", 1),
 ])
-def test_concat_routes(x_addr, n, k, route, threads, unroll, grid):
+def test_concat_routes(x_addr, n, k, route, grid):
     p = rl.concat_plan(x_addr, n, k)
-    assert (p.route, p.threads, p.unroll, p.grid) == (route, threads, unroll, grid), p
+    assert (p.route, p.grid) == (route, grid), p
 
 
 def test_concat_takes_the_vector_route_exactly_where_x_is_aligned_in_float4s():
@@ -471,61 +470,42 @@ def test_concat_takes_the_vector_route_exactly_where_x_is_aligned_in_float4s():
             for k in (1, 3, 8):
                 p = rl.concat_plan(x_addr, n, k)
                 assert p.width == (4 if n % 4 == 0 and x_addr % 16 == 0 else 1), (n, x_addr, k)
+    assert rl.concat_plan(0, rl.LIMIT32 // 8, 8).wide == 0
+    assert rl.concat_plan(0, rl.LIMIT32 // 8 + 1, 8).wide == 1
 
 
 def _check_concat(p: rl.ConcatPlan, n: int, k: int):
     """Follows ``concat_scaled_kernel`` step by step in its unsigned offsets,
-    in units of ``p.width`` floats: thread t of block (bx, by) starts at unit
-    ``bx * threads * unroll + t``, takes ``unroll`` units ``threads`` apart,
-    stores each to its segments (all k, or under split the one ``by``
-    picks), a segment's offset the last one's plus ``units``, and moves on in
-    grid strides.  Asserts that each store goes to the segment of its scale
-    at its source unit's place, and that every output unit is stored once."""
+    in units of ``p.width`` floats: thread t of block b takes unit ``j = b *
+    CAT_THREADS + t`` (if ``j < units``) and stores it to every segment, a
+    segment's offset the last one's plus ``units``.  Asserts that each
+    store goes to the segment of its scale at its source unit's place, and
+    that every output unit is stored once."""
     with np.errstate(over="ignore"):
         U = np.uint64 if p.wide else np.uint32
-        units = n // p.width
+        units, T = n // p.width, rl.CAT_THREADS
         assert p.width == 1 or n % 4 == 0
-        per, step = U(p.threads), U(p.grid * p.threads * p.unroll)
+        b, t = (a.ravel() for a in np.meshgrid(np.arange(p.grid), np.arange(T), indexing="ij"))
+        j = b.astype(U) * U(T) + t.astype(U)
+        j = j[j < U(units)]
         seen = np.zeros((k, units), bool)
-        stores = 0
-        bx, t = (a.ravel() for a in np.meshgrid(np.arange(p.grid), np.arange(p.threads),
-                                                 indexing="ij"))
-        for by in range(k if p.split else 1):
-            s0, ns = (by, 1) if p.split else (0, k)
-            first = U(by) * U(units) if p.split else U(0)
-            j0 = (bx * p.threads * p.unroll + t).astype(U)
-            while True:
-                j0 = j0[j0 < U(units)]
-                if not j0.size:
-                    break
-                o = first + j0
-                for s in range(ns):
-                    for u in range(p.unroll):
-                        j = j0 + U(u) * per
-                        ok = j < U(units)
-                        out, src = (o + U(u) * per)[ok], j[ok]
-                        assert np.array_equal(out, U(s0 + s) * U(units) + src), (p, s0 + s)
-                        seen[s0 + s, src.astype(np.int64)] = True
-                        stores += src.size
-                    o = o + U(units)
-                j0 = j0 + step
-        assert stores == k * units and seen.all(), p
+        o = j
+        for s in range(k):
+            assert np.array_equal(o, U(s) * U(units) + j), (p, s)
+            seen[s, j.astype(np.int64)] = True
+            o = o + U(units)
+        assert k * j.size == k * units and seen.all(), p
+        assert (p.grid - 1) * T < units  # no block without work
 
 
 @pytest.mark.parametrize("k", range(1, rl.MAX_SCALES + 1))
-def test_concat_plans_write_each_output_once(k, monkeypatch):
-    """Ragged n (1, 3, 5, 4m +- 1) and aligned ones at x addresses off 16
-    bytes and on them; then the same with 2 SMs, a grid of at most 4 blocks
-    and a split up to 64 units, so blocks loop in grid strides and threads
-    take UNROLL units."""
-    for sms, max_blocks, split in ((rl.SMS, rl.MAX_BLOCKS, rl.CAT_SPLIT_UNITS), (2, 4, 64)):
-        monkeypatch.setattr(rl, "SMS", sms)
-        monkeypatch.setattr(rl, "MAX_BLOCKS", max_blocks)
-        monkeypatch.setattr(rl, "CAT_SPLIT_UNITS", split)
-        for n in (1, 3, 4, 5, 7, 8, 9, 63, 64, 65, 255, 256, 257, 1023, 1024, 1025, 4096, 5000):
-            for x_addr in (0, 4, 12):
-                _check_concat(rl.concat_plan(x_addr, n, k), n, k)
-        assert max_blocks == rl.MAX_BLOCKS or rl.concat_plan(0, 5000, k).unroll == rl.UNROLL
+def test_concat_plans_write_each_output_once(k):
+    """Ragged n (1, 3, 5, 4m +- 1) and aligned ones, at x addresses off 16
+    bytes and on them."""
+    for n in (1, 3, 4, 5, 7, 8, 9, 63, 64, 65, 255, 256, 257, 511, 512, 513, 1023, 1024, 1025,
+              2047, 2048, 2049, 4096, 5000, 131071, 131072):
+        for x_addr in (0, 4, 12):
+            _check_concat(rl.concat_plan(x_addr, n, k), n, k)
 
 
 @pytest.mark.parametrize("x_addr, n, k", [(0, R * L, 3), (0, PN, 3), (0, PN, 8),
@@ -537,11 +517,8 @@ def test_concat_plans_at_the_probe_and_production_sizes(x_addr, n, k):
 
 def test_concat_wide_plans_emulate_with_a_lowered_limit(monkeypatch):
     """The 64-bit forms' arithmetic at a small size: LIMIT32 lowered to 100
-    sends these to the 64-bit route, some with grid-stride loops (a grid of
-    at most 4 blocks) and some split (up to 64 units)."""
+    sends these to the 64-bit route."""
     monkeypatch.setattr(rl, "LIMIT32", 100)
-    monkeypatch.setattr(rl, "MAX_BLOCKS", 4)
-    monkeypatch.setattr(rl, "CAT_SPLIT_UNITS", 64)
     routes = set()
     for n, x_addr, k in ((1024, 0, 1), (1028, 4, 3), (4096, 0, 8), (3001, 0, 2), (200, 0, 6),
                          (45, 0, 3)):
@@ -549,8 +526,7 @@ def test_concat_wide_plans_emulate_with_a_lowered_limit(monkeypatch):
         assert p.wide == 1
         routes.add(p.route)
         _check_concat(p, n, k)
-    assert routes == {"vector, 64-bit", "scalar, 64-bit", "vector, split, 64-bit",
-                      "scalar, split, 64-bit"}, routes
+    assert routes == {"vector, 64-bit", "scalar, 64-bit"}, routes
 
 
 def test_concat_plain_and_one_broadcasting_multiply_agree_bit_for_bit():

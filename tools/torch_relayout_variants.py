@@ -4,11 +4,10 @@ of ``dfd_tpu_torch/ops/csrc/relayout.cu`` at the probes' and production sizes.
     python3 tools/torch_relayout_variants.py [--kernels transpose concat] [--out FILE]
 
 Builds copies of this checkout's ``relayout.cu`` with the same ``nvcc``
-flags as ``dfd_tpu_torch/ops/build.py``, into ``build/relayout_variants/``,
-each with the transpose's and the concat's refusal of another plan taken
-out of their entries' text, so that they run the plan they are given
+flags as ``dfd_tpu_torch/ops/build.py``, into ``build/relayout_variants/``
 (``--kernels`` picks the kernels timed, both by default, and only their
-copies are built):
+copies are built).  For the transpose, each with the entry's refusal of
+another plan taken out of its text, so that it runs the plan it is given:
 
 - ``anyplan``: the kernel as it is;
 - ``one stage``: the ring cut to one stage: a tile's loads are issued after
@@ -20,9 +19,16 @@ copies are built):
   tensor map from ``cuTensorMapEncodeTiled``, reached through
   ``cudaGetDriverEntryPoint``), the same two-stage ring and float4 stores;
   its tiles are 32 columns wide (the swizzle's span), ``tr`` rows (128, or
-  x's rows where fewer), its grid as the kernel's (at most ``MAX_BLOCKS``);
-- ``evict-first``: the concat's stores as ``st.global.cs`` (``__stcs``),
-  evict-first in the caches, since nothing rereads the output.
+  x's rows where fewer), its grid as the kernel's (at most ``MAX_BLOCKS``).
+
+For the concat, each with one choice of its design changed in the text
+(the copy's own plan, which its entry enforces, follows from it):
+
+- ``swapped stores``: the float4 stores plain and the scalar ones
+  evict-first (``__stcs``), the kernel's choice the other way round;
+- ``128 threads``, ``512 threads``: blocks of that size, not 256;
+- ``2 units``, ``4 units``: that many units a thread, ``kCatThreads``
+  apart, all loaded before any store, not one.
 
 Then each production transpose of ``x [33280, 1024]`` f32 (136 MB; seen as
 ``[33280, 1024]``, ``[64, 532480]``, ``[532480, 64]``, ``[16, 2129920]``,
@@ -41,14 +47,10 @@ tile a block, in eight rounds.
 The concat's cases: ``x [33280, 1024]`` by 3 and by 8 scales, the ragged
 ``x.view(-1)[1:]`` by 3 (four rounds), and the probe's ``x [128, 1024]``
 by 3 (eight rounds), each held bit for bit to ``torch.cat`` of the k
-products and timed: the wrapper (the plan ``concat_plan`` picks),
-``evict-first`` at that plan, ``anyplan`` at 128, 256 and 512 threads a
-block and 1, 2 or 4 units a thread (the grid every chunk a block, at most
-``MAX_BLOCKS`` where a thread takes more than one unit), at grids of 528
-to 4224 blocks, and at the probe's size with and without the scales over
-``blockIdx.y``; beside them the plain ``torch.cat`` and one broadcasting
-multiply (``probes/torso.py::concat_library``).  Prints one line a case
-and writes them as JSON to ``--out``.
+products and timed: the wrapper and every copy above, beside the plain
+``torch.cat`` and one broadcasting multiply
+(``probes/torso.py::concat_library``).  Prints one line a case and writes
+them as JSON to ``--out``.
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -81,7 +84,60 @@ PROBE_TILES = ((16, 16), (16, 64), (32, 32), (64, 16), (16, 256), (64, 64), (256
 CONCATS = (("x [33280, 1024] k=3", SHAPE, 3, False, 4), ("x [33280, 1024] k=8", SHAPE, 8, False, 4),
            ("x.view(-1)[1:] of [33280, 1024] k=3", SHAPE, 3, True, 4),
            ("probe x [128, 1024] k=3", (128, 1024), 3, False, 8))
-PUT = "__device__ __forceinline__ void put(T* p, T v) { *p = v; }"
+PUTS = ("void put(float4* p, float4 v) { __stcs(p, v); }",
+        "void put(float* p, float v) { *p = v; }")
+CAT_THREADS = "constexpr int kCatThreads = 256;"
+# the kernel's body and plan, one unit a thread, and the same with V units a thread
+CAT_BODY = """  const U units = (U)a.units, j = (U)blockIdx.x * kCatThreads + threadIdx.x;
+  if (j >= units) return;
+  const T v = __ldg(reinterpret_cast<const T*>(x) + j);
+  T* os = reinterpret_cast<T*>(out);
+  U o = j;  // this thread's unit in segment s
+#pragma unroll
+  for (int s = 0; s < kMaxScales; ++s) {
+    if (s == a.k) break;
+    put(os + o, mul(v, a.s.v[s]));
+    o += units;
+  }
+"""
+CAT_BODY_UNITS = """  constexpr int V = UNITS;
+  const U units = (U)a.units, j0 = (U)blockIdx.x * (kCatThreads * V) + threadIdx.x;
+  const T* xs = reinterpret_cast<const T*>(x);
+  T* os = reinterpret_cast<T*>(out);
+  T v[V];
+#pragma unroll
+  for (int u = 0; u < V; ++u) {
+    if (j0 + u * kCatThreads < units) v[u] = __ldg(xs + (j0 + u * kCatThreads));
+  }
+  U o = j0;
+#pragma unroll
+  for (int s = 0; s < kMaxScales; ++s) {
+    if (s == a.k) break;
+#pragma unroll
+    for (int u = 0; u < V; ++u) {
+      if (j0 + u * kCatThreads < units) put(os + (o + u * kCatThreads), mul(v[u], a.s.v[s]));
+    }
+    o += units;
+  }
+"""
+CAT_GRID = "p.grid = (int)cdiv(n / p.width, kCatThreads);"
+
+
+def cat_units(units: int) -> tuple:
+    """The replacements that give each concat thread ``units`` units."""
+    return ((CAT_BODY, CAT_BODY_UNITS.replace("UNITS", str(units))),
+            (CAT_GRID, CAT_GRID.replace("kCatThreads)", f"kCatThreads * {units})")))
+
+
+# the concat's copies: (name, replacements, threads a block, units a thread)
+CAT_COPIES = (
+    ("swapped stores", ((PUTS[0], PUTS[0].replace("__stcs(p, v);", "*p = v;")),
+                        (PUTS[1], PUTS[1].replace("*p = v;", "__stcs(p, v);"))), 256, 1),
+    ("128 threads", ((CAT_THREADS, CAT_THREADS.replace("256", "128")),), 128, 1),
+    ("512 threads", ((CAT_THREADS, CAT_THREADS.replace("256", "512")),), 512, 1),
+    ("2 units", cat_units(2), 256, 2),
+    ("4 units", cat_units(4), 256, 4),
+)
 
 PLAN_CHECK = "if (differs(p, q) ||"
 RING = """    if (more) load_tile<I, VL>(x, ring + (s ^ 1) * units, a, ni, nj);
@@ -235,24 +291,26 @@ extern "C" int dfd_transpose_tma(const float* x, float* out, long long rows, lon
 def build_variants(kernels) -> dict:
     """The copies of relayout.cu that ``kernels`` time, compiled together."""
     src = (ROOT / "dfd_tpu_torch" / "ops" / "csrc" / "relayout.cu").read_text()
-    for part in (PLAN_CHECK, RING, RING_END, PUT):
+    for part in (PLAN_CHECK, RING, RING_END, CAT_THREADS, CAT_BODY, CAT_GRID) + PUTS:
         if part not in src:
             raise RuntimeError(f"relayout.cu no longer holds {part!r}")
-    if src.count(PLAN_CHECK) != 2:
-        raise RuntimeError("relayout.cu's transpose and concat entries no longer check "
-                           f"their plans as {PLAN_CHECK!r}")
-    anyplan = src.replace(PLAN_CHECK, "if (false ||")
-    sources = {"anyplan": anyplan}
+    sources = {}
     if "transpose" in kernels:
+        anyplan = src.replace(PLAN_CHECK, "if (false ||")
+        sources["anyplan"] = anyplan
         sources["one stage"] = anyplan.replace(RING, ONE_STAGE).replace(RING_END, ONE_STAGE_END)
         sources["tma"] = anyplan + TMA
     if "concat" in kernels:
-        sources["evict-first"] = anyplan.replace(PUT, PUT.replace("*p = v;", "__stcs(p, v);"))
+        for name, swaps, _, _ in CAT_COPIES:
+            text = src
+            for old, new in swaps:
+                text = text.replace(old, new)
+            sources[name] = text
     out_dir = ROOT / "build" / "relayout_variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, text in sources.items():
-        cu = out_dir / f"{name.replace(' ', '_')}.cu"
+        cu = out_dir / (re.sub(r"\W+", "_", name) + ".cu")
         cu.write_text(text)
         lib = cu.with_suffix(".so")
         cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib), str(cu)]
@@ -270,7 +328,7 @@ def build_variants(kernels) -> dict:
               flush=True)
         libs[name] = ctypes.CDLL(str(lib))
         libs[name].dfd_transpose.argtypes = [vp, vp, i64, i64] + [i32] * 6 + [vp]
-        libs[name].dfd_concat_scaled.argtypes = [vp, vp, i64, vp] + [i32] * 7 + [vp]
+        libs[name].dfd_concat_scaled.argtypes = [vp, vp, i64, vp] + [i32] * 4 + [vp]
     if "tma" in libs:
         libs["tma"].dfd_transpose_tma.argtypes = [vp, vp, i64, i64, i32, i32, vp]
     return libs
@@ -287,7 +345,7 @@ def timed_rounds(fns: dict, rounds: int, dev) -> dict:
 
 
 def concat_variants(libs: dict, card: str, dev) -> list:
-    """The concat's plans and variants at CONCATS (see the head of this file)."""
+    """The concat's copies at CONCATS (see the head of this file)."""
     stream = lambda: torch.cuda.current_stream().cuda_stream
     rows = []
     for name, shape, k, ragged, rounds in CONCATS:
@@ -300,27 +358,18 @@ def concat_variants(libs: dict, card: str, dev) -> list:
         want = rl.concat_scaled_plain(v, scales)
         out = torch.empty_like(want)
         p = rl.concat_plan(v.data_ptr(), n, k)
-        units = n // p.width
         bound_ms = 4.0 * n * (1 + k) / BYTES_RATE * 1e3
+        fns = {f"wrapper ({rl.CAT_THREADS} threads, a unit a thread, grid {p.grid})":
+               lambda: rl.concat_scaled(v, scales)}
+        for copy, _, threads, units in CAT_COPIES:
+            q = p._replace(grid=-(-(n // p.width) // (threads * units)))
 
-        def call(lib, plan):
-            build.raise_on(libs[lib].dfd_concat_scaled(v.data_ptr(), out.data_ptr(), n, host, k,
-                                                       *plan, stream()), lib)
-            return out
+            def call(copy=copy, q=q):
+                build.raise_on(libs[copy].dfd_concat_scaled(v.data_ptr(), out.data_ptr(), n,
+                                                            host, k, *q, stream()), copy)
+                return out
 
-        label = lambda q: (f"{q.threads} threads x {q.unroll} units, grid {q.grid}"
-                           f"{f' x {k} (split)' if q.split else ''}")
-        fns = {f"wrapper {label(p)}": lambda: rl.concat_scaled(v, scales),
-               f"evict-first {label(p)}": lambda: call("evict-first", p)}
-        plans = []
-        for threads in (128, 256, 512):
-            for unroll in (1, 2, 4):
-                chunks = -(-units // (threads * unroll))
-                for grid in (chunks, min(chunks, rl.MAX_BLOCKS)):
-                    plans.append(p._replace(threads=threads, unroll=unroll, grid=grid, split=0))
-        for q in dict.fromkeys(plans):
-            fns[f"anyplan {label(q)}"] = lambda q=q: call("anyplan", q)
-            fns[f"evict-first {label(q)}"] = lambda q=q: call("evict-first", q)
+            fns[f"{copy} (grid {q.grid})"] = call
         fns["torch.cat of k products"] = lambda: rl.concat_scaled_plain(v, scales)
         fns["one broadcasting multiply"] = lambda: concat_library(v, s)
         for key, f in fns.items():
@@ -328,13 +377,13 @@ def concat_variants(libs: dict, card: str, dev) -> list:
             assert torch.equal(f(), want), (name, key)
         del want
         times = timed_rounds(fns, rounds, dev)
-        print(f"variants: concat {name}, plan {p.route}, bytes bound {bound_ms:.4f} ms "
-              f"({card}):", flush=True)
+        print(f"variants: concat {name}, {p.route}, bytes bound {bound_ms:.4f} ms ({card}):",
+              flush=True)
         for key, t in times.items():
             mean = sum(t) / len(t)
             rows.append({"case": f"concat {name} {key}", "mean_ms": mean, "min_ms": min(t),
                          "max_ms": max(t), "share_of_bound": bound_ms / mean, "rounds_ms": t})
-            print(f"variants:   {key:>44}: mean {mean:.5f} ms ({bound_ms / mean:.3f} of the "
+            print(f"variants:   {key:>52}: mean {mean:.5f} ms ({bound_ms / mean:.3f} of the "
                   f"bound), rounds {min(t):.5f}-{max(t):.5f}", flush=True)
         del out, x, v
         torch.cuda.empty_cache()
