@@ -1,11 +1,11 @@
 """Typed training configuration, field for field the JAX package's.
 
 The same fields and defaults as ``dfd_tpu.config`` so that one config object
-drives both packages.  Fields that select paths the port has not reached yet
-(``noise_backend="jax"``, ``population_chunk``, ``envs_per_perturbation > 1``,
-``vbn_buffer_size > 0``, ``zeta_size == 0``) are accepted here and refused by
-the trainer with ``NotImplementedError``; ``e_lowering``, ``mesh_axes`` and
-``scan_unroll`` are XLA lowering choices the port does not read.
+drives both packages.  A field that selects a path the port has not reached
+yet (``vbn_buffer_size > 0``) is accepted here and refused by the trainer
+with ``NotImplementedError``; ``e_lowering``, ``mesh_axes`` and
+``scan_unroll`` are XLA lowering choices the port does not read (E > 1
+episodes are one rollout over M * E rows, whatever ``e_lowering`` says).
 """
 
 from __future__ import annotations

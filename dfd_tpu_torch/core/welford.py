@@ -66,7 +66,8 @@ def merge(a: WelfordState, b: WelfordState) -> WelfordState:
 
 
 def merge_population(states: WelfordState) -> WelfordState:
-    """Merge a population-stacked state (leading axis) into one.
+    """Merge a population-stacked state (leading axis) into one; further
+    batch axes are kept (``count`` [N, *B] merges into [*B]).
 
     The JAX package folds the members in one at a time (a ``lax.scan`` of
     :func:`merge`); on the card that would be thousands of launches.  This is
@@ -78,7 +79,7 @@ def merge_population(states: WelfordState) -> WelfordState:
     mean_i = states.mean.to(torch.float64)
     total = c.sum(dim=0)
     cw = _bc(c, mean_i)
-    mean = (cw * mean_i).sum(dim=0) / torch.clamp_min(total, 1.0)
+    mean = (cw * mean_i).sum(dim=0) / _bc(torch.clamp_min(total, 1.0), mean_i[0])
     m2 = states.m2.to(torch.float64).sum(dim=0) + (cw * (mean_i - mean) ** 2).sum(dim=0)
     return WelfordState(
         mean=mean.to(torch.float32), m2=m2.to(torch.float32), count=total.to(torch.float32)

@@ -1,11 +1,13 @@
 """Population rollouts — the hot path.
 
-All M population members step in lockstep: a Python loop over T timesteps,
-each step one batched policy forward over the members' own weights and one
-batched env transition.  This is ``dfd_tpu.fd.rollout.episode_rollout``
-(a ``lax.scan`` over T, vmapped over members) with the member axis written
-out.  Post-done steps are masked and the env state frozen after done;
-per-step entropy accumulates per member, and so do sampled Welford
+All M population members step in lockstep, each in E episodes: a Python
+loop over T timesteps, each step one batched policy forward over the
+members' own weights (E rows a member, the weights indexed, never copied)
+and one batched env transition over the M * E episodes.  This is
+``dfd_tpu.fd.rollout.episode_rollout`` (a ``lax.scan`` over T, vmapped over
+members and, for E > 1, episodes) with both axes written out.  Post-done
+steps are masked and the env state frozen after done; per-step entropy
+accumulates per episode, and so do sampled Welford
 observation statistics when ``normalize_obs`` is set.  Obs normalization is
 their only reader, so without it they are skipped, saving their launches on
 every step, and ``obs_stats`` stays empty; the JAX package computes them
@@ -17,9 +19,9 @@ package.  The weight layouts a forward derives from the weights alone are
 computed once per rollout (``model.prepare``).
 
 The randomness is passed in as draws instead of keys: ``action_gumbel``
-[M, T, A] (the Gumbel noise of the categorical sample), ``stats_uniform``
-[M, T] (the per-step coin of the sampled statistics) and ``reset_level``
-[M] (each episode's level, for envs with levels).
+[M, E, T, A] (the Gumbel noise of the categorical sample), ``stats_uniform``
+[M, E, T] (the per-step coin of the sampled statistics) and ``reset_level``
+[M, E] (each episode's level, for envs with levels).
 """
 
 from __future__ import annotations
@@ -34,12 +36,13 @@ from dfd_tpu_torch.models.base import PolicyModel
 
 
 class RolloutResult(NamedTuple):
-    reward: torch.Tensor                 # [M] episodic return (sum of rewards until done)
-    entropy: torch.Tensor                # [M] mean policy entropy over visited states
-    steps: torch.Tensor                  # [M] executed steps (<= T), int64
-    obs_stats: welford.WelfordState      # [M]-batched sampled observation statistics (empty
-                                         # unless normalize_obs)
+    reward: torch.Tensor                 # [M, E] episodic return (sum of rewards until done)
+    entropy: torch.Tensor                # [M, E] mean policy entropy over visited states
+    steps: torch.Tensor                  # [M, E] executed steps (<= T), int64
+    obs_stats: welford.WelfordState      # [M, E]-batched sampled observation statistics
+                                         # (empty unless normalize_obs)
     states: torch.Tensor                 # [M, collect_limit, *obs] first visited observations
+                                         # of episode 0
 
 
 def episode_rollout(
@@ -58,25 +61,28 @@ def episode_rollout(
     reset_level: torch.Tensor,
     collect_limit: int,
 ) -> RolloutResult:
-    """One full episode for each of the M members of ``params``.
+    """E full episodes for each of the M members of ``params`` (E is the
+    draws' second axis); ``deterministic`` [M] holds for a member's every
+    episode.
 
-    The first ``collect_limit`` observations of every member are kept (the
-    zeta refresh only reads the eval member's, reference
+    The first ``collect_limit`` observations of every member's episode 0
+    are kept (the zeta refresh only reads the eval member's, reference
     run_sequential.py:142-143)."""
-    M = deterministic.shape[0]
+    M, E = reset_level.shape
+    N = M * E
     dev = deterministic.device
+    obs_shape = tuple(env.obs_shape)
     params = model.prepare(params, bn_state)
-    env_state, obs = env.reset(M, reset_level)
-    prev_done = torch.zeros(M, dtype=torch.bool, device=dev)
-    prev_reward = torch.zeros(M, dtype=torch.float32, device=dev)
-    carry = model.initial_carry(M)
-    reward_acc = torch.zeros(M, dtype=torch.float32, device=dev)
-    ent_acc = torch.zeros(M, dtype=torch.float32, device=dev)
-    step_acc = torch.zeros(M, dtype=torch.int64, device=dev)
-    stats = welford.init(env.obs_shape, dev, batch=(M,))
-    state_buf = torch.zeros((M, collect_limit) + tuple(env.obs_shape), dtype=torch.float32,
-                            device=dev)
-    obs_bcast = (M,) + (1,) * len(env.obs_shape)
+    env_state, obs = env.reset(N, reset_level.reshape(N))
+    obs = obs.reshape((M, E) + obs_shape)
+    prev_done = torch.zeros((M, E), dtype=torch.bool, device=dev)
+    prev_reward = torch.zeros((M, E), dtype=torch.float32, device=dev)
+    carry = tuple(c.reshape((M, E) + c.shape[1:]) for c in model.initial_carry(N))
+    reward_acc = torch.zeros((M, E), dtype=torch.float32, device=dev)
+    ent_acc = torch.zeros((M, E), dtype=torch.float32, device=dev)
+    step_acc = torch.zeros((M, E), dtype=torch.int64, device=dev)
+    stats = welford.init(obs_shape, dev, batch=(M, E))
+    state_buf = torch.zeros((M, collect_limit) + obs_shape, dtype=torch.float32, device=dev)
 
     for t in range(horizon):
         raw_obs = obs
@@ -84,28 +90,31 @@ def episode_rollout(
             obs = torch.clamp((obs - obs_mean) / obs_std, -10, 10)
         action, step_entropy, new_carry = model.act_step(
             params, bn_state, obs, prev_reward, prev_done, carry, deterministic,
-            action_gumbel[:, t],
+            action_gumbel[:, :, t],
         )
-        new_env_state, new_obs, reward, step_done = env.step(env_state, action)
+        new_env_state, new_obs, reward, step_done = env.step(env_state, action.reshape(N))
+        new_obs = new_obs.reshape((M, E) + obs_shape)
+        reward, step_done = reward.reshape(M, E), step_done.reshape(M, E)
 
         active = ~prev_done
         af = active.to(torch.float32)
         if normalize_obs:
-            sample_mask = af * (stats_uniform[:, t] < obs_stats_update_chance).to(torch.float32)
-            stats = welford.update_batch(stats, raw_obs.unsqueeze(1), sample_mask.unsqueeze(1))
+            sample_mask = af * (stats_uniform[:, :, t] < obs_stats_update_chance).to(
+                torch.float32)
+            stats = welford.update_batch(stats, raw_obs.unsqueeze(2), sample_mask.unsqueeze(2))
         if t < collect_limit:
-            state_buf[:, t] = raw_obs
+            state_buf[:, t] = raw_obs[:, 0]
         reward_acc = reward_acc + af * reward
         ent_acc = ent_acc + af * step_entropy
         step_acc = step_acc + active.to(torch.int64)
 
         # freeze the env and the model carry once done (post-done
         # transitions are discarded)
-        env_state = type(env_state)(*_keep(prev_done, new_env_state, env_state))
+        env_state = type(env_state)(*_keep(prev_done.reshape(N), new_env_state, env_state))
         carry = tuple(_keep(prev_done, new_carry, carry))
-        # as in the JAX package, a done member carries the observation the
+        # as in the JAX package, a done episode carries the observation the
         # policy saw (normalized, when normalize_obs)
-        obs = torch.where(prev_done.reshape(obs_bcast), obs, new_obs)
+        obs = torch.where(prev_done.reshape((M, E) + (1,) * len(obs_shape)), obs, new_obs)
         if model.recurrent:  # its only reader
             prev_reward = torch.where(prev_done, prev_reward, reward.to(torch.float32))
         prev_done = prev_done | step_done
@@ -116,6 +125,7 @@ def episode_rollout(
 
 
 def _keep(done: torch.Tensor, new, old):
-    """Each of ``old`` where ``done`` [M] is set, else each of ``new``."""
-    return (torch.where(done.reshape(done.shape + (1,) * (o.ndim - 1)), o, n)
+    """Each of ``old`` where ``done`` (their leading axes) is set, else each
+    of ``new``."""
+    return (torch.where(done.reshape(done.shape + (1,) * (o.ndim - done.ndim)), o, n)
             for n, o in zip(new, old))

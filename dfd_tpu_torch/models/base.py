@@ -73,18 +73,21 @@ class PolicyModel(abc.ABC):
     def act_step(self, params: Params, state: State, obs: torch.Tensor,
                  prev_reward: torch.Tensor, prev_done: torch.Tensor, carry,
                  deterministic: torch.Tensor, gumbel: torch.Tensor):
-        """One acting step for every member: (action [M], entropy [M], carry).
+        """One acting step for each of E episodes of every member: (action
+        [M, E], entropy [M, E], carry).
 
-        ``obs`` [M, *obs]; ``prev_reward`` [M] the reward of the previous
-        step and ``prev_done`` [M] whether the episode is over (read by
+        ``obs`` [M, E, *obs], a member's E episodes forwarded through its
+        own weights; ``prev_reward`` [M, E] the reward of the previous step
+        and ``prev_done`` [M, E] whether the episode is over (read by
         recurrent models only); ``deterministic`` [M] bool picks the argmax;
-        otherwise the action is ``argmax(log(max(p, 1e-38)) + gumbel)``,
-        which is how ``jax.random.categorical`` samples, so feeding JAX's
-        Gumbel draws reproduces its actions.  This default serves
-        feed-forward models and returns ``carry`` as it came."""
+        otherwise the action is ``argmax(log(max(p, 1e-38)) + gumbel)``
+        (``gumbel`` [M, E, A]), which is how ``jax.random.categorical``
+        samples, so feeding JAX's Gumbel draws reproduces its actions.  This
+        default serves feed-forward models and returns ``carry`` as it
+        came."""
         if not self.discrete:
             raise NotImplementedError("continuous policies come with GaussianMLP")
-        probs = self.apply(params, state, obs.unsqueeze(1))[:, 0]
+        probs = self.apply(params, state, obs)
         action, entropy = sample_action(probs, deterministic, gumbel)
         return action, entropy, carry
 
@@ -97,8 +100,10 @@ class PolicyModel(abc.ABC):
 
 
 def sample_action(probs: torch.Tensor, deterministic: torch.Tensor, gumbel: torch.Tensor):
-    """(action [M], entropy [M]) from probs [M, A]: the argmax where
-    ``deterministic``, else the Gumbel-max sample of ``jax.random.categorical``."""
+    """(action [M, E], entropy [M, E]) from probs [M, E, A]: the argmax where
+    ``deterministic`` [M], else the Gumbel-max sample of
+    ``jax.random.categorical``."""
     greedy = probs.argmax(dim=-1)
     sampled = (torch.log(torch.clamp_min(probs, 1e-38)) + gumbel).argmax(dim=-1)
-    return torch.where(deterministic, greedy, sampled), layers.categorical_entropy(probs)
+    det = deterministic.reshape(deterministic.shape + (1,) * (greedy.ndim - deterministic.ndim))
+    return torch.where(det, greedy, sampled), layers.categorical_entropy(probs)

@@ -288,12 +288,18 @@ class ImpalaPolicy(PolicyModel):
         zero = lambda: torch.zeros((M, self.hidden), dtype=torch.float32, device=self.device)
         return (zero(), zero())
 
+    @staticmethod
+    def _core_input(feats: torch.Tensor, rewards: torch.Tensor) -> torch.Tensor:
+        """The core's input: feats [..., hidden] with the rewards [...]
+        clipped to [-1, 1] appended."""
+        clipped = torch.clamp(rewards, -1.0, 1.0).to(torch.float32)
+        return torch.cat([feats, clipped[..., None]], dim=-1)
+
     def _core(self, params, feats: torch.Tensor, rewards: torch.Tensor, carry):
         """LSTM over the time axis of feats [M, T, hidden] with the clipped
         rewards [M, T] appended; carry (h, c) [M, hidden].  Returns
         (core outputs [M, T, *], carry)."""
-        clipped = torch.clamp(rewards, -1.0, 1.0).to(torch.float32)
-        core_in = torch.cat([feats, clipped[..., None]], dim=-1)
+        core_in = self._core_input(feats, rewards)
         if not self.use_lstm:
             return core_in, carry
         h, c = (v[:, None] for v in carry)
@@ -304,12 +310,15 @@ class ImpalaPolicy(PolicyModel):
         return torch.cat(hs, dim=1), (h[:, 0], c[:, 0])
 
     def act_step(self, params, state, obs, prev_reward, prev_done, carry, deterministic, gumbel):
-        """One step of every member: obs [M, C, H, W], prev_reward [M] (the
-        LSTM reads it clipped), carry (h, c) [M, hidden]; ``prev_done`` is
-        not read (a done episode's carry is frozen by the rollout)."""
-        feat = self._torso(params, state, obs.unsqueeze(1))
-        core_out, carry = self._core(params, feat, prev_reward[:, None], carry)
-        probs = self._head(params, state, core_out)[:, 0]
+        """One step of E episodes of every member: obs [M, E, C, H, W] (a
+        member's episodes are the frames of its torso call), prev_reward
+        [M, E] (the LSTM reads it clipped), carry (h, c) [M, E, hidden];
+        ``prev_done`` is not read (a done episode's carry is frozen by the
+        rollout)."""
+        core_out = self._core_input(self._torso(params, state, obs), prev_reward)
+        if self.use_lstm:
+            core_out, carry = layers.lstm_step(params["lstm"], core_out, carry)
+        probs = self._head(params, state, core_out)
         action, entropy = sample_action(probs, deterministic, gumbel)
         return action, entropy, carry
 

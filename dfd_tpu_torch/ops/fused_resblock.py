@@ -176,14 +176,20 @@ def _check_feat(x, w, b, s, t) -> None:
                                           f"got {tuple(v.shape)}")
 
 
-def _check_cuda(x, *operands, compute_dtype) -> None:
-    _expect(x.device.type == "cuda", f"x must lie on the CPU or a CUDA device, got {x.device}")
+def _on_cpu(x, *operands, compute_dtype) -> bool:
+    """Checks what the kernels need of the operands on any device, so that
+    the CPU refuses what the card does; then whether they lie on the CPU
+    (else on one CUDA device).  The caller computes the launch plan, which
+    refuses shapes no block fits, before it branches too."""
+    _expect(x.device.type in ("cpu", "cuda"),
+            f"x must lie on the CPU or a CUDA device, got {x.device}")
     for v in (x,) + operands:
         _expect(v.device == x.device, f"every operand must lie on {x.device}, got {v.device}")
         _expect(v.dtype == torch.float32 and v.is_contiguous(),
                 "every operand must be a contiguous float32 tensor")
     _expect(compute_dtype in (None, torch.bfloat16),
             f"compute_dtype must be None or torch.bfloat16, got {compute_dtype}")
+    return x.device.type == "cpu"
 
 
 # The kernels' launch plans.  The bf16 entry points recompute the shared
@@ -322,22 +328,23 @@ def fused_res_stage(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, s: torch.
     [M, 4, C] (conv biases, folded BN scale and shift).  Returns
     [M, B, C, H, W] float32."""
     _check_stage(x, w, b, s, t)
-    if x.device.type == "cpu":
-        return fused_res_stage_plain(x, w, b, s, t, compute_dtype)
-    _check_cuda(x, w, b, s, t, compute_dtype=compute_dtype)
+    on_cpu = _on_cpu(x, w, b, s, t, compute_dtype=compute_dtype)
     M, B, C, H, W = x.shape
+    plan = (res_stage_tf32_plan if compute_dtype is None else res_stage_mma_plan)(C, H, W)
+    if on_cpu:
+        return fused_res_stage_plain(x, w, b, s, t, compute_dtype)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         ptrs = (x.data_ptr(), w.data_ptr(), b.data_ptr(), s.data_ptr(), t.data_ptr(),
                 out.data_ptr())
         if compute_dtype is None:
-            cluster, band, wt, _ = res_stage_tf32_plan(C, H, W)
+            cluster, band, wt, _ = plan
             build.raise_on(_tf32_kernels().dfd_res_stage_tf32(*ptrs, M, B, C, H, W, cluster, band,
                                                               wt, stream), "fused_res_stage")
             fused_res_stage.launches += 1
         else:
-            cluster, band, _ = res_stage_mma_plan(C, H, W)
+            cluster, band, _ = plan
             build.raise_on(_mma_kernels().dfd_res_stage_mma(*ptrs, M, B, C, H, W, cluster, band,
                                                             stream), "fused_res_stage (bf16)")
             fused_res_stage.mma_launches += 1
@@ -357,11 +364,12 @@ def fused_feat_pool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, s: torch.
     s, t [M, ci] (folded BN scale and shift).  Returns
     [M, B, co, ceil(H/2), ceil(W/2)] float32."""
     _check_feat(x, w, b, s, t)
-    if x.device.type == "cpu":
-        return fused_feat_pool_plain(x, w, b, s, t, compute_dtype)
-    _check_cuda(x, w, b, s, t, compute_dtype=compute_dtype)
+    on_cpu = _on_cpu(x, w, b, s, t, compute_dtype=compute_dtype)
     M, B, ci, H, W = x.shape
     co = w.shape[1]
+    plan = (feat_pool_tf32_plan if compute_dtype is None else feat_pool_mma_plan)(ci, co, H, W)
+    if on_cpu:
+        return fused_feat_pool_plain(x, w, b, s, t, compute_dtype)
     out = torch.empty((M, B, co, (H + 1) // 2, (W + 1) // 2), dtype=torch.float32,
                       device=x.device)
     with torch.cuda.device(x.device):
@@ -369,12 +377,12 @@ def fused_feat_pool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, s: torch.
         ptrs = (x.data_ptr(), w.data_ptr(), b.data_ptr(), s.data_ptr(), t.data_ptr(),
                 out.data_ptr())
         if compute_dtype is None:
-            pb, _, wt, _ = feat_pool_tf32_plan(ci, co, H, W)
+            pb, _, wt, _ = plan
             build.raise_on(_tf32_kernels().dfd_feat_pool_tf32(*ptrs, M, B, ci, co, H, W, pb, wt,
                                                               stream), "fused_feat_pool")
             fused_feat_pool.launches += 1
         else:
-            pb, _, _ = feat_pool_mma_plan(ci, co, H, W)
+            pb, _, _ = plan
             build.raise_on(_mma_kernels().dfd_feat_pool_mma(*ptrs, M, B, ci, co, H, W, pb,
                                                             stream), "fused_feat_pool (bf16)")
             fused_feat_pool.mma_launches += 1

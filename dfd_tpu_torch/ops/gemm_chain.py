@@ -200,20 +200,22 @@ def gemm_chain(a: torch.Tensor, b: torch.Tensor, iters: int, mode: str = "acc") 
     """``iters`` chained products of a [M, K] and b [K, N] (see the module
     docstring for the modes) -> [M, N] float32."""
     _check(a, b, iters, mode)
-    if a.device.type == "cpu" and b.device.type == "cpu":
-        return gemm_chain_plain(a, b, iters, mode)
+    # what the kernel needs, checked on any device so that the CPU refuses
+    # what the card does, the plan included
     for name, v in (("a", a), ("b", b)):
-        if v.device.type != "cuda" or v.device != a.device:
+        if v.device.type not in ("cpu", "cuda") or v.device != a.device:
             raise ValueError(f"{name} must lie on the CPU or on the CUDA device of a, "
                              f"got {v.device}")
         if v.dtype != torch.float32 or not v.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 tensor")
     M, K = a.shape
     N = b.shape[1]
-    out = torch.empty((M, N), dtype=torch.float32, device=a.device)
-    carry = torch.empty(2, dtype=torch.float32, device=a.device)
     ordered = ordered_route(iters, mode)
     plan = gemm_chain_plan(M, K, N, ordered, resident=mode == "feed")
+    if a.device.type == "cpu":
+        return gemm_chain_plain(a, b, iters, mode)
+    out = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    carry = torch.empty(2, dtype=torch.float32, device=a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         build.raise_on(_kernels().dfd_gemm_chain(

@@ -150,20 +150,25 @@ def _kernels() -> ctypes.CDLL:
     return lib
 
 
-def _check_cuda(name: str, t: torch.Tensor) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must lie on the CPU or a CUDA device, got {t.device}")
+def _on_cpu(name: str, t: torch.Tensor) -> bool:
+    """Checks what the kernels need of ``t`` on any device, so that the CPU
+    refuses what the card does; then whether ``t`` lies on the CPU (else it
+    must lie on a CUDA device)."""
     if t.dtype != torch.float32 or t.ndim != 1 or not t.is_contiguous():
         raise ValueError(f"{name} must be a contiguous 1-D float32 tensor")
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must lie on the CPU or a CUDA device, got {t.device}")
+    return False
 
 
 def perturb(flat: torch.Tensor, sigma: float, base_seed: int, epoch: int, P: int,
             antithetic: bool = False) -> torch.Tensor:
     """theta_i = theta + sigma * eps_i for P members -> [P, d], with eps
     regenerated in the kernel."""
-    if flat.device.type == "cpu":
+    if _on_cpu("flat", flat):
         return perturb_plain(flat, sigma, base_seed, epoch, P, antithetic)
-    _check_cuda("flat", flat)
     d = flat.shape[0]
     out = torch.empty((P, d), dtype=torch.float32, device=flat.device)
     with torch.cuda.device(flat.device):
@@ -193,9 +198,8 @@ def combine(coefs: torch.Tensor, base_seed: int, epoch: int, d: int,
     inputs give the same bits).
 
     For the FD estimator pass ``coefs = fitness / (sigma * noise_sumsq)``."""
-    if coefs.device.type == "cpu":
+    if _on_cpu("coefs", coefs):
         return combine_plain(coefs, base_seed, epoch, d, antithetic)
-    _check_cuda("coefs", coefs)
     g = torch.empty((d,), dtype=torch.float32, device=coefs.device)
     with torch.cuda.device(coefs.device):
         stream = torch.cuda.current_stream().cuda_stream

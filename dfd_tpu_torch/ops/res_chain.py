@@ -188,9 +188,10 @@ def res_chain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, H: int, W: int,
     """The probes' chain for every member (see the module docstring); returns
     a float32 tensor of x's shape and layout."""
     _check(x, w, b, H, W, layout, compute_dtype)
-    if x.device.type == "cpu":
-        return res_chain_plain(x, w, b, H, W, layout, compute_dtype)
-    _expect(x.device.type == "cuda", f"x must lie on the CPU or a CUDA device, got {x.device}")
+    # what the kernel needs, checked on any device so that the CPU refuses
+    # what the card does, the plan included
+    _expect(x.device.type in ("cpu", "cuda"),
+            f"x must lie on the CPU or a CUDA device, got {x.device}")
     for v in (x, w, b):
         _expect(v.device == x.device, f"every operand must lie on {x.device}, got {v.device}")
         _expect(v.dtype == torch.float32 and v.is_contiguous(),
@@ -200,6 +201,8 @@ def res_chain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, H: int, W: int,
     C = x.shape[2] if minor else x.shape[1]
     bf16 = compute_dtype is not None
     p = res_chain_plan(P, C, H, W, layout, bf16)
+    if x.device.type == "cpu":
+        return res_chain_plain(x, w, b, H, W, layout, compute_dtype)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream

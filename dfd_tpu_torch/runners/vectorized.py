@@ -4,16 +4,26 @@ combine and DSGD, run on the device as the counterpart of
 
 One epoch (``_epoch_step``) is
 
-1. perturb: theta_i = theta + sigma eps_i, eps regenerated from counters in
-   the perturb kernel (``noise_backend="pallas"``);
-2. the population rollout, with the deterministic eval episode riding along
-   as member P (zero noise);
+1. perturb: theta_i = theta + sigma eps_i, eps drawn from the counters
+   (epoch, i): JAX's threefry normal in ``normal_kernel``, which writes eps
+   and the perturbed rows in one pass (``noise_backend="jax"``, the
+   default), or the counter hash of the perturb kernel
+   (``noise_backend="pallas"``);
+2. the population rollout, E episodes a member (``envs_per_perturbation``)
+   averaged, with the deterministic eval episode riding along as member P
+   (zero noise) where ``zeta_size > 0``, else run alone on eval epochs;
 3. novelty of each member against the archive;
 4. fitness: baseline-subtract and standardize, with the tie-break signs;
-5. combine: g = sum_i f_i sigma eps_i / ||sigma eps_i||^2 in the combine
-   kernel, which regenerates the same eps;
+5. combine: g = sum_i f_i sigma eps_i / ||sigma eps_i||^2, a GEMV over the
+   materialized eps (jax backend) or the combine kernel, which regenerates
+   the same eps (pallas backend);
 6. DSGD at an omega-scaled learning rate;
 7. the zeta, EMA and Welford refreshes.
+
+Population chunking (``population_chunk`` C < P, jax backend only) runs
+steps 1-3 C members at a time, the eval slot riding chunk 0, so only one
+chunk's noise, perturbed weights, rollout and novelty are alive at once; the
+combine regenerates eps chunk by chunk.
 
 The strategy archive's accept/evict logic stays on the host between epochs.
 
@@ -40,6 +50,7 @@ import torch
 from dfd_tpu_torch.config import TrainConfig
 from dfd_tpu_torch.core import welford
 from dfd_tpu_torch.core.device import full_f32, resolve_device
+from dfd_tpu_torch.core.noise import CounterNoise
 from dfd_tpu_torch.envs.base import TorchEnv
 from dfd_tpu_torch.fd import combine as fd_combine
 from dfd_tpu_torch.fd import rollout as fd_rollout
@@ -65,26 +76,31 @@ class TrainState(NamedTuple):
 
 
 class EpochDraws(NamedTuple):
-    """Every random number one epoch consumes (M = P + 1 with the eval slot)."""
+    """Every random number one epoch consumes (M = P + 1 with the eval slot,
+    E episodes a member; the eval slot's episodes repeat one draw, as the
+    JAX trainer repeats its key, and only its episode 0 is read)."""
 
-    action_gumbel: torch.Tensor  # [M, T, A] Gumbel noise of each sampled action
-    stats_uniform: torch.Tensor  # [M, T] coin of the sampled observation statistics
+    action_gumbel: torch.Tensor  # [M, E, T, A] Gumbel noise of each sampled action
+    stats_uniform: torch.Tensor  # [M, E, T] coin of the sampled observation statistics
     tie_signs: torch.Tensor      # [P] +-1 fitness of an all-equal batch
     zeta_perm: torch.Tensor      # [Z] zeta slots the eval states replace
-    reset_level: torch.Tensor    # [M] int64 level of each episode, in [0, num_levels)
+    reset_level: torch.Tensor    # [M, E] int64 level of each episode, in [0, num_levels)
 
 
 def make_draws(generator: torch.Generator, P: int, T: int, A: int, Z: int,
-               num_levels: int = 1) -> EpochDraws:
+               num_levels: int = 1, E: int = 1) -> EpochDraws:
     """One epoch's draws from ``generator``, on its device."""
     dev = generator.device
-    u = torch.rand((P + 1, T, A), generator=generator, device=dev)
+    u = torch.rand((P + 1, E, T, A), generator=generator, device=dev)
     gumbel = -torch.log(-torch.log(u.clamp_min_(torch.finfo(torch.float32).tiny)))
-    stats_uniform = torch.rand((P + 1, T), generator=generator, device=dev)
+    stats_uniform = torch.rand((P + 1, E, T), generator=generator, device=dev)
     bits = torch.randint(0, 2, (P,), generator=generator, device=dev)
     tie_signs = (2 * bits - 1).to(torch.float32)
     zeta_perm = torch.randperm(Z, generator=generator, device=dev)
-    reset_level = torch.randint(0, num_levels, (P + 1,), generator=generator, device=dev)
+    reset_level = torch.randint(0, num_levels, (P + 1, E), generator=generator, device=dev)
+    # the eval slot repeats its episode 0
+    for x in (gumbel, stats_uniform, reset_level):
+        x[P] = x[P, :1]
     return EpochDraws(gumbel, stats_uniform, tie_signs, zeta_perm, reset_level)
 
 
@@ -108,16 +124,8 @@ class VectorizedTrainer:
         self.device = resolve_device(device)
         if mesh is not None:
             raise _not_ported("a device mesh", "multi-device")
-        if cfg.noise_backend != "pallas":
-            raise _not_ported(f"noise_backend={cfg.noise_backend!r}", "the jax noise backend")
-        if cfg.population_chunk and cfg.population_chunk < cfg.batch_size:
-            raise _not_ported("population_chunk", "population chunking")
-        if cfg.envs_per_perturbation != 1:
-            raise _not_ported("envs_per_perturbation > 1", "E > 1 episodes per member")
         if cfg.vbn_buffer_size > 0:
             raise _not_ported("vbn_buffer_size > 0", "VBN")
-        if cfg.zeta_size <= 0:
-            raise _not_ported("zeta_size == 0", "the unfused eval episode")
         if not env.discrete:
             raise _not_ported("a continuous action space", "GaussianMLP")
         if model.device != self.device or env.device != self.device:
@@ -131,12 +139,29 @@ class VectorizedTrainer:
         self.reporter = reporter or EpochReporter(quiet=True)
 
         self.P = cfg.batch_size
+        self.E = cfg.envs_per_perturbation
         self.horizon = cfg.episode_length or env.max_episode_steps
         if cfg.antithetic and self.P % 2 != 0:
             raise ValueError("antithetic mode pairs members 2k/2k+1: batch_size must be even")
+        if cfg.noise_backend not in ("jax", "pallas"):
+            raise ValueError(f"noise_backend must be 'jax' or 'pallas', got {cfg.noise_backend!r}")
+        if self.E < 1:
+            raise ValueError(f"envs_per_perturbation must be >= 1, got {self.E}")
+        # chunk: members whose perturb, rollout and novelty are alive at once
+        self.chunk = self.P
+        if cfg.population_chunk and cfg.population_chunk < self.P:
+            if self.P % cfg.population_chunk != 0:
+                raise ValueError(f"population_chunk must divide batch_size: {self.P} % "
+                                 f"{cfg.population_chunk} != 0")
+            if cfg.noise_backend == "pallas":
+                raise ValueError("population_chunk needs noise_backend='jax': the pallas "
+                                 "backend never materializes the noise")
+            self.chunk = cfg.population_chunk
 
         params, bn_state = model.init(cfg.random_seed)
         flat = model.get_flat(params)
+        self.noise = CounterNoise(model.num_params, random_seed=cfg.random_seed,
+                                  antithetic=cfg.antithetic, device=self.device)
         self.handler = StrategyHandler(
             model, bn_state, distance_fn, max_history_size=cfg.max_strategy_history_size
         )
@@ -275,38 +300,59 @@ class VectorizedTrainer:
     def _epoch_step(self, state: TrainState, archive: torch.Tensor, archive_count: int):
         cfg = self.cfg
         model = self.model
-        P = self.P
+        P, C = self.P, self.chunk
         Z = state.zeta.shape[0]
         draws = self._checked_draws(state.epoch, Z)
         do_eval = state.epoch % cfg.eval_every == 0
+        fused_eval = Z > 0
         obs_mean, obs_std = welford.mean_std(state.obs_stats)
 
-        # 1. perturb: theta_i = theta + sigma * eps_i (eps from counter ids)
-        pop_flats = perturb(
-            state.flat, cfg.noise_std, cfg.random_seed, state.epoch, P,
-            antithetic=cfg.antithetic,
-        )
-        noise_ssq = noise_sumsq(pop_flats, state.flat, cfg.noise_std)
-        # 2. rollout, the deterministic eval episode riding along as member P
-        all_params = model.set_flat(torch.cat([pop_flats, state.flat[None]], dim=0))
-        det = torch.zeros(P + 1, dtype=torch.bool, device=self.device)
-        det[P] = True
-        res = fd_rollout.episode_rollout(
-            model, self.env, all_params, state.bn_state, self.horizon, det,
-            obs_mean=obs_mean, obs_std=obs_std,
-            normalize_obs=cfg.normalize_obs,
-            obs_stats_update_chance=cfg.obs_stats_update_chance,
-            action_gumbel=draws.action_gumbel,
-            stats_uniform=draws.stats_uniform,
-            reset_level=draws.reset_level,
-            collect_limit=Z,
-        )
-        # 3. novelty of every member (and the eval member) vs the archive
-        novelty_all = self._batch_novelty(all_params, state, archive, archive_count)
-        rewards = res.reward[:P]
-        novelty = novelty_all[:P]
+        def rollout(params, det, rows, collect_limit, episodes=self.E):
+            """The members' episodes on the draws' ``rows``."""
+            return fd_rollout.episode_rollout(
+                model, self.env, params, state.bn_state, self.horizon, det,
+                obs_mean=obs_mean, obs_std=obs_std,
+                normalize_obs=cfg.normalize_obs,
+                obs_stats_update_chance=cfg.obs_stats_update_chance,
+                action_gumbel=draws.action_gumbel[rows, :episodes],
+                stats_uniform=draws.stats_uniform[rows, :episodes],
+                reset_level=draws.reset_level[rows, :episodes],
+                collect_limit=collect_limit,
+            )
 
-        # 4. eval episode (member P); contributes only on eval epochs
+        # 1-3. perturb, roll out and score the population a chunk at a time
+        # (one chunk of all P members unless population_chunk); the
+        # deterministic eval episode rides chunk 0 as its last member (zero
+        # noise) when zeta_size > 0
+        if cfg.noise_backend == "jax":
+            self.noise.prepare(state.epoch, P)  # the epoch's keys, one transfer
+        members, novelties = [], []
+        eps = noise_ssq = fused = None
+        for c0 in range(0, P, C):
+            ride = fused_eval and c0 == 0
+            flats, eps, noise_ssq = self._perturbed(state, c0, ride)
+            params = model.set_flat(flats)
+            det = torch.zeros(flats.shape[0], dtype=torch.bool, device=self.device)
+            det[C:] = True
+            rows = slice(c0, c0 + C + int(ride))
+            if ride and C < P:  # chunk 0 and the eval slot, row P of the draws
+                rows = torch.cat([torch.arange(C, device=self.device),
+                                  torch.full((1,), P, device=self.device)])
+            res = rollout(params, det, rows, Z if ride else 0)
+            novelty = self._batch_novelty(params, state, archive, archive_count)
+            if ride:
+                fused = (fd_rollout.RolloutResult(
+                    res.reward[C:], res.entropy[C:], res.steps[C:],
+                    welford.WelfordState(*(x[C:] for x in res.obs_stats)), res.states[C:]),
+                    novelty[C])
+            members.append(_member_result(res, C))
+            novelties.append(novelty[:C])
+            del flats, params, res
+        result = _cat_results(members)
+        novelty = torch.cat(novelties)
+        rewards = result.reward
+
+        # 4. eval episode (member P, episode 0); contributes only on eval epochs
         policy_reward, policy_entropy, policy_novelty = (
             state.policy_reward, state.policy_entropy, state.policy_novelty,
         )
@@ -315,22 +361,37 @@ class VectorizedTrainer:
         eval_stats = welford.init(self.env.obs_shape, self.device)
         noisy_mean = rewards.mean()
         if do_eval:
+            if fused is None:  # the unfused eval episode, run alone
+                params = model.set_flat(state.flat[None])
+                det = torch.ones(1, dtype=torch.bool, device=self.device)
+                ev = rollout(params, det, slice(P, P + 1), Z, episodes=1)
+                ev_novelty = self._batch_novelty(params, state, archive, archive_count)[0]
+            else:
+                ev, ev_novelty = fused
             ema = lambda old, new: old * 0.9 + new * 0.1
-            policy_reward = ema(policy_reward, res.reward[P])
-            policy_entropy = ema(policy_entropy, res.entropy[P])
-            policy_novelty = ema(policy_novelty, novelty_all[P])
-            eval_steps = res.steps[P]
-            eval_stats = welford.WelfordState(*(x[P] for x in res.obs_stats))
+            policy_reward = ema(policy_reward, ev.reward[-1, 0])
+            policy_entropy = ema(policy_entropy, ev.entropy[-1, 0])
+            policy_novelty = ema(policy_novelty, ev_novelty)
+            eval_steps = ev.steps[-1, 0]
+            eval_stats = welford.WelfordState(*(x[-1, 0] for x in ev.obs_stats))
             # 5. zeta refresh from the eval episode's visited states
-            zeta = self._update_zeta(state.zeta, res.states[P], eval_steps, draws.zeta_perm)
+            if Z > 0:
+                zeta = self._update_zeta(state.zeta, ev.states[0], eval_steps, draws.zeta_perm)
             # 6. omega steps on eval epochs with the mean noisy reward
             omega = omega_step(state.omega, noisy_mean, self.omega_hp)
 
         # 7. fitness -> combine -> DSGD
         fitness = fd_combine.fitness_from_rewards(rewards, policy_reward, draws.tie_signs)
-        coefs = fitness / (cfg.noise_std * torch.clamp_min(noise_ssq, 1e-30))
-        gradient = combine(coefs, cfg.random_seed, state.epoch, model.num_params,
-                           antithetic=cfg.antithetic)
+        if C < P:
+            gradient = fd_combine.combine_gradient_chunked(
+                self.noise, state.epoch, range(P), fitness, cfg.noise_std, C)
+        elif cfg.noise_backend == "pallas":
+            coefs = fitness / (cfg.noise_std * torch.clamp_min(noise_ssq, 1e-30))
+            gradient = combine(coefs, cfg.random_seed, state.epoch, model.num_params,
+                               antithetic=cfg.antithetic)
+        else:
+            gradient = fd_combine.combine_gradient(eps, fitness, cfg.noise_std)
+        del eps
         if cfg.optimizer == "dsgd":
             lr_scale = lr_scale_from_omega(
                 omega.omega, cfg.omega.min_value, cfg.omega.max_value,
@@ -344,8 +405,7 @@ class VectorizedTrainer:
         # 8. merge sampled observation statistics from the population
         obs_stats = state.obs_stats
         if cfg.normalize_obs:
-            pop_stats = welford.WelfordState(*(x[:P] for x in res.obs_stats))
-            obs_stats = welford.merge(obs_stats, welford.merge_population(pop_stats))
+            obs_stats = welford.merge(obs_stats, welford.merge_population(result.obs_stats))
             obs_stats = welford.merge(obs_stats, eval_stats)
 
         new_state = TrainState(
@@ -367,21 +427,39 @@ class VectorizedTrainer:
             "Noisy Novelty": novelty.mean(),
             "Update Magnitude": update_size,
             "Omega": omega.omega,
-            "_timesteps": res.steps[:P].sum() + eval_steps,
+            "_timesteps": result.steps.sum() + eval_steps,
             "_did_eval": int(do_eval),
         }
         return new_state, metrics
+
+    def _perturbed(self, state: TrainState, c0: int, theta_row: bool):
+        """(perturbed flats of members c0 .. c0 + chunk - 1 [chunk (+1), d],
+        theta as the last row where ``theta_row``; eps [P, d] on the
+        unchunked jax path, else None; ||eps_i||^2 [P] on the pallas path,
+        else None)."""
+        cfg = self.cfg
+        if cfg.noise_backend == "pallas":
+            pop = perturb(state.flat, cfg.noise_std, cfg.random_seed, state.epoch, self.P,
+                          antithetic=cfg.antithetic)
+            noise_ssq = noise_sumsq(pop, state.flat, cfg.noise_std)
+            if theta_row:
+                pop = torch.cat([pop, state.flat[None]], dim=0)
+            return pop, None, noise_ssq
+        flats, eps = self.noise.perturb_block(
+            state.flat, cfg.noise_std, state.epoch, range(c0, c0 + self.chunk),
+            with_eps=self.chunk == self.P, theta_row=theta_row)
+        return flats, eps, None
 
     # -- pieces ------------------------------------------------------------------
 
     def _own_draws(self, epoch: int) -> EpochDraws:
         return make_draws(self.generator, self.P, self.horizon, self.env.n_actions,
-                          self.state.zeta.shape[0], self.env.num_levels)
+                          self.state.zeta.shape[0], self.env.num_levels, self.E)
 
     def _checked_draws(self, epoch: int, Z: int) -> EpochDraws:
         draws = EpochDraws(*(x.to(self.device) for x in self.draw_source(epoch)))
-        M, T, A = self.P + 1, self.horizon, self.env.n_actions
-        expect = ((M, T, A), (M, T), (self.P,), (Z,), (M,))
+        M, E, T, A = self.P + 1, self.E, self.horizon, self.env.n_actions
+        expect = ((M, E, T, A), (M, E, T), (self.P,), (Z,), (M, E))
         got = tuple(tuple(x.shape) for x in draws)
         if got != expect:
             raise ValueError(f"draw_source gave shapes {got}, expected {expect}")
@@ -427,6 +505,9 @@ class VectorizedTrainer:
         """Observation buffer from a random-action rollout of one env
         (reference run_sequential.py:198-213)."""
         env = self.env
+        if n == 0:
+            return torch.zeros((0,) + tuple(env.obs_shape), dtype=torch.float32,
+                               device=self.device)
         actions = torch.randint(0, env.n_actions, (n,), generator=self.generator,
                                 device=self.device)
         levels = torch.randint(0, env.num_levels, (n + 1,), generator=self.generator,
@@ -442,6 +523,25 @@ class VectorizedTrainer:
             )
             obs = torch.where(done[:, None], reset_obs, new_obs)
         return torch.stack(buf)
+
+
+def _member_result(res: fd_rollout.RolloutResult, n: int) -> fd_rollout.RolloutResult:
+    """The first ``n`` members' results over their E episodes, as the JAX
+    trainer reduces them: reward and entropy the mean, steps the sum, the
+    sampled statistics merged (``states`` left out)."""
+    by_episode = welford.WelfordState(*(x[:n].transpose(0, 1) for x in res.obs_stats))
+    return fd_rollout.RolloutResult(
+        res.reward[:n].mean(dim=1), res.entropy[:n].mean(dim=1), res.steps[:n].sum(dim=1),
+        welford.merge_population(by_episode), None)
+
+
+def _cat_results(parts) -> fd_rollout.RolloutResult:
+    """Per-member results of consecutive chunks, concatenated."""
+    cat = lambda xs: torch.cat(list(xs))
+    return fd_rollout.RolloutResult(
+        cat(p.reward for p in parts), cat(p.entropy for p in parts),
+        cat(p.steps for p in parts),
+        welford.WelfordState(*(cat(x) for x in zip(*(p.obs_stats for p in parts)))), None)
 
 
 def _fetch(per_epoch: List[Dict[str, Any]]) -> List[Dict[str, float]]:

@@ -8,6 +8,9 @@ rebuild one epoch's draws from the JAX trainer's own key chain with
 - ``split(state.key, 6)`` gives (next key, eps, roll, eval, tie, zeta)
   (``dfd_tpu/runners/vectorized.py:277``);
 - member i rolls out under ``fold_in(roll, i)``, the eval slot under ``eval``;
+  with E > 1 episodes a member (``envs_per_perturbation``), member i's
+  episode j under ``split(fold_in(roll, i), E)[j]`` and every episode of the
+  eval slot under ``eval`` itself (``vectorized.py:298-357``);
 - each episode key splits into (reset, act, stats) (``fd/rollout.py:62``):
   the env's reset draws its level as ``randint(reset, (), 0, num_levels)``
   (``envs/procmaze.py:117``; envs without levels ignore the key), and step
@@ -42,14 +45,25 @@ def episode_draws(keys, T: int, A: int, num_levels: int = 1):
     return jax.vmap(one)(keys)
 
 
-@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4, 5))
-def _epoch_draws(key, P: int, T: int, A: int, Z: int, num_levels: int):
-    key, _eps, roll_key, eval_key, tie_key, zeta_key = jax.random.split(key, 6)
+def episode_keys(roll_key, eval_key, P: int, E: int):
+    """Keys [P + 1, E] of every episode of an epoch, the eval slot last."""
     member_keys = jax.vmap(lambda i: jax.random.fold_in(roll_key, i))(jnp.arange(P))
-    g, u, level = episode_draws(jnp.concatenate([member_keys, eval_key[None]]), T, A, num_levels)
+    if E == 1:
+        keys = member_keys[:, None]
+    else:
+        keys = jax.vmap(lambda k: jax.random.split(k, E))(member_keys)
+    return jnp.concatenate([keys, jnp.repeat(eval_key[None, None], E, axis=1)])
+
+
+@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4, 5, 6))
+def _epoch_draws(key, P: int, T: int, A: int, Z: int, num_levels: int, E: int):
+    key, _eps, roll_key, eval_key, tie_key, zeta_key = jax.random.split(key, 6)
+    keys = episode_keys(roll_key, eval_key, P, E).reshape(-1)
+    g, u, level = episode_draws(keys, T, A, num_levels)
     tie = jax.random.rademacher(tie_key, (P,), jnp.float32)
     perm = jax.random.permutation(zeta_key, Z)
-    return g, u, tie, perm, level
+    M = P + 1
+    return (g.reshape(M, E, T, A), u.reshape(M, E, T), tie, perm, level.reshape(M, E))
 
 
 def jax_epoch_draws(jax_trainer):
@@ -58,7 +72,8 @@ def jax_epoch_draws(jax_trainer):
 
     st = jax_trainer.state
     out = _epoch_draws(st.key, jax_trainer.P, jax_trainer.horizon, jax_trainer.env.n_actions,
-                       int(st.zeta.shape[0]), getattr(jax_trainer.env, "num_levels", 1))
+                       int(st.zeta.shape[0]), getattr(jax_trainer.env, "num_levels", 1),
+                       jax_trainer.cfg.envs_per_perturbation)
     return EpochDraws(*(torch.from_numpy(np.array(x)) for x in out))
 
 
@@ -72,8 +87,9 @@ def jax_state_numpy(state):
 
 
 def jax_epoch_rewards(jtr):
-    """Per-member rewards of the JAX trainer's next epoch ([P+1], the eval
-    slot last), computed the way its unchunked E = 1 step computes them."""
+    """Per-episode rewards of the JAX trainer's next epoch ([P + 1, E], the
+    eval slot last), each episode rolled out as the JAX step rolls it out,
+    on perturbed weights from its noise backend."""
     from dfd_tpu.core import welford as jax_welford
     from dfd_tpu.fd import rollout as jax_rollout
     from dfd_tpu.ops.perturb import pallas_perturb
@@ -81,18 +97,21 @@ def jax_epoch_rewards(jtr):
     run = getattr(jtr, "_parity_rewards", None)
     if run is None:
         cfg, model, P = jtr.cfg, jtr.model, jtr.P
+        E = cfg.envs_per_perturbation
         Z = int(jtr.state.zeta.shape[0])
 
         @jax.jit
         def run(st):
             _, _, roll_key, eval_key, _, _ = jax.random.split(st.key, 6)
-            pop, _ = pallas_perturb(st.flat, cfg.noise_std, cfg.random_seed, st.epoch, P,
-                                    antithetic=cfg.antithetic)
-            flats = jnp.concatenate([pop, st.flat[None]])
-            keys = jnp.concatenate(
-                [jax.vmap(lambda i: jax.random.fold_in(roll_key, i))(jnp.arange(P)),
-                 eval_key[None]]
-            )
+            if cfg.noise_backend == "pallas":
+                pop, _ = pallas_perturb(st.flat, cfg.noise_std, cfg.random_seed, st.epoch, P,
+                                        antithetic=cfg.antithetic)
+            else:
+                eps = jax.vmap(lambda i: jtr.noise.generate(st.epoch, i))(jnp.arange(P))
+                pop = st.flat[None, :] + cfg.noise_std * eps
+            flats = jnp.repeat(jnp.concatenate([pop, st.flat[None]]), E, axis=0)
+            keys = episode_keys(roll_key, eval_key, P, E).reshape(-1)
+            det = jnp.repeat(jnp.arange(P + 1) == P, E)
             mean, std = jax_welford.jnp_mean_std(st.obs_stats)
 
             def one(v, k, d):
@@ -101,13 +120,26 @@ def jax_epoch_rewards(jtr):
                     deterministic=d, obs_mean=mean, obs_std=std,
                     normalize_obs=cfg.normalize_obs,
                     obs_stats_update_chance=cfg.obs_stats_update_chance,
-                    collect_states=False, collect_limit=Z,
+                    collect_states=False, collect_limit=Z or None,
                 ).reward
 
-            return jax.vmap(one)(flats, keys, jnp.arange(P + 1) == P)
+            return jax.vmap(one)(flats, keys, det).reshape(P + 1, E)
 
         jtr._parity_rewards = run  # one trace for every epoch of the test
     return np.asarray(run(jtr.state))
+
+
+def port_rollout_rows(ptr, epoch: int):
+    """The rows of [P + 1, E] that each of the port's ``episode_rollout``
+    calls of ``epoch`` covers, in call order: chunk by chunk, the eval slot
+    riding chunk 0 (zeta_size > 0), else alone on eval epochs (episode 0)."""
+    P, C = ptr.P, ptr.chunk
+    fused = ptr.cfg.zeta_size > 0
+    calls = [(list(range(c0, c0 + C)) + ([P] if fused and c0 == 0 else []), ptr.E)
+             for c0 in range(0, P, C)]
+    if not fused and epoch % ptr.cfg.eval_every == 0:
+        calls.append(([P], 1))
+    return calls
 
 
 METRICS = ("Policy Reward", "Policy Entropy", "Policy Novelty", "Noisy Reward",
@@ -130,12 +162,17 @@ def run_and_compare(jtr, ptr, draws, n_epochs, monkeypatch, loose=(), loose_rtol
 
     monkeypatch.setattr(port_rollout, "episode_rollout", spy)
     for e in range(n_epochs):
-        draws[int(jtr.state.epoch)] = jax_epoch_draws(jtr)
+        epoch = int(jtr.state.epoch)
+        draws[epoch] = jax_epoch_draws(jtr)
         want_rewards = jax_epoch_rewards(jtr)
         jtr.train(1)
+        seen.clear()
         ptr.train(1)
-        np.testing.assert_array_equal(seen[-1].reward.cpu().numpy(), want_rewards,
-                                      err_msg=f"epoch {e}")
+        calls = port_rollout_rows(ptr, epoch)
+        assert len(seen) == len(calls), f"epoch {e}: {len(seen)} rollouts"
+        for res, (rows, episodes) in zip(seen, calls):
+            np.testing.assert_array_equal(res.reward.cpu().numpy(),
+                                          want_rewards[rows, :episodes], err_msg=f"epoch {e}")
         np.testing.assert_allclose(ptr.state.flat.cpu().numpy(), np.asarray(jtr.state.flat),
                                    rtol=1e-5, atol=1e-6, err_msg=f"epoch {e}")
         jm, pm = jtr.reporter.history[-1], ptr.reporter.history[-1]

@@ -7,7 +7,9 @@ conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Tolerances: eps to 1e-5 absolute (libm ulps in log/cos between the kernel
+Tolerances: JAX's threefry normal (``normal_kernel``) exact against its plain
+version, which calls the same CUDA log1pf and sqrtf and emulates each fused
+multiply-add exactly; the counter-hash eps to 1e-5 absolute (libm ulps in log/cos between the kernel
 and PyTorch's CUDA functions); the combine's member sum in another order to
 relative L2 1e-5; the fused torso kernels to 1e-5 of the output's scale in
 f32 (sums of up to 1152 products in another order, each product as three
@@ -772,3 +774,168 @@ def test_probe_wrappers_count_launches_and_check_inputs(cuda):
                      torch.randn(1, 4, 2, device=cuda), 3, 3, compute_dtype=torch.float16)
     after2 = [gc.gemm_chain.launches, rc.res_chain.launches] + [k.launches for k in rl.KERNELS]
     assert after2 == after
+
+
+# -- JAX's threefry normal: normal_kernel --------------------------------------------------
+
+# (rows, d, antithetic, odd_first): the trained cells' shapes, P = 1, ragged d
+# (d % 4 of 1, 2, 3, d < 4), antithetic pairs (odd rows, a block starting on
+# an odd member, P = 1 antithetic)
+NORMAL_SHAPES = [(2048, 5197, False, False), (2048, 5197, True, False),
+                 (128, 1_156_139, False, False), (64, 7_872_651, False, False),
+                 (1, 1, False, False), (1, 4097, False, False), (3, 3, False, False),
+                 (5, 4, False, False), (5, 1026, False, False), (7, 1027, True, False),
+                 (6, 1025, True, True), (1, 9, True, True), (1, 9, True, False),
+                 (9, 2048, True, True)]
+
+
+def _normal_keys(rows, antithetic, odd_first, dev, seed=3, epoch=5):
+    from dfd_tpu_torch.core.noise import CounterNoise
+
+    noise = CounterNoise(1, seed, antithetic, device=dev)
+    return noise._keys(epoch, int(odd_first), rows)[0]
+
+
+@pytest.mark.parametrize("rows, d, anti, odd", NORMAL_SHAPES)
+def test_normal_kernel_is_exact(cuda, rows, d, anti, odd):
+    """eps and theta + sigma * eps bit for bit against normal_plain on the
+    card, every element of every row written, theta as the last row."""
+    from dfd_tpu_torch.ops import noise as nz
+
+    keys = _normal_keys(rows, anti, odd, cuda)
+    theta = torch.randn(d, device=cuda, generator=torch.Generator(cuda).manual_seed(1))
+    before = nz.normal.launches
+    eps, pert = nz.normal(keys, rows, d, antithetic=anti, odd_first=odd, theta=theta,
+                          sigma=0.05, theta_row=True)
+    torch.cuda.synchronize()
+    assert nz.normal.launches == before + 1
+    want = nz.normal_plain(keys, rows, d, anti, odd)
+    assert eps.shape == (rows, d) and bool(torch.isfinite(eps).all())
+    assert torch.equal(eps, want)
+    assert torch.equal(pert[:rows], nz.perturbed_plain(want, theta, 0.05))
+    assert torch.equal(pert[rows], theta)
+    del want, pert
+    alone, none = nz.normal(keys, rows, d, antithetic=anti, odd_first=odd)
+    assert none is None and torch.equal(alone, eps)
+
+
+def test_normal_wrapper_skips_empty_work_and_checks_inputs(cuda):
+    from dfd_tpu_torch.ops import noise as nz
+
+    keys = _normal_keys(2, False, False, cuda)
+    before = nz.normal.launches
+    eps, _ = nz.normal(keys, 2, 0)
+    _, pert = nz.normal(keys[:0], 0, 5, theta=torch.ones(5, device=cuda), theta_row=True)
+    assert nz.normal.launches == before and eps.shape == (2, 0)
+    assert torch.equal(pert, torch.ones(1, 5, device=cuda))
+    with pytest.raises(ValueError, match="keys must be a contiguous int32"):
+        nz.normal(keys.long(), 2, 8)
+    with pytest.raises(ValueError, match="theta must be a contiguous float32"):
+        nz.normal(keys, 2, 8, theta=torch.zeros(16, device=cuda)[::2])
+    with pytest.raises(ValueError, match="theta must be a contiguous float32"):
+        nz.normal(keys, 2, 8, theta=torch.zeros(8))
+    out = torch.empty(4, 8, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    # the C entry refuses a draw count that does not fit the rows
+    assert nz._kernels().dfd_normal(keys.data_ptr(), 0, out.data_ptr(), 0, 8, 4, 2, 0, 0, 0.0,
+                                    stream) != 0
+    assert nz.normal.launches == before
+
+
+def test_wrappers_refuse_on_the_card_what_the_cpu_refuses(cuda):
+    """The six wrappers of the CPU's refusal test, on CUDA tensors: the same
+    ValueError texts, no launch."""
+    from dfd_tpu_torch.ops import gemm_chain as gc
+    from dfd_tpu_torch.ops import res_chain as rc
+
+    r = lambda *shape: torch.randn(*shape, device=cuda)
+    stage = lambda C: (r(1, 1, C, 2, 2), r(1, 4, C, 9 * C), r(1, 4, C), r(1, 4, C), r(1, 4, C))
+    feat = lambda co: (r(1, 1, 8, 2, 2), r(1, co, 72), r(1, co), r(1, 8), r(1, 8))
+    counts = lambda: (pk.perturb.launches, pk.combine.launches, fr.fused_res_stage.launches,
+                      fr.fused_feat_pool.launches, rc.res_chain.launches, gc.gemm_chain.launches)
+    before = counts()
+    cases = [
+        (lambda: pk.perturb(r(40).double(), 0.1, 3, 1, 2), "contiguous 1-D float32"),
+        (lambda: pk.combine(r(8)[::2], 3, 1, 40), "contiguous 1-D float32"),
+        (lambda: fr.fused_res_stage(*(v.double() for v in stage(4))), "contiguous float32"),
+        (lambda: fr.fused_res_stage(*stage(4), compute_dtype=torch.float16), "compute_dtype"),
+        (lambda: fr.fused_res_stage(*stage(264)), "at most 256 channels"),
+        (lambda: fr.fused_feat_pool(*feat(300)), "at most 256 output channels"),
+        (lambda: rc.res_chain(r(1, 4, 32)[..., ::2], r(1, 1, 4, 36), r(1, 1, 4), 4, 4),
+         "contiguous float32"),
+        (lambda: rc.res_chain(r(1, 512, 4096), r(1, 1, 512, 4608), r(1, 1, 512), 64, 64),
+         "no res_chain plan fits"),
+        (lambda: gc.gemm_chain(r(8, 4).t(), r(8, 4), 2), "a must be a contiguous float32"),
+        (lambda: gc.gemm_chain(r(1, 65536), r(65536, 1), 2), "do not fit"),
+    ]
+    for call, what in cases:
+        with pytest.raises(ValueError, match=what):
+            call()
+    assert counts() == before
+
+
+@pytest.mark.parametrize("kw", [dict(antithetic=True), dict(envs_per_perturbation=3),
+                                dict(population_chunk=4, envs_per_perturbation=2),
+                                dict(zeta_size=0, eval_every=2)],
+                         ids=["jax", "E3", "chunked", "unfused_eval"])
+def test_jax_backend_trainer_on_card_matches_cpu(cuda, kw):
+    """The default noise backend, E > 1, chunking and the unfused eval
+    episode: the card's trainer against the CPU's on the same draws."""
+    from dfd_tpu_torch.config import TrainConfig
+    from dfd_tpu_torch.envs import TrapEnv
+    from dfd_tpu_torch.models import DiscreteMLP
+    from dfd_tpu_torch.ops import distances
+    from dfd_tpu_torch.ops import noise as nz
+    from dfd_tpu_torch.runners import VectorizedTrainer, make_draws
+
+    cfg = TrainConfig(**dict(dict(batch_size=12, learning_rate=0.05, noise_std=0.05,
+                                  zeta_size=8, max_strategy_history_size=4, random_seed=2),
+                             **kw))
+    E, Z = cfg.envs_per_perturbation, cfg.zeta_size
+    gen = torch.Generator().manual_seed(0)
+    draws = {e: make_draws(gen, 12, 201, 9, Z, 1, E) for e in range(3)}
+    gpu, cpu = (
+        VectorizedTrainer(DiscreteMLP(2, 9, device=d), TrapEnv(device=d),
+                          distances.categorical_tvd, cfg, device=d,
+                          draw_source=lambda e: draws[e])
+        for d in (cuda, "cpu")
+    )
+    gpu.state = gpu.state._replace(zeta=cpu.state.zeta.to(cuda))
+    before = nz.normal.launches
+    gpu.train(3)
+    cpu.train(3)
+    chunks = 12 // gpu.chunk
+    assert nz.normal.launches - before == 3 * (1 if chunks == 1 else 2 * chunks)
+    torch.testing.assert_close(gpu.state.flat.cpu(), cpu.state.flat, rtol=1e-5, atol=1e-6)
+    for hg, hc in zip(gpu.reporter.history, cpu.reporter.history):
+        assert math.isclose(hg["Noisy Reward"], hc["Noisy Reward"], rel_tol=1e-6)
+        assert math.isclose(hg["Policy Reward"], hc["Policy Reward"], rel_tol=1e-6)
+        assert hg["Cumulative Timesteps"] == hc["Cumulative Timesteps"]
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(population_chunk=4, envs_per_perturbation=2),
+                                dict(zeta_size=0, eval_every=1)],
+                         ids=["whole", "chunked", "unfused_eval"])
+def test_jax_backend_epoch_step_makes_no_host_synchronisation(cuda, kw):
+    """train_fast's chunks of epochs need an epoch step that never waits for
+    the card: one step under PyTorch's sync debug mode set to raise."""
+    from dfd_tpu_torch.config import TrainConfig
+    from dfd_tpu_torch.envs import TrapEnv
+    from dfd_tpu_torch.models import DiscreteMLP
+    from dfd_tpu_torch.ops import distances
+    from dfd_tpu_torch.runners import VectorizedTrainer
+
+    cfg = TrainConfig(**dict(dict(batch_size=12, learning_rate=0.05, noise_std=0.05,
+                                  zeta_size=8, max_strategy_history_size=4, random_seed=2),
+                             **kw))
+    tr = VectorizedTrainer(DiscreteMLP(2, 9, device=cuda), TrapEnv(device=cuda),
+                           distances.categorical_tvd, cfg, device=cuda)
+    tr.train(1)
+    archive, count = tr._archive_inputs()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, _ = tr._epoch_step(tr.state, archive, count)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert state.epoch == tr.state.epoch + 1

@@ -223,7 +223,8 @@ def test_forwards_match_jax(impl):
 @pytest.mark.parametrize("impl", ["patches", "fused_feat"])
 def test_act_step_reproduces_jax(impl):
     """Two chained steps with JAX's Gumbel draws: actions exact, entropy and
-    carry to float32 rounding; prepare() changes nothing but the speed."""
+    carry to float32 rounding; prepare() changes nothing but the speed.  The
+    port steps E episodes a member: here E = 1."""
     jm, pm, bn_np, bn, flats, jparams, pparams = _pair(impl)
     M = 3
     rng = np.random.RandomState(8)
@@ -231,7 +232,7 @@ def test_act_step_reproduces_jax(impl):
     det = np.array([False, True, False])
     gumbel = np.array(jax.vmap(lambda k: jax.random.gumbel(k, (5,), jnp.float32))(keys))
     jcarry = jax.vmap(lambda _: jm.initial_carry())(jnp.arange(M))
-    pcarry = pm.initial_carry(M)
+    pcarry = tuple(c[:, None] for c in pm.initial_carry(M))
     prepared = pm.prepare(pparams, bn)
     prev_reward = np.zeros(M, np.float32)
     for step in range(2):
@@ -239,18 +240,21 @@ def test_act_step_reproduces_jax(impl):
         want_a, want_e, jcarry = jax.vmap(
             lambda p, o, r, c, k, d: jm.act_step(p, bn_np, o, r, False, c, k, d)
         )(jparams, obs, prev_reward, jcarry, keys, det)
-        got_a, got_e, pcarry = pm.act_step(prepared, bn, T(obs), T(prev_reward),
-                                           torch.zeros(M, dtype=torch.bool), pcarry, T(det),
-                                           T(gumbel))
-        np.testing.assert_array_equal(_np(got_a), np.asarray(want_a))
-        np.testing.assert_allclose(_np(got_e), np.asarray(want_e), rtol=1e-5, atol=1e-6)
+        got_a, got_e, pcarry = pm.act_step(prepared, bn, T(obs)[:, None], T(prev_reward)[:, None],
+                                           torch.zeros((M, 1), dtype=torch.bool), pcarry, T(det),
+                                           T(gumbel)[:, None])
+        np.testing.assert_array_equal(_np(got_a)[:, 0], np.asarray(want_a))
+        np.testing.assert_allclose(_np(got_e)[:, 0], np.asarray(want_e), rtol=1e-5, atol=1e-6)
         for a, b in zip(pcarry, jcarry):
-            np.testing.assert_allclose(_np(a), np.asarray(b), rtol=1e-5, atol=1e-6)
+            np.testing.assert_allclose(_np(a)[:, 0], np.asarray(b), rtol=1e-5, atol=1e-6)
         prev_reward = np.array([3.0, -0.5, 0.25], np.float32)  # clipped to [-1, 1]
-    unprepared = pm.act_step(pparams, bn, T(obs), T(prev_reward), torch.zeros(M, dtype=torch.bool),
-                             pm.initial_carry(M), T(det), T(gumbel))
-    again = pm.act_step(prepared, bn, T(obs), T(prev_reward), torch.zeros(M, dtype=torch.bool),
-                        pm.initial_carry(M), T(det), T(gumbel))
+    carry0 = tuple(c.reshape(M, 2, -1) for c in pm.initial_carry(2 * M))
+    two = lambda v: torch.stack([v, v], dim=1)  # E = 2 episodes a member
+    unprepared = pm.act_step(pparams, bn, two(T(obs)), two(T(prev_reward)),
+                             torch.zeros((M, 2), dtype=torch.bool), carry0, T(det),
+                             two(T(gumbel)))
+    again = pm.act_step(prepared, bn, two(T(obs)), two(T(prev_reward)),
+                        torch.zeros((M, 2), dtype=torch.bool), carry0, T(det), two(T(gumbel)))
     for a, b in zip(unprepared[:2], again[:2]):
         assert torch.equal(a, b)
 

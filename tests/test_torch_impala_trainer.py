@@ -67,10 +67,11 @@ def test_episode_rollout_matches_jax():
     got = port_rollout.episode_rollout(
         pm, penv, pm.set_flat(torch.from_numpy(flats)), bn, T, torch.from_numpy(det),
         torch.from_numpy(zero), torch.from_numpy(one), normalize_obs=False,
-        obs_stats_update_chance=0.0, action_gumbel=torch.from_numpy(np.array(g)),
-        stats_uniform=torch.from_numpy(np.array(u)),
-        reset_level=torch.from_numpy(np.array(level)), collect_limit=Z,
+        obs_stats_update_chance=0.0, action_gumbel=torch.from_numpy(np.array(g))[:, None],
+        stats_uniform=torch.from_numpy(np.array(u))[:, None],
+        reset_level=torch.from_numpy(np.array(level))[:, None], collect_limit=Z,
     )
+    got = got._replace(reward=got.reward[:, 0], entropy=got.entropy[:, 0], steps=got.steps[:, 0])
     np.testing.assert_array_equal(_np(got.reward), np.asarray(want.reward))
     np.testing.assert_array_equal(_np(got.steps), np.asarray(want.steps))
     assert len(set(_np(got.reward).tolist())) > 1  # the members really differ
@@ -108,7 +109,7 @@ def test_trainer_own_draws_include_the_levels():
     tr = VectorizedTrainer(ImpalaPolicy(env.obs_shape, 5, device=CPU, **MODEL), env,
                            distances.categorical_tvd, cfg, device=CPU)
     draws = tr.draw_source(0)
-    assert draws.reset_level.shape == (5,) and draws.reset_level.dtype == torch.int64
+    assert draws.reset_level.shape == (5, 1) and draws.reset_level.dtype == torch.int64
     assert int(draws.reset_level.min()) >= 0 and int(draws.reset_level.max()) < env.num_levels
     tr.train(2)
     assert all(np.isfinite(r["Update Magnitude"]) and r["Update Magnitude"] > 0
@@ -141,4 +142,26 @@ def test_bf16_trainer_matches_jax_epoch_by_epoch(monkeypatch):
     ptr.state = train_state_from_numpy(jax_state_numpy(jtr.state), CPU)
     run_and_compare(jtr, ptr, draws, 3, monkeypatch,
                     loose=("Policy Entropy", "Policy Novelty", "Noisy Novelty"), loose_rtol=1e-3)
+    assert ptr.reporter.history[-1]["Noisy Novelty"] > 0
+
+
+def test_trainer_on_the_jax_noise_backend_matches_jax(monkeypatch):
+    """The flagship's own ``bench.py`` backend, ``noise_backend="jax"``, with
+    E = 2 episodes a member (each member's episodes are two frames of its
+    torso calls) and chunks of P/2: three epochs of ``train(1)`` at the
+    parity size."""
+    kw = dict(batch_size=8, learning_rate=0.05, noise_std=0.05, zeta_size=4,
+              max_strategy_history_size=4, random_seed=5, envs_per_perturbation=2,
+              population_chunk=4)
+    jenv = JaxProcMazeEnv(**ENV)
+    jtr = JaxTrainer(JaxImpala(jenv.obs_shape, 5, **MODEL), jenv, jax_distances.categorical_tvd,
+                     JaxTrainConfig(**kw))
+    draws = {}
+    penv = ProcMazeEnv(**ENV, device=CPU)
+    ptr = VectorizedTrainer(
+        ImpalaPolicy(penv.obs_shape, 5, device=CPU, **MODEL), penv, distances.categorical_tvd,
+        TrainConfig(**kw), device=CPU, draw_source=lambda epoch: draws[epoch],
+    )
+    ptr.state = train_state_from_numpy(jax_state_numpy(jtr.state), CPU)
+    run_and_compare(jtr, ptr, draws, 3, monkeypatch)
     assert ptr.reporter.history[-1]["Noisy Novelty"] > 0

@@ -166,3 +166,82 @@ def test_antithetic_staging_gives_combine_plain(P, d):
     got = staged @ pk.noise_plain(9, 4, staged.shape[0], d)
     want = pk.combine_plain(coefs, 9, 4, d, antithetic=True)
     assert ((got - want).norm() / want.norm()).item() <= 1e-5
+
+
+# -- the wrappers refuse on the CPU what the card refuses ---------------------------------
+
+from dfd_tpu_torch.ops import fused_resblock as fr  # noqa: E402
+from dfd_tpu_torch.ops import gemm_chain as gc  # noqa: E402
+
+
+def _r(*shape):
+    return torch.from_numpy(np.random.RandomState(sum(shape)).randn(*shape).astype(np.float32))
+
+
+def _stage(C=4, H=4, W=4):
+    return _r(1, 1, C, H, W), _r(1, 4, C, 9 * C), _r(1, 4, C), _r(1, 4, C), _r(1, 4, C)
+
+
+def _feat(ci=4, co=8, H=4, W=4):
+    return _r(1, 1, ci, H, W), _r(1, co, 9 * ci), _r(1, co), _r(1, ci), _r(1, ci)
+
+
+def _chain(C=4, H=4, W=4):
+    return _r(1, C, H * W), _r(1, 1, C, 9 * C), _r(1, 1, C)
+
+
+# wrapper: (call, plain version, valid operands, [(operands a card refuses, error), ...]);
+# float64 and strided operands, a compute_dtype and shapes no launch plan fits
+REFUSALS = {
+    "perturb": (lambda f: pk.perturb(f, 0.1, 3, 1, 2), lambda f: pk.perturb_plain(f, 0.1, 3, 1, 2),
+                (_r(40),), [((_r(40).double(),), "contiguous 1-D float32"),
+                            ((_r(80)[::2],), "contiguous 1-D float32")]),
+    "combine": (lambda c: pk.combine(c, 3, 1, 40), lambda c: pk.combine_plain(c, 3, 1, 40),
+                (_r(4),), [((_r(4).double(),), "contiguous 1-D float32"),
+                           ((_r(8)[::2],), "contiguous 1-D float32")]),
+    "fused_res_stage": (
+        fr.fused_res_stage, fr.fused_res_stage_plain, _stage(),
+        [(tuple(v.double() for v in _stage()), "contiguous float32"),
+         ((_r(1, 1, 4, 4, 8)[..., ::2],) + _stage()[1:], "contiguous float32"),
+         (_stage(264, 2, 2), "at most 256 channels")]),
+    "fused_feat_pool": (
+        fr.fused_feat_pool, fr.fused_feat_pool_plain, _feat(),
+        [(tuple(v.double() for v in _feat()), "contiguous float32"),
+         ((_r(1, 1, 4, 4, 8)[..., ::2],) + _feat()[1:], "contiguous float32"),
+         (_feat(8, 300, 2, 2), "at most 256 output channels")]),
+    "res_chain": (
+        lambda x, w, b: rc.res_chain(x, w, b, 4, 4),
+        lambda x, w, b: rc.res_chain_plain(x, w, b, 4, 4),
+        _chain(), [(tuple(v.double() for v in _chain()), "contiguous float32"),
+                   ((_r(1, 4, 32)[..., ::2],) + _chain()[1:], "contiguous float32")]),
+    "gemm_chain": (
+        lambda a, b: gc.gemm_chain(a, b, 2), lambda a, b: gc.gemm_chain_plain(a, b, 2),
+        (_r(4, 8), _r(8, 4)), [((_r(4, 8).double(), _r(8, 4).double()),
+                                "a must be a contiguous float32"),
+                               ((_r(8, 4).t(), _r(8, 4)), "a must be a contiguous float32"),
+                               ((_r(1, 65536), _r(65536, 1)), "do not fit")]),
+}
+
+
+@pytest.mark.parametrize("name", REFUSALS)
+def test_cpu_wrappers_refuse_what_the_card_refuses(name):
+    """Each wrapper checks what its kernel needs (dtype, contiguity,
+    compute_dtype, the launch plan) before it branches on the device, with
+    the card's ValueError text; the plain versions take anything."""
+    fn, plain, ok, bad = REFUSALS[name]
+    assert torch.equal(fn(*ok), plain(*ok))
+    for args, what in bad:
+        with pytest.raises(ValueError, match=what):
+            fn(*args)
+        if "fit" not in what and "at most" not in what and name != "combine":
+            assert plain(*args).dtype == args[0].dtype  # combine_plain's eps is float32
+    if name.startswith("fused"):
+        with pytest.raises(ValueError, match="compute_dtype must be None or torch.bfloat16"):
+            fn(*ok, compute_dtype=torch.float16)
+
+
+def test_res_chain_refuses_a_chain_no_plan_fits():
+    """C = 512 at 64x64: no cluster of blocks holds the chain's tiles."""
+    x, w, b = _r(1, 512, 64 * 64), _r(1, 1, 512, 9 * 512), _r(1, 1, 512)
+    with pytest.raises(ValueError, match="no res_chain plan fits C=512 at 64x64"):
+        rc.res_chain(x, w, b, 64, 64)

@@ -69,7 +69,8 @@ def test_port_sources_import_no_jax():
         <= set(files)
     assert {ROOT / "dfd_tpu_torch" / m for m in (
         "ops/gemm_chain.py", "ops/relayout.py", "ops/res_chain.py", "probes/_common.py",
-        "probes/gemm.py", "probes/torso.py", "probes/pool.py", "probes/wide.py")} <= set(files)
+        "probes/gemm.py", "probes/torso.py", "probes/pool.py", "probes/wide.py",
+        "core/noise.py", "ops/noise.py")} <= set(files)
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders, offenders
 
@@ -292,12 +293,13 @@ def test_act_step_reproduces_jax_categorical():
         return a, ent
 
     want_a, want_ent = jax.vmap(one)(flats, obs, keys, det)
-    got_a, got_ent, carry = pm.act_step(pm.set_flat(T(flats)), bn, T(obs), torch.zeros(6),
-                                        torch.zeros(6, dtype=torch.bool), (), T(det),
-                                        T(np.array(gumbel)))
+    # the port steps E episodes a member: E = 1 here
+    got_a, got_ent, carry = pm.act_step(pm.set_flat(T(flats)), bn, T(obs)[:, None],
+                                        torch.zeros(6, 1), torch.zeros((6, 1), dtype=torch.bool),
+                                        (), T(det), T(np.array(gumbel))[:, None])
     assert carry == ()
-    np.testing.assert_array_equal(got_a.numpy(), np.asarray(want_a))
-    _close(got_ent, want_ent, rtol=1e-5)
+    np.testing.assert_array_equal(got_a.numpy()[:, 0], np.asarray(want_a))
+    _close(got_ent[:, 0], want_ent, rtol=1e-5)
 
 
 def test_layers_match_jax():

@@ -26,7 +26,7 @@ from dfd_tpu_torch.envs import TrapEnv
 from dfd_tpu_torch.fd import rollout as port_rollout
 from dfd_tpu_torch.models import DiscreteMLP
 from dfd_tpu_torch.ops import distances
-from dfd_tpu_torch.runners import VectorizedTrainer
+from dfd_tpu_torch.runners import VectorizedTrainer, make_draws
 
 CPU = "cpu"
 
@@ -65,9 +65,12 @@ def _rollout_pair(normalize_obs):
         pm, TrapEnv(device=CPU), pm.set_flat(torch.from_numpy(flats)), bn, T,
         torch.from_numpy(det), torch.from_numpy(mean), torch.from_numpy(std),
         normalize_obs=normalize_obs, obs_stats_update_chance=0.3,
-        action_gumbel=torch.from_numpy(np.array(g)), stats_uniform=torch.from_numpy(np.array(u)),
-        reset_level=torch.from_numpy(np.array(level)), collect_limit=Z,
+        action_gumbel=torch.from_numpy(np.array(g))[:, None],
+        stats_uniform=torch.from_numpy(np.array(u))[:, None],
+        reset_level=torch.from_numpy(np.array(level))[:, None], collect_limit=Z,
     )
+    got = got._replace(reward=got.reward[:, 0], entropy=got.entropy[:, 0], steps=got.steps[:, 0],
+                       obs_stats=type(got.obs_stats)(*(x[:, 0] for x in got.obs_stats)))
     return got, want
 
 
@@ -129,19 +132,107 @@ def test_trainer_matches_jax_normalized_antithetic(monkeypatch):
         np.testing.assert_allclose(_np(a), np.asarray(b), rtol=1e-5)
 
 
+JAX_BASE = {k: v for k, v in BASE.items() if k != "noise_backend"}  # the default, "jax"
+
+
+def test_trainer_matches_jax_on_the_jax_noise_backend(monkeypatch):
+    """``TrainConfig``'s own default backend: eps is JAX's threefry normal,
+    the combine the dense GEMV over it."""
+    jtr, ptr, draws = _pair(dict(JAX_BASE, antithetic=True))
+    assert ptr.cfg.noise_backend == "jax"
+    run_and_compare(jtr, ptr, draws, 3, monkeypatch)
+    assert ptr.reporter.history[-1]["Noisy Novelty"] > 0
+
+
+@pytest.mark.parametrize("E", [2, 3])
+def test_trainer_matches_jax_with_episodes_per_member(E, monkeypatch):
+    """E episodes a member (member i's episode j under split(key_i, E)[j]),
+    averaged; the eval slot repeats its key and reads episode 0."""
+    jtr, ptr, draws = _pair(dict(JAX_BASE, envs_per_perturbation=E, normalize_obs=True,
+                                 obs_stats_update_chance=0.05))
+    run_and_compare(jtr, ptr, draws, 3, monkeypatch)
+    for a, b in zip(ptr.state.obs_stats, jtr.state.obs_stats):
+        np.testing.assert_allclose(_np(a), np.asarray(b), rtol=1e-5)
+
+
+@pytest.mark.parametrize("chunk", [8, 4])
+def test_trainer_matches_jax_chunked(chunk, monkeypatch):
+    """population_chunk = P/2 and P/4 against JAX's chunked trainer: the eval
+    slot rides chunk 0, the combine regenerates eps chunk by chunk."""
+    jtr, ptr, draws = _pair(dict(JAX_BASE, population_chunk=chunk, envs_per_perturbation=2))
+    assert ptr.chunk == chunk
+    run_and_compare(jtr, ptr, draws, 3, monkeypatch)
+
+
+@pytest.mark.parametrize("eval_every", [1, 2])
+def test_trainer_matches_jax_with_the_unfused_eval_episode(eval_every, monkeypatch):
+    """zeta_size = 0: the eval episode is a separate deterministic rollout,
+    run only on eval epochs."""
+    jtr, ptr, draws = _pair(dict(JAX_BASE, zeta_size=0, eval_every=eval_every))
+    assert ptr.state.zeta.shape == (0, 2)
+    run_and_compare(jtr, ptr, draws, 3, monkeypatch)
+    # the EMA moves only on eval epochs (run_and_compare counts the eval rollouts)
+    reward = [r["Policy Reward"] for r in ptr.reporter.history]
+    assert (reward[1] == reward[0]) == (eval_every == 2) and reward[2] != reward[1]
+
+
+def test_chunked_port_matches_unchunked_port():
+    """The same draws through P = 16 at once and in chunks of 4: equal
+    rewards every epoch, and flat within 1e-5."""
+    gen = torch.Generator().manual_seed(7)
+    epoch_draws = [make_draws(gen, 16, 201, 9, 8, 1, 2) for _ in range(3)]
+    trainers = [VectorizedTrainer(DiscreteMLP(2, 9, device=CPU), TrapEnv(device=CPU),
+                                  distances.categorical_tvd,
+                                  TrainConfig(**dict(JAX_BASE, envs_per_perturbation=2,
+                                                     population_chunk=c)),
+                                  device=CPU, draw_source=lambda e: epoch_draws[e])
+                for c in (None, 4)]
+    for tr in trainers:
+        tr.train(3)
+    whole, chunked = trainers
+    for a, b in zip(whole.reporter.history, chunked.reporter.history):
+        assert a["Noisy Reward"] == b["Noisy Reward"] and a["Policy Reward"] == b["Policy Reward"]
+    np.testing.assert_allclose(_np(chunked.state.flat), _np(whole.state.flat), rtol=1e-5,
+                               atol=1e-6)
+
+
+class _ContinuousTrap(TrapEnv):
+    discrete = False
+
+
+def _with_continuous_env():
+    return dict(env=_ContinuousTrap(device=CPU))
+
+
 @pytest.mark.parametrize(
-    "kw, item",
+    "case, item",
     [
-        (dict(noise_backend="jax"), "jax noise backend"),
-        (dict(population_chunk=8), "population chunking"),
-        (dict(envs_per_perturbation=2), "E > 1"),
-        (dict(vbn_buffer_size=4), "VBN"),
-        (dict(zeta_size=0), "unfused eval"),
+        (lambda: dict(cfg=dict(vbn_buffer_size=4)), "Queue 1: VBN"),
+        (lambda: dict(mesh=object()), "Queue 1: multi-device"),
+        (_with_continuous_env, "Queue 1: GaussianMLP"),
     ],
 )
-def test_unported_paths_raise(kw, item):
-    cfg = TrainConfig(**dict(BASE, **kw))
+def test_unported_paths_raise(case, item):
+    kw = case()
+    cfg = TrainConfig(**dict(BASE, **kw.pop("cfg", {})))
+    env = kw.pop("env", TrapEnv(device=CPU))
     with pytest.raises(NotImplementedError, match=item):
+        VectorizedTrainer(DiscreteMLP(2, 9, device=CPU), env, distances.categorical_tvd, cfg,
+                          device=CPU, **kw)
+
+
+@pytest.mark.parametrize(
+    "kw, what",
+    [
+        (dict(population_chunk=5), "population_chunk must divide batch_size"),
+        (dict(population_chunk=8, noise_backend="pallas"), "needs noise_backend='jax'"),
+        (dict(noise_backend="numpy"), "noise_backend must be"),
+        (dict(envs_per_perturbation=0), "envs_per_perturbation must be >= 1"),
+    ],
+)
+def test_config_errors_raise(kw, what):
+    cfg = TrainConfig(**dict(JAX_BASE, **kw))
+    with pytest.raises(ValueError, match=what):
         VectorizedTrainer(DiscreteMLP(2, 9, device=CPU), TrapEnv(device=CPU),
                           distances.categorical_tvd, cfg, device=CPU)
 

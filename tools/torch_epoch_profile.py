@@ -4,7 +4,8 @@
                                          [--out chiprun_out/torch_epoch_profile]
 
 Runs ``dfd_tpu_torch``'s ``VectorizedTrainer`` on one configuration, each
-with ``noise_backend="pallas"``:
+with its ``bench.py`` ``TrainConfig`` (the default ``noise_backend="jax"``:
+eps from ``normal_kernel``, the dense combine):
 
 - ``mlp_trap`` (the default; ``bench.py:143-152``): ``DiscreteMLP(2, 9)``,
   ``TrapEnv``, P = 2048, T = 201;
@@ -49,8 +50,8 @@ import torch  # noqa: E402
 
 STAGES = ("perturb", "rollout", "novelty", "combine")
 LAYERS = ("linear", "lstm", "patches")  # the IMPALA ranges inside the stages
-PORTED = ("perturb_kernel", "combine_kernel", "res_stage_mma_kernel", "feat_pool_mma_kernel",
-          "res_stage_tf32_kernel", "feat_pool_tf32_kernel")
+PORTED = ("normal_kernel", "perturb_kernel", "combine_kernel", "res_stage_mma_kernel",
+          "feat_pool_mma_kernel", "res_stage_tf32_kernel", "feat_pool_tf32_kernel")
 
 
 def _device_us(evt, total: bool = False) -> float:
@@ -73,8 +74,11 @@ def _mark_stages(tr, layer_ranges: bool) -> None:
                 return fn(*a, **kw)
         return inner
 
-    vectorized.perturb = ranged(vectorized.perturb, "perturb")
+    tr._perturbed = ranged(tr._perturbed, "perturb")
     vectorized.combine = ranged(vectorized.combine, "combine")
+    for name in ("combine_gradient", "combine_gradient_chunked"):
+        setattr(vectorized.fd_combine, name,
+                ranged(getattr(vectorized.fd_combine, name), "combine"))
     vectorized.fd_rollout.episode_rollout = ranged(vectorized.fd_rollout.episode_rollout, "rollout")
     tr._batch_novelty = ranged(tr._batch_novelty, "novelty")
     if layer_ranges:
@@ -110,15 +114,14 @@ def main() -> int:
         # mlp_trap (bench.py): P = 2048, zeta 64, archive 16, lr 0.05, sigma 0.05
         cfg = TrainConfig(batch_size=2048, learning_rate=0.05, noise_std=0.05,
                           zeta_size=64, max_strategy_history_size=16, random_seed=0,
-                          noise_backend="pallas")
+                          scan_unroll=8)
         tr = VectorizedTrainer(DiscreteMLP(2, 9), TrapEnv(), distances.categorical_tvd, cfg)
     else:
         env = ProcMazeEnv(grid=8, scale=8, max_steps=40, num_levels=200)
         prod = args.config == "impala_prod_bf16"
         widths = dict(compute_dtype=torch.bfloat16, channels=(64, 128, 128), hidden=512)
         cfg = TrainConfig(batch_size=64 if prod else 128, zeta_size=8,
-                          max_strategy_history_size=4, episode_length=40, random_seed=0,
-                          noise_backend="pallas")
+                          max_strategy_history_size=4, episode_length=40, random_seed=0)
         model = ImpalaPolicy(env.obs_shape, env.n_actions, conv_impl="fused_feat",
                              **(widths if prod else {}))
         tr = VectorizedTrainer(model, env, distances.categorical_tvd, cfg)
