@@ -6,15 +6,18 @@ imports torch and numpy, never JAX, and runs on the card unless the caller
 passes ``device="cpu"``.  Its layout mirrors the JAX package's:
 
 - ``core``     — device choice, flat-parameter views, Welford statistics.
-- ``ops``      — distances, standardize, and the perturb/combine CUDA
-                 kernels (``ops/csrc``) with their plain PyTorch versions.
-- ``models``   — population-batched policy forwards (``DiscreteMLP``).
-- ``envs``     — population-batched environments (``TrapEnv``).
+- ``ops``      — distances, standardize, and the CUDA kernels
+                 (``ops/csrc``) with their plain PyTorch versions.
+- ``models``   — population-batched policy forwards (``DiscreteMLP``,
+                 ``ImpalaPolicy``, ``AtariCNN``) and their VBN refreshes.
+- ``envs``     — population-batched environments (``TrapEnv``,
+                 ``ProcMazeEnv``, ``PixelGridEnv``).
 - ``fd``       — rollout, fitness and combine, DSGD, the omega schedule.
 - ``novelty``  — the behavioral-diversity archive over zeta.
 - ``runners``  — the population trainer (``VectorizedTrainer``).
-- ``utils``    — metrics and profiling.
-- ``convert``  — carrying weights and trainer state across from ``dfd_tpu``.
+- ``utils``    — metrics, profiling, checkpoint and resume, level curricula.
+- ``convert``  — carrying weights, trainer state and the VBN buffer across
+                 from ``dfd_tpu``.
 """
 
 __version__ = "0.1.0"

@@ -1,9 +1,7 @@
 """Typed training configuration, field for field the JAX package's.
 
 The same fields and defaults as ``dfd_tpu.config`` so that one config object
-drives both packages.  A field that selects a path the port has not reached
-yet (``vbn_buffer_size > 0``) is accepted here and refused by the trainer
-with ``NotImplementedError``; ``e_lowering``, ``mesh_axes`` and
+drives both packages.  ``e_lowering``, ``mesh_axes`` and
 ``scan_unroll`` are XLA lowering choices the port does not read (E > 1
 episodes are one rollout over M * E rows, whatever ``e_lowering`` says).
 """

@@ -1,6 +1,7 @@
-"""Carry weights and trainer state across from the JAX package.
+"""Carry weights, trainer state and the VBN buffer across from the JAX
+package.
 
-Both functions take numpy arrays (``np.asarray`` of the JAX package's
+Every function takes numpy arrays (``np.asarray`` of the JAX package's
 arrays), so this module needs no JAX itself.
 """
 
@@ -55,3 +56,12 @@ def train_state_from_numpy(state_np, device=None) -> TrainState:
         policy_novelty=t(s["policy_novelty"]),
         epoch=int(s["epoch"]),
     )
+
+
+def vbn_buffer_from_numpy(buffer_np, device=None):
+    """The JAX trainer's VBN buffer ``(obs [N, *obs], arrival rewards [N])``
+    -> the port trainer's ``_vbn_buffer``, float32 on ``device``."""
+    device = resolve_device(device)
+    obs, rewards = buffer_np
+    t = lambda x: torch.as_tensor(np.array(x), device=device).to(torch.float32)
+    return t(obs), t(rewards)

@@ -44,3 +44,14 @@ def full_f32() -> Iterator[None]:
     finally:
         torch.set_float32_matmul_precision(precision)
         torch.backends.cudnn.allow_tf32 = cudnn_tf32
+
+
+def tree_to(tree, device):
+    """``tree`` (dicts, tuples and NamedTuples of tensors and scalars, such
+    as a ``TrainState``) with every tensor moved to ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(tree_to(v, device) for v in tree)) if hasattr(tree, "_fields") \
+            else tuple(tree_to(v, device) for v in tree)
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree

@@ -1,11 +1,14 @@
-"""ProcMaze level tables, bit for bit those of ``jax.random``, in numpy.
+"""ProcMaze level tables and JAX's reset draws, bit for bit those of
+``jax.random``, in numpy.
 
 A ProcMaze level is a pure function of its id through JAX's threefry
 generator (``dfd_tpu/envs/procmaze.py::ProcMazeEnv._gen_level``):
 ``key(977)``, ``fold_in(level)``, ``split(4)``, then ``randint`` and
 ``uniform`` draws.  The port computes the table of every level an env can
 reset to once, on the host, when the env is built, and moves it to the
-device; nothing here runs per step.
+device; nothing here runs per step.  The same functions give a JAX env's
+reset draw under a known key (``TorchEnv.reset_draw``), for the trainer's
+eval panel.
 
 The generator is re-implemented in uint32 numpy arithmetic, vectorized over
 levels, following ``jax/_src/prng.py`` with ``jax_threefry_partitionable``
@@ -46,6 +49,13 @@ def threefry2x32(k1, k2, x1, x2) -> Tuple[np.ndarray, np.ndarray]:
             x[0] = x[0] + ks[(i + 1) % 3]
             x[1] = x[1] + ks[(i + 2) % 3] + _U32(i + 1)
     return x[0], x[1]
+
+
+def key_data(seed: int) -> np.ndarray:
+    """The key words [2] of ``jax.random.key(seed)``, seed in [0, 2**32)."""
+    if not 0 <= seed < 2 ** 32:
+        raise ValueError(f"seed must lie in [0, 2**32), got {seed}")
+    return np.array([0, seed], _U32)
 
 
 def fold_in(key: np.ndarray, data: np.ndarray) -> np.ndarray:
@@ -108,7 +118,7 @@ def level_table(levels: np.ndarray, grid: int, channels: int, density: float,
     """(start [L, 2], goal [L, 2], walls [L, G, G] bool, tint [L, C] f32)
     of the level ids ``levels``, as ``ProcMazeEnv._gen_level`` makes them."""
     levels = np.asarray(levels, np.int64)
-    base = np.array([0, _LEVEL_SEED], _U32)
+    base = key_data(_LEVEL_SEED)
     keys = split(fold_in(base, levels.astype(_U32)), 4)  # [L, 4, 2]: start, goal, walls, tint
     start = randint(keys[:, 0], (2,), 0, grid)
     goal = randint(keys[:, 1], (2,), 0, grid)

@@ -5,6 +5,14 @@ and ``step`` are side-effect-free maps over an explicit state tuple whose
 tensors carry a leading population axis ``[M]`` on the env's device.  This
 is the counterpart of ``dfd_tpu.envs.base.JaxEnv``, whose single-episode
 functions the JAX package vmaps.
+
+A JAX env draws its reset from a key; a port env takes that draw as an
+argument.  Each env declares the trailing shape of one reset draw
+(``reset_shape``: ``()`` for a level id, ``(4,)`` for PixelGrid's agent and
+goal cells), draws it from a ``torch.Generator`` (``sample_reset``, the
+trainer's own draws) and computes the JAX env's own draw from its reset key
+on the host (``reset_draw``, for the eval panel's fixed levels and the
+parity tests).
 """
 
 from __future__ import annotations
@@ -12,7 +20,10 @@ from __future__ import annotations
 import abc
 from typing import Any, Tuple
 
+import numpy as np
 import torch
+
+from dfd_tpu_torch.envs import _levels
 
 EnvState = Any  # a tuple of [M, ...] tensors
 
@@ -28,6 +39,8 @@ class TorchEnv(abc.ABC):
     max_episode_steps: int = 1000
     #: number of levels a reset draws from (1 for envs without levels)
     num_levels: int = 1
+    #: trailing shape of one reset draw
+    reset_shape: Tuple[int, ...] = ()
     #: device the env's tensors live on
     device: torch.device
 
@@ -35,12 +48,30 @@ class TorchEnv(abc.ABC):
     def discrete(self) -> bool:
         return self.n_actions is not None
 
+    @property
+    def reset_high(self) -> int:
+        """Exclusive upper bound of each reset draw's integers: the level count."""
+        return self.num_levels
+
+    def sample_reset(self, shape: Tuple[int, ...], generator: torch.Generator) -> torch.Tensor:
+        """Reset draws [*shape, *reset_shape] int64 in ``[0, reset_high)`` from
+        ``generator``, on its device."""
+        return torch.randint(0, self.reset_high, tuple(shape) + tuple(self.reset_shape),
+                             generator=generator, device=generator.device)
+
+    def reset_draw(self, keys: np.ndarray) -> np.ndarray:
+        """The JAX env's reset draw under each reset key (key words [..., 2]
+        uint32): [..., *reset_shape] int64; by default its level draw
+        ``randint(key, (), 0, num_levels)`` (0 for envs without levels)."""
+        return _levels.randint(np.asarray(keys, np.uint32), (), 0, self.num_levels)
+
     @abc.abstractmethod
     def reset(self, n: int, reset_level: torch.Tensor) -> Tuple[EnvState, torch.Tensor]:
         """Start ``n`` episodes; returns (state, first observations [n, *obs]).
 
-        ``reset_level`` [n] int64 holds each episode's level draw in
-        ``[0, num_levels)``; envs without levels ignore it."""
+        ``reset_level`` [n, *reset_shape] int64 holds each episode's reset
+        draw (by default its level in ``[0, num_levels)``); envs without
+        levels ignore it."""
 
     @abc.abstractmethod
     def step(self, state: EnvState, action: torch.Tensor) -> Tuple[EnvState, torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -21,7 +21,8 @@ computed once per rollout (``model.prepare``).
 The randomness is passed in as draws instead of keys: ``action_gumbel``
 [M, E, T, A] (the Gumbel noise of the categorical sample), ``stats_uniform``
 [M, E, T] (the per-step coin of the sampled statistics) and ``reset_level``
-[M, E] (each episode's level, for envs with levels).
+[M, E, *env.reset_shape] (each episode's reset draw: its level, for envs
+with levels).
 """
 
 from __future__ import annotations
@@ -68,12 +69,12 @@ def episode_rollout(
     The first ``collect_limit`` observations of every member's episode 0
     are kept (the zeta refresh only reads the eval member's, reference
     run_sequential.py:142-143)."""
-    M, E = reset_level.shape
+    M, E = reset_level.shape[:2]
     N = M * E
     dev = deterministic.device
     obs_shape = tuple(env.obs_shape)
     params = model.prepare(params, bn_state)
-    env_state, obs = env.reset(N, reset_level.reshape(N))
+    env_state, obs = env.reset(N, reset_level.reshape((N,) + tuple(reset_level.shape[2:])))
     obs = obs.reshape((M, E) + obs_shape)
     prev_done = torch.zeros((M, E), dtype=torch.bool, device=dev)
     prev_reward = torch.zeros((M, E), dtype=torch.float32, device=dev)

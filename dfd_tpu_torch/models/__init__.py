@@ -1,5 +1,6 @@
+from dfd_tpu_torch.models.atari import AtariCNN
 from dfd_tpu_torch.models.base import PolicyModel
 from dfd_tpu_torch.models.discrete import DiscreteMLP
 from dfd_tpu_torch.models.impala import ImpalaPolicy
 
-__all__ = ["PolicyModel", "DiscreteMLP", "ImpalaPolicy"]
+__all__ = ["PolicyModel", "DiscreteMLP", "ImpalaPolicy", "AtariCNN"]

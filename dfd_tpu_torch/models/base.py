@@ -12,7 +12,7 @@ whole population at once.
 from __future__ import annotations
 
 import abc
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -59,6 +59,15 @@ class PolicyModel(abc.ABC):
     @abc.abstractmethod
     def strategy(self, params: Params, state: State, zeta: torch.Tensor) -> torch.Tensor:
         """Behavior signature over the state set zeta, per member [M, Z, F]."""
+
+    def vbn(self, params: Params, state: State, buffer: torch.Tensor,
+            rewards: Optional[torch.Tensor] = None) -> State:
+        """The VBN refresh: BatchNorm running statistics after one
+        train-mode pass over ``buffer`` at the weights of ``params`` (a
+        population of one); ``state`` itself for models without BatchNorm.
+        ``rewards`` [N], each frame's arrival reward, is read only by
+        recurrent models."""
+        return state
 
     def initial_carry(self, M: int):
         """Per-episode recurrent carry of M members; () for feed-forward models."""

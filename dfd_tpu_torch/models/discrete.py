@@ -84,3 +84,17 @@ class DiscreteMLP(PolicyModel):
 
     def strategy(self, params: Params, state: State, zeta: torch.Tensor) -> torch.Tensor:
         return self.apply(params, state, zeta)
+
+    def vbn(self, params: Params, state: State, buffer: torch.Tensor, rewards=None) -> State:
+        """The VBN refresh: one train-mode pass over ``buffer`` (read as
+        rows of ``input_shape``) at the weights of ``params``, a population
+        of one; every block's BatchNorm statistics refreshed."""
+        x = buffer.to(torch.float32).reshape(1, -1, self.input_shape)
+        new_state = dict(state)
+        n_blocks = len(self._blocks)
+        for k, (bn, ln, _, _) in enumerate(self._blocks):
+            x, new_state[bn] = layers.batchnorm_train(params[bn], state[bn], x)
+            x = layers.linear(params[ln], x)
+            if k < n_blocks - 1:
+                x = torch.relu(x)
+        return new_state

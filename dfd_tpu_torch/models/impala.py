@@ -40,7 +40,7 @@ import torch.nn.functional as F
 from dfd_tpu_torch.core.device import resolve_device
 from dfd_tpu_torch.core.flat import FlatSpec
 from dfd_tpu_torch.models import layers
-from dfd_tpu_torch.models.atari import batchnorm2d_eval
+from dfd_tpu_torch.models.atari import batchnorm2d_eval, batchnorm2d_train
 from dfd_tpu_torch.models.base import Params, PolicyModel, State, sample_action
 from dfd_tpu_torch.ops import fused_resblock
 
@@ -349,5 +349,43 @@ class ImpalaPolicy(PolicyModel):
     def strategy(self, params, state, zeta) -> torch.Tensor:
         return self.apply(params, state, zeta)
 
-    def vbn(self, *args, **kwargs):
-        raise NotImplementedError("IMPALA's VBN refresh is not ported yet (ROADMAP.md, Queue 1: VBN)")
+    def vbn(self, params, state, buffer: torch.Tensor, rewards=None) -> State:
+        """The VBN refresh: one train-mode forward over ``buffer`` [N, C, H,
+        W] (raw pixels) at the weights of ``params``, a population of one,
+        refreshes every BatchNorm's statistics (the feature and residual
+        BNs, ``fc_bn`` and ``policy_bn``), each BN seeing the train-mode
+        activations of the layers before it, as the JAX model's ``vbn``.
+
+        As there, the buffer is read as one sequence (the reference's
+        batch-first LSTM quirk): the LSTM runs over all N frames from a zero
+        carry with ``rewards`` [N] (zeros when None), clipped, appended.
+        Also as there, every conv is the float32 patches conv and neither
+        the convs nor ``fc`` round to ``compute_dtype``; train-mode BN
+        cannot be folded into the fused kernels, so none launches here."""
+        new_state = dict(state)
+
+        def bn2d(name, x):
+            y, new_state[name] = batchnorm2d_train(params[name], state[name], x)
+            return y
+
+        x = buffer.to(torch.float32)[None] / 255.0
+        n = x.shape[1]
+        for k in range(len(self.channels)):
+            x = bn2d(f"feat{k}_bn", x)
+            x = maxpool3x3s2(conv3x3_patches(params[f"feat{k}_conv"], x))
+            for r in (1, 2):
+                res = x
+                y = torch.relu(bn2d(f"res{r}_{k}_bn1", x))
+                y = conv3x3_patches(params[f"res{r}_{k}_conv1"], y)
+                y = torch.relu(bn2d(f"res{r}_{k}_bn2", y))
+                y = conv3x3_patches(params[f"res{r}_{k}_conv2"], y)
+                x = y + res
+        x = torch.relu(x).reshape(1, n, -1)
+        y, new_state["fc_bn"] = layers.batchnorm_train(params["fc_bn"], state["fc_bn"], x)
+        feats = torch.relu(layers.linear(params["fc"], y))
+        if rewards is None:
+            rewards = torch.zeros(n, dtype=torch.float32, device=feats.device)
+        core_out, _ = self._core(params, feats, rewards[None], self.initial_carry(1))
+        _, new_state["policy_bn"] = layers.batchnorm_train(
+            params["policy_bn"], state["policy_bn"], core_out)
+        return new_state

@@ -15,6 +15,7 @@ from typing import Dict, Tuple
 import torch
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1
 
 
 def linear(p: Dict[str, torch.Tensor], x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
@@ -49,6 +50,34 @@ def batchnorm_eval(p: Dict[str, torch.Tensor], s: Dict[str, torch.Tensor], x: to
     """BatchNorm in inference mode: running statistics ``s`` shared by the
     population, affine ``p`` per member ([M, d])."""
     return (x - s["mean"]) / torch.sqrt(s["var"] + BN_EPS) * p["w"].unsqueeze(1) + p["b"].unsqueeze(1)
+
+
+def batchnorm_train(p: Dict[str, torch.Tensor], s: Dict[str, torch.Tensor],
+                    x: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """BatchNorm in training mode, the VBN refresh (reference
+    policies/policy.py:31-34): x [1, N, d], one member's rows (the running
+    statistics are shared by the population, so they are refreshed at one
+    set of weights), affine ``p`` [1, d].
+
+    Normalizes by the batch statistics, the variance biased and taken as the
+    mean of squared deviations, as the JAX package takes it; folds them into
+    the running statistics with momentum ``BN_MOMENTUM``, the variance
+    unbiased by ``n / max(n - 1, 1)``, and counts ``n``.  Returns (y, new
+    statistics)."""
+    if x.ndim != 3 or x.shape[0] != 1:
+        raise ValueError(f"batchnorm_train takes one member's rows [1, N, d], got {tuple(x.shape)}")
+    n = x.shape[1]
+    mean_b = x.mean(dim=1)
+    var_biased = ((x - mean_b[:, None]) ** 2).mean(dim=1)
+    y = (x - mean_b[:, None]) / torch.sqrt(var_biased[:, None] + BN_EPS) * p["w"].unsqueeze(1) \
+        + p["b"].unsqueeze(1)
+    var_unbiased = var_biased[0] * (n / max(n - 1, 1))
+    new_s = {
+        "mean": (1 - BN_MOMENTUM) * s["mean"] + BN_MOMENTUM * mean_b[0],
+        "var": (1 - BN_MOMENTUM) * s["var"] + BN_MOMENTUM * var_unbiased,
+        "n": s["n"] + 1,
+    }
+    return y, new_s
 
 
 def softmax(x: torch.Tensor) -> torch.Tensor:

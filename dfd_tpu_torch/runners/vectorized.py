@@ -18,7 +18,10 @@ One epoch (``_epoch_step``) is
    materialized eps (jax backend) or the combine kernel, which regenerates
    the same eps (pallas backend);
 6. DSGD at an omega-scaled learning rate;
-7. the zeta, EMA and Welford refreshes.
+7. the zeta, EMA and Welford refreshes, and with ``vbn_buffer_size > 0``
+   the VBN refresh: one train-mode pass of the model at the updated weights
+   over a fixed buffer of observations (with their arrival rewards for a
+   recurrent model) refreshes every BatchNorm's running statistics.
 
 Population chunking (``population_chunk`` C < P, jax backend only) runs
 steps 1-3 C members at a time, the eval slot riding chunk 0, so only one
@@ -26,6 +29,10 @@ chunk's noise, perturbed weights, rollout and novelty are alive at once; the
 combine regenerates eps chunk by chunk.
 
 The strategy archive's accept/evict logic stays on the host between epochs.
+
+Beside training, ``set_env`` swaps the environment between epochs (the
+level curriculum, ``utils/curriculum.py``) and ``eval_panel`` plays the
+current policy greedily on a fixed panel of JAX's own resets, read-only.
 
 Randomness: the JAX trainer keys every stochastic choice through
 ``jax.random``.  The port takes them as one :class:`EpochDraws` per epoch
@@ -51,6 +58,7 @@ from dfd_tpu_torch.config import TrainConfig
 from dfd_tpu_torch.core import welford
 from dfd_tpu_torch.core.device import full_f32, resolve_device
 from dfd_tpu_torch.core.noise import CounterNoise
+from dfd_tpu_torch.envs import _levels
 from dfd_tpu_torch.envs.base import TorchEnv
 from dfd_tpu_torch.fd import combine as fd_combine
 from dfd_tpu_torch.fd import rollout as fd_rollout
@@ -84,12 +92,14 @@ class EpochDraws(NamedTuple):
     stats_uniform: torch.Tensor  # [M, E, T] coin of the sampled observation statistics
     tie_signs: torch.Tensor      # [P] +-1 fitness of an all-equal batch
     zeta_perm: torch.Tensor      # [Z] zeta slots the eval states replace
-    reset_level: torch.Tensor    # [M, E] int64 level of each episode, in [0, num_levels)
+    reset_level: torch.Tensor    # [M, E, *env.reset_shape] int64 reset draw of each episode
+                                 # (its level in [0, num_levels) for envs with levels)
 
 
 def make_draws(generator: torch.Generator, P: int, T: int, A: int, Z: int,
-               num_levels: int = 1, E: int = 1) -> EpochDraws:
-    """One epoch's draws from ``generator``, on its device."""
+               sample_reset: Callable[..., torch.Tensor], E: int = 1) -> EpochDraws:
+    """One epoch's draws from ``generator``, on its device.  The resets come
+    from ``sample_reset(shape, generator)``, an env's ``sample_reset``."""
     dev = generator.device
     u = torch.rand((P + 1, E, T, A), generator=generator, device=dev)
     gumbel = -torch.log(-torch.log(u.clamp_min_(torch.finfo(torch.float32).tiny)))
@@ -97,7 +107,7 @@ def make_draws(generator: torch.Generator, P: int, T: int, A: int, Z: int,
     bits = torch.randint(0, 2, (P,), generator=generator, device=dev)
     tie_signs = (2 * bits - 1).to(torch.float32)
     zeta_perm = torch.randperm(Z, generator=generator, device=dev)
-    reset_level = torch.randint(0, num_levels, (P + 1, E), generator=generator, device=dev)
+    reset_level = sample_reset((P + 1, E), generator)
     # the eval slot repeats its episode 0
     for x in (gumbel, stats_uniform, reset_level):
         x[P] = x[P, :1]
@@ -124,8 +134,6 @@ class VectorizedTrainer:
         self.device = resolve_device(device)
         if mesh is not None:
             raise _not_ported("a device mesh", "multi-device")
-        if cfg.vbn_buffer_size > 0:
-            raise _not_ported("vbn_buffer_size > 0", "VBN")
         if not env.discrete:
             raise _not_ported("a continuous action space", "GaussianMLP")
         if model.device != self.device or env.device != self.device:
@@ -184,12 +192,16 @@ class VectorizedTrainer:
         self.draw_source = draw_source or self._own_draws
 
         zero = lambda: torch.zeros((), dtype=torch.float32, device=self.device)
+        zeta = self._seed_buffer(cfg.zeta_size)
+        # (observations [N, *obs], their arrival rewards [N]) on the device
+        self._vbn_buffer = (self._seed_buffer(cfg.vbn_buffer_size, with_rewards=True)
+                            if cfg.vbn_buffer_size > 0 else None)
         self.state = TrainState(
             flat=flat,
             bn_state=bn_state,
             omega=omega_init(cfg.omega.default_value, cfg.omega.reward_history_size, self.device),
             obs_stats=welford.init(env.obs_shape, self.device),
-            zeta=self._seed_buffer(cfg.zeta_size),
+            zeta=zeta,
             policy_reward=zero(),
             policy_entropy=zero(),
             policy_novelty=zero(),
@@ -200,6 +212,44 @@ class VectorizedTrainer:
         self.timer = StageTimer()
 
     # -- public ------------------------------------------------------------------
+
+    def set_env(self, env: TorchEnv) -> None:
+        """Swap the environment between epochs (level curricula, domain
+        randomization schedules).  The new env must agree on the observation
+        and action interface; the training state (parameters, BN statistics,
+        omega, obs stats, zeta, EMAs, epoch, archive, generator) carries
+        over, and the next epoch's resets are drawn from the new env."""
+        if tuple(env.obs_shape) != tuple(self.env.obs_shape):
+            raise ValueError(f"obs_shape mismatch: {env.obs_shape} vs {self.env.obs_shape}")
+        if env.discrete != self.env.discrete or env.n_actions != self.env.n_actions:
+            raise ValueError("action space mismatch between old and new env")
+        if env.device != self.device:
+            raise ValueError(f"env ({env.device}) must live on {self.device}")
+        self.env = env
+        self.horizon = self.cfg.episode_length or env.max_episode_steps
+
+    @full_f32()
+    def eval_panel(self, n_panel: int = 32, panel_seed: int = 1234) -> np.ndarray:
+        """The reward of a greedy episode on each of ``n_panel`` fixed
+        resets [n_panel]: episode i resets as the JAX trainer's panel does,
+        under ``split(fold_in(key(panel_seed), i), 3)[0]`` (``panel_seed`` in
+        [0, 2**32)), computed on the host, so the panel plays JAX's levels.
+        One rollout of the current policy with the panel as its E axis; no
+        statistics are sampled.  Read-only: the generator, the EMAs, zeta
+        and the epoch do not move."""
+        keys = _levels.fold_in(_levels.key_data(panel_seed), np.arange(n_panel))
+        reset = self.env.reset_draw(_levels.split(keys, 3)[:, 0])
+        state, T, A = self.state, self.horizon, self.env.n_actions
+        obs_mean, obs_std = welford.mean_std(state.obs_stats)
+        res = fd_rollout.episode_rollout(
+            self.model, self.env, self.model.set_flat(state.flat[None]), state.bn_state, T,
+            torch.ones(1, dtype=torch.bool, device=self.device), obs_mean, obs_std,
+            normalize_obs=self.cfg.normalize_obs, obs_stats_update_chance=0.0,
+            action_gumbel=torch.zeros((1, n_panel, T, A), device=self.device),
+            stats_uniform=torch.ones((1, n_panel, T), device=self.device),
+            reset_level=torch.as_tensor(reset, device=self.device)[None], collect_limit=0,
+        )
+        return res.reward[0].cpu().numpy()
 
     def _archive_current(self) -> None:
         """Submit the current policy unless it is already the latest archive
@@ -402,6 +452,14 @@ class VectorizedTrainer:
             new_flat = state.flat + cfg.learning_rate * gradient
         update_size = torch.sqrt(torch.sum((new_flat - state.flat) ** 2))
 
+        # VBN: the BatchNorm statistics refreshed at the updated weights;
+        # a recurrent model reads the buffer's arrival rewards through its LSTM
+        bn_state = state.bn_state
+        if self._vbn_buffer is not None:
+            vbn_obs, vbn_rewards = self._vbn_buffer
+            bn_state = model.vbn(model.set_flat(new_flat[None]), state.bn_state, vbn_obs,
+                                 rewards=vbn_rewards)
+
         # 8. merge sampled observation statistics from the population
         obs_stats = state.obs_stats
         if cfg.normalize_obs:
@@ -410,7 +468,7 @@ class VectorizedTrainer:
 
         new_state = TrainState(
             flat=new_flat,
-            bn_state=state.bn_state,
+            bn_state=bn_state,
             omega=omega,
             obs_stats=obs_stats,
             zeta=zeta,
@@ -454,12 +512,12 @@ class VectorizedTrainer:
 
     def _own_draws(self, epoch: int) -> EpochDraws:
         return make_draws(self.generator, self.P, self.horizon, self.env.n_actions,
-                          self.state.zeta.shape[0], self.env.num_levels, self.E)
+                          self.state.zeta.shape[0], self.env.sample_reset, E=self.E)
 
     def _checked_draws(self, epoch: int, Z: int) -> EpochDraws:
         draws = EpochDraws(*(x.to(self.device) for x in self.draw_source(epoch)))
         M, E, T, A = self.P + 1, self.E, self.horizon, self.env.n_actions
-        expect = ((M, E, T, A), (M, E, T), (self.P,), (Z,), (M, E))
+        expect = ((M, E, T, A), (M, E, T), (self.P,), (Z,), (M, E) + tuple(self.env.reset_shape))
         got = tuple(tuple(x.shape) for x in draws)
         if got != expect:
             raise ValueError(f"draw_source gave shapes {got}, expected {expect}")
@@ -501,28 +559,33 @@ class VectorizedTrainer:
             full[:count] = t[:count]
         return torch.as_tensor(full, device=self.device), count
 
-    def _seed_buffer(self, n: int) -> torch.Tensor:
-        """Observation buffer from a random-action rollout of one env
-        (reference run_sequential.py:198-213)."""
+    def _seed_buffer(self, n: int, with_rewards: bool = False):
+        """Observation buffer [n, *obs] from a random-action rollout of one
+        env (reference run_sequential.py:198-213); ``with_rewards`` also
+        returns each observation's arrival reward [n] (0 at resets), what a
+        recurrent policy's VBN pass reads through its LSTM."""
         env = self.env
         if n == 0:
             return torch.zeros((0,) + tuple(env.obs_shape), dtype=torch.float32,
                                device=self.device)
         actions = torch.randint(0, env.n_actions, (n,), generator=self.generator,
                                 device=self.device)
-        levels = torch.randint(0, env.num_levels, (n + 1,), generator=self.generator,
-                               device=self.device)  # one level draw per reset
-        env_state, obs = env.reset(1, levels[:1])
-        buf = []
+        resets = env.sample_reset((n + 1,), self.generator)  # one draw per reset
+        env_state, obs = env.reset(1, resets[:1])
+        reward = torch.zeros(1, dtype=torch.float32, device=self.device)
+        buf, rewards = [], []
         for k in range(n):
             buf.append(obs[0])
-            new_state, new_obs, _, done = env.step(env_state, actions[k:k + 1])
-            reset_state, reset_obs = env.reset(1, levels[k + 1:k + 2])
-            env_state = type(new_state)(
-                *(torch.where(done, r, s) for r, s in zip(reset_state, new_state))
-            )
-            obs = torch.where(done[:, None], reset_obs, new_obs)
-        return torch.stack(buf)
+            rewards.append(reward)
+            new_state, new_obs, new_reward, done = env.step(env_state, actions[k:k + 1])
+            reset_state, reset_obs = env.reset(1, resets[k + 1:k + 2])
+            env_state = type(new_state)(*(
+                torch.where(done.reshape(done.shape + (1,) * (r.ndim - 1)), r, s)
+                for r, s in zip(reset_state, new_state)))
+            obs = torch.where(done.reshape((1,) + (1,) * len(env.obs_shape)), reset_obs, new_obs)
+            reward = torch.where(done, 0.0, new_reward.to(torch.float32))
+        buf = torch.stack(buf)
+        return (buf, torch.cat(rewards)) if with_rewards else buf
 
 
 def _member_result(res: fd_rollout.RolloutResult, n: int) -> fd_rollout.RolloutResult:

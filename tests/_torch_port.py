@@ -12,9 +12,12 @@ rebuild one epoch's draws from the JAX trainer's own key chain with
   episode j under ``split(fold_in(roll, i), E)[j]`` and every episode of the
   eval slot under ``eval`` itself (``vectorized.py:298-357``);
 - each episode key splits into (reset, act, stats) (``fd/rollout.py:62``):
-  the env's reset draws its level as ``randint(reset, (), 0, num_levels)``
-  (``envs/procmaze.py:117``; envs without levels ignore the key), and step
-  t draws from ``fold_in(act, t)`` and ``fold_in(stats, t)``;
+  the env's reset draws from ``reset`` (ProcMaze its level as
+  ``randint(reset, (), 0, num_levels)``, ``envs/procmaze.py:117``; PixelGrid
+  its agent and goal cells, ``envs/pixelgrid.py:50-55``; the trap env
+  ignores it), which the port env's ``reset_draw`` computes from the key's
+  words on the host; step t draws from ``fold_in(act, t)`` and
+  ``fold_in(stats, t)``;
 - ``jax.random.categorical(k, logits)`` is ``argmax(gumbel(k, (A,)) +
   logits)``, so the Gumbel draw reproduces JAX's sampled action.
 """
@@ -28,21 +31,30 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from dfd_tpu_torch.utils.closeness import bn_state_mismatch
+
 torch.set_num_threads(1)  # the suite runs under xdist: one thread per worker
 
 
-def episode_draws(keys, T: int, A: int, num_levels: int = 1):
-    """(gumbel [M, T, A], stats uniform [M, T], reset level [M]) of the
-    episodes keyed by ``keys``."""
+def _episode_draws(keys, T: int, A: int):
+    """(gumbel [M, T, A], stats uniform [M, T], reset key words [M, 2])."""
 
     def one(k):
         reset, act, stats = jax.random.split(k, 3)
         ts = jnp.arange(T)
         g = jax.vmap(lambda t: jax.random.gumbel(jax.random.fold_in(act, t), (A,), jnp.float32))(ts)
         u = jax.vmap(lambda t: jax.random.uniform(jax.random.fold_in(stats, t)))(ts)
-        return g, u, jax.random.randint(reset, (), 0, num_levels)
+        return g, u, jax.random.key_data(reset)
 
     return jax.vmap(one)(keys)
+
+
+def episode_draws(keys, T: int, A: int, env):
+    """(gumbel [M, T, A], stats uniform [M, T], reset draw [M, *reset_shape])
+    of the episodes keyed by ``keys``, the resets those the port ``env``
+    computes from the reset keys."""
+    g, u, reset = _episode_draws(keys, T, A)
+    return np.array(g), np.array(u), env.reset_draw(np.array(reset))
 
 
 def episode_keys(roll_key, eval_key, P: int, E: int):
@@ -55,25 +67,27 @@ def episode_keys(roll_key, eval_key, P: int, E: int):
     return jnp.concatenate([keys, jnp.repeat(eval_key[None, None], E, axis=1)])
 
 
-@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4, 5, 6))
-def _epoch_draws(key, P: int, T: int, A: int, Z: int, num_levels: int, E: int):
+@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4, 5))
+def _epoch_draws(key, P: int, T: int, A: int, Z: int, E: int):
     key, _eps, roll_key, eval_key, tie_key, zeta_key = jax.random.split(key, 6)
     keys = episode_keys(roll_key, eval_key, P, E).reshape(-1)
-    g, u, level = episode_draws(keys, T, A, num_levels)
+    g, u, reset = _episode_draws(keys, T, A)
     tie = jax.random.rademacher(tie_key, (P,), jnp.float32)
     perm = jax.random.permutation(zeta_key, Z)
     M = P + 1
-    return (g.reshape(M, E, T, A), u.reshape(M, E, T), tie, perm, level.reshape(M, E))
+    return (g.reshape(M, E, T, A), u.reshape(M, E, T), tie, perm, reset.reshape(M, E, 2))
 
 
-def jax_epoch_draws(jax_trainer):
-    """The port's EpochDraws for the JAX trainer's next epoch (CPU tensors)."""
+def jax_epoch_draws(jax_trainer, env):
+    """The port's EpochDraws for the JAX trainer's next epoch (CPU tensors),
+    the resets computed by the port ``env`` from JAX's reset keys."""
     from dfd_tpu_torch.runners import EpochDraws
 
     st = jax_trainer.state
-    out = _epoch_draws(st.key, jax_trainer.P, jax_trainer.horizon, jax_trainer.env.n_actions,
-                       int(st.zeta.shape[0]), getattr(jax_trainer.env, "num_levels", 1),
-                       jax_trainer.cfg.envs_per_perturbation)
+    *out, reset = _epoch_draws(st.key, jax_trainer.P, jax_trainer.horizon,
+                               jax_trainer.env.n_actions, int(st.zeta.shape[0]),
+                               jax_trainer.cfg.envs_per_perturbation)
+    out.append(env.reset_draw(np.array(reset)))
     return EpochDraws(*(torch.from_numpy(np.array(x)) for x in out))
 
 
@@ -94,8 +108,8 @@ def jax_epoch_rewards(jtr):
     from dfd_tpu.fd import rollout as jax_rollout
     from dfd_tpu.ops.perturb import pallas_perturb
 
-    run = getattr(jtr, "_parity_rewards", None)
-    if run is None:
+    env, run = getattr(jtr, "_parity_rewards", (None, None))
+    if env is not jtr.env:  # traced again after a set_env
         cfg, model, P = jtr.cfg, jtr.model, jtr.P
         E = cfg.envs_per_perturbation
         Z = int(jtr.state.zeta.shape[0])
@@ -125,7 +139,7 @@ def jax_epoch_rewards(jtr):
 
             return jax.vmap(one)(flats, keys, det).reshape(P + 1, E)
 
-        jtr._parity_rewards = run  # one trace for every epoch of the test
+        jtr._parity_rewards = (jtr.env, run)  # one trace for every epoch on this env
     return np.asarray(run(jtr.state))
 
 
@@ -142,6 +156,14 @@ def port_rollout_rows(ptr, epoch: int):
     return calls
 
 
+def assert_bn_close(got, want, err_msg=""):
+    """BatchNorm statistics ``got`` (the port's tensors) against ``want``
+    (JAX's) under ``utils/closeness.py``'s rule at rtol 1e-5 (a mean over
+    many positions summed in another order than XLA's)."""
+    faults, _ = bn_state_mismatch(got, want)
+    assert not faults, f"{err_msg}: {faults}"
+
+
 METRICS = ("Policy Reward", "Policy Entropy", "Policy Novelty", "Noisy Reward",
            "Noisy Novelty", "Update Magnitude", "Omega", "Epoch", "Cumulative Timesteps")
 
@@ -150,7 +172,7 @@ def run_and_compare(jtr, ptr, draws, n_epochs, monkeypatch, loose=(), loose_rtol
     """``train(1)`` on both trainers ``n_epochs`` times, the port on JAX's
     draws; after every epoch the port's per-member rewards equal JAX's, and
     ``flat``, every reported metric (those in ``loose`` to ``loose_rtol``),
-    the timestep count, the archive size and zeta agree."""
+    the timestep count, the archive size, zeta and ``bn_state`` agree."""
     from dfd_tpu_torch.fd import rollout as port_rollout
 
     seen = []
@@ -163,7 +185,7 @@ def run_and_compare(jtr, ptr, draws, n_epochs, monkeypatch, loose=(), loose_rtol
     monkeypatch.setattr(port_rollout, "episode_rollout", spy)
     for e in range(n_epochs):
         epoch = int(jtr.state.epoch)
-        draws[epoch] = jax_epoch_draws(jtr)
+        draws[epoch] = jax_epoch_draws(jtr, ptr.env)
         want_rewards = jax_epoch_rewards(jtr)
         jtr.train(1)
         seen.clear()
@@ -183,3 +205,4 @@ def run_and_compare(jtr, ptr, draws, n_epochs, monkeypatch, loose=(), loose_rtol
         assert len(ptr.handler.archive) == len(jtr.handler.archive)
         np.testing.assert_allclose(ptr.state.zeta.cpu().numpy(), np.asarray(jtr.state.zeta),
                                    rtol=1e-6)
+        assert_bn_close(ptr.state.bn_state, jtr.state.bn_state, f"epoch {e}: bn_state")

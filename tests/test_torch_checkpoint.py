@@ -1,0 +1,209 @@
+"""Checkpoint and resume (``dfd_tpu_torch.utils.checkpoint``) on the CPU:
+a resumed run ends bit for bit on the unbroken run's state, a file the JAX
+package wrote loads equal to ``train_state_from_numpy`` of its state, the
+file is published atomically, and the restored ``_last_archived`` keeps a
+duplicate out of the archive."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_port import jax_state_numpy
+from dfd_tpu.config import TrainConfig as JaxTrainConfig
+from dfd_tpu.envs.trap import TrapEnv as JaxTrapEnv
+from dfd_tpu.models import DiscreteMLP as JaxDiscreteMLP
+from dfd_tpu.ops import distances as jax_distances
+from dfd_tpu.runners import VectorizedTrainer as JaxTrainer
+from dfd_tpu.utils.checkpoint import load_checkpoint as jax_load_checkpoint
+from dfd_tpu.utils.checkpoint import save_checkpoint as jax_save_checkpoint
+from dfd_tpu_torch.config import TrainConfig
+from dfd_tpu_torch.convert import train_state_from_numpy
+from dfd_tpu_torch.envs import ProcMazeEnv, TrapEnv
+from dfd_tpu_torch.models import DiscreteMLP, ImpalaPolicy
+from dfd_tpu_torch.ops import distances
+from dfd_tpu_torch.runners import VectorizedTrainer
+from dfd_tpu_torch.utils import checkpoint
+
+CPU = "cpu"
+KW = dict(batch_size=12, learning_rate=0.05, noise_std=0.05, zeta_size=6,
+          max_strategy_history_size=3, random_seed=4, vbn_buffer_size=20)
+
+
+def _trap(**kw):
+    return VectorizedTrainer(DiscreteMLP(2, 9, device=CPU), TrapEnv(device=CPU),
+                             distances.categorical_tvd, TrainConfig(**dict(KW, **kw)), device=CPU)
+
+
+def _impala(**kw):
+    env = ProcMazeEnv(grid=4, scale=8, max_steps=8, num_levels=20, device=CPU)
+    model = ImpalaPolicy(env.obs_shape, 5, channels=(8, 16, 16), hidden=16,
+                         conv_impl="fused_feat", device=CPU)
+    cfg = TrainConfig(**dict(KW, batch_size=4, zeta_size=3, vbn_buffer_size=6, **kw))
+    return VectorizedTrainer(model, env, distances.categorical_tvd, cfg, device=CPU)
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from ((f"{k}.{n}", v) for n, v in _tensors(tree[k]))
+    elif isinstance(tree, tuple):
+        for i, v in enumerate(tree):
+            yield from ((f"{i}.{n}", x) for n, x in _tensors(v))
+    else:
+        yield "", tree
+
+
+# The novelty right after a resume is the one thing a checkpoint does not
+# carry, in the JAX package's design too: the file holds the archive's flats,
+# not which of them the live archive had already evaluated on zeta (the
+# newest is appended after the epoch's zeta refresh and evaluated at the
+# next), so the first resumed epoch may score novelty against one strategy
+# more.  Novelty enters no update: only its metrics and EMA can differ.
+NOVELTY = ("policy_novelty", "Policy Novelty", "Noisy Novelty")
+
+
+def assert_same_run(a, b):
+    """Two trainers hold the same state bit for bit: every field of
+    ``state``, the archive's flats and strategies, the guard, the counters,
+    the generator and the reported metrics (times and ``NOVELTY`` aside)."""
+    for field in a.state._fields:
+        x, y = getattr(a.state, field), getattr(b.state, field)
+        if field == "epoch":
+            assert x == y
+            continue
+        if field in NOVELTY:
+            continue
+        for (n, u), (m, v) in zip(_tensors(x), _tensors(y)):
+            assert n == m and torch.equal(u, v), f"{field} {n}"
+    pa, pb = a.handler.archive.points, b.handler.archive.points
+    assert len(pa) == len(pb) > 0
+    for p, q in zip(pa, pb):
+        np.testing.assert_array_equal(p.flat, q.flat)
+    np.testing.assert_array_equal(a.handler.strategy_tensor, b.handler.strategy_tensor)
+    np.testing.assert_array_equal(a._last_archived, b._last_archived)
+    assert a.cumulative_timesteps == b.cumulative_timesteps
+    assert torch.equal(a.generator.get_state(), b.generator.get_state())
+    keep = lambda h: [{k: v for k, v in r.items()
+                       if "Time" not in k and "_stage" not in k and k not in NOVELTY} for r in h]
+    assert keep(a.reporter.history[-2:]) == keep(b.reporter.history[-2:])
+
+
+@pytest.mark.parametrize("make", [_trap, _impala], ids=["mlp_vbn", "impala_vbn"])
+def test_resume_equals_an_unbroken_run(make, tmp_path):
+    """Train 2 epochs, save, train 2 more; a fresh trainer (which draws its
+    zeta and VBN buffers at construction) loads the file and trains the same
+    2: flat, bn_state, omega, zeta, the reward and entropy EMAs, the
+    archive and the generator end equal, bit for bit (``NOVELTY``)."""
+    path = str(tmp_path / "run.npz")
+    unbroken = make()
+    unbroken.train(2)
+    checkpoint.save_checkpoint(path, unbroken)
+    unbroken.train(1)
+    unbroken.train_fast(1)
+    resumed = make()
+    checkpoint.load_checkpoint(path, resumed)
+    assert resumed.state.epoch == 2 and resumed.cumulative_timesteps > 0
+    resumed.train(1)
+    resumed.train_fast(1)
+    assert_same_run(unbroken, resumed)
+    assert float(resumed.state.bn_state[next(iter(resumed.state.bn_state))]["n"]) == 4
+
+
+def test_loads_a_dfd_tpu_checkpoint(tmp_path):
+    """A file the JAX package wrote: the state equals
+    ``train_state_from_numpy`` of the JAX trainer's, the archive holds its
+    flats and equals the JAX package's own restore, the guard and the
+    timestep count carry over; its ``key`` is not read (the port's generator
+    is left as it was)."""
+    path = str(tmp_path / "jax.npz")
+    jtr = JaxTrainer(JaxDiscreteMLP(2, 9), JaxTrapEnv(), jax_distances.categorical_tvd,
+                     JaxTrainConfig(**KW))
+    jtr.train(2)
+    jax_save_checkpoint(path, jtr)
+    ptr = _trap()
+    before = ptr.generator.get_state()
+    checkpoint.load_checkpoint(path, ptr)
+    want = train_state_from_numpy(jax_state_numpy(jtr.state), CPU)
+    for field in want._fields:
+        x, y = getattr(ptr.state, field), getattr(want, field)
+        if field == "epoch":
+            assert x == y == 2
+            continue
+        for (n, u), (m, v) in zip(_tensors(x), _tensors(y)):
+            assert n == m and u.dtype == v.dtype and torch.equal(u, v), f"{field} {n}"
+    assert ptr.cumulative_timesteps == jtr.cumulative_timesteps
+    assert [p.flat.tolist() for p in ptr.handler.archive.points] == [
+        p.flat.tolist() for p in jtr.handler.archive.points]
+    # the archive as the JAX package restores it: every strategy re-evaluated
+    jback = JaxTrainer(JaxDiscreteMLP(2, 9), JaxTrapEnv(), jax_distances.categorical_tvd,
+                       JaxTrainConfig(**KW))
+    jax_load_checkpoint(path, jback)
+    np.testing.assert_allclose(ptr.handler.strategy_tensor, jback.handler.strategy_tensor,
+                               rtol=1e-5, atol=1e-7)
+    assert ptr.handler.archive.worst_point_idx == jback.handler.archive.worst_point_idx
+    np.testing.assert_array_equal(ptr._last_archived, jtr._last_archived)
+    assert torch.equal(ptr.generator.get_state(), before)
+    ptr.train(1)  # and trains on from there
+    assert ptr.state.epoch == 3
+
+
+def test_port_file_has_the_jax_keys(tmp_path):
+    """The same npz keys as the JAX package's file, the generator's state in
+    place of ``key``."""
+    jpath, ppath = str(tmp_path / "jax.npz"), str(tmp_path / "port.npz")
+    jtr = JaxTrainer(JaxDiscreteMLP(2, 9), JaxTrapEnv(), jax_distances.categorical_tvd,
+                     JaxTrainConfig(**KW))
+    jtr.train(1)
+    jax_save_checkpoint(jpath, jtr)
+    ptr = _trap()
+    ptr.train(1)
+    checkpoint.save_checkpoint(ppath, ptr)
+    with np.load(jpath) as j, np.load(ppath) as p:
+        assert set(p.files) == set(j.files) - {"key"} | {"generator"}
+        assert str(p["__meta__"]) == str(j["__meta__"])
+        assert p["epoch"].dtype == j["epoch"].dtype
+
+
+def test_save_is_atomic(tmp_path, monkeypatch):
+    """The file appears whole or not at all: a write that fails leaves the
+    previous checkpoint in place and publishes nothing."""
+    path = str(tmp_path / "run.npz")
+    tr = _trap()
+    tr.train(1)
+    checkpoint.save_checkpoint(path, tr)
+    assert not os.path.exists(path + ".tmp")
+    first = open(path, "rb").read()
+    tr.train(1)
+
+    def broken(f, **arrays):
+        f.write(b"partial")
+        raise OSError("disk full")
+
+    monkeypatch.setattr(np, "savez_compressed", broken)
+    with pytest.raises(OSError, match="disk full"):
+        checkpoint.save_checkpoint(path, tr)
+    assert open(path, "rb").read() == first
+    monkeypatch.undo()
+    fresh = _trap()
+    checkpoint.load_checkpoint(path, fresh)
+    assert fresh.state.epoch == 1
+
+
+def test_last_archived_blocks_a_duplicate(tmp_path):
+    """After a load, the next train call does not submit the restored flat
+    again (a distance-0 duplicate in the archive)."""
+    path = str(tmp_path / "run.npz")
+    tr = _trap(max_strategy_history_size=8)  # the archive stays unfull
+    tr.train(2)
+    checkpoint.save_checkpoint(path, tr)
+    fresh = _trap(max_strategy_history_size=8)
+    checkpoint.load_checkpoint(path, fresh)
+    n = len(fresh.handler.archive)
+    assert n == len(tr.handler.archive)
+    fresh._archive_current()
+    assert len(fresh.handler.archive) == n
+    fresh._last_archived = None  # without the guard the same flat goes in again
+    fresh._archive_current()
+    assert len(fresh.handler.archive) == n + 1

@@ -138,7 +138,7 @@ def test_trainer_on_card_matches_cpu(cuda):
                       max_strategy_history_size=4, random_seed=2, noise_backend="pallas",
                       antithetic=True, normalize_obs=True, obs_stats_update_chance=0.05)
     gen = torch.Generator().manual_seed(0)
-    draws = {e: make_draws(gen, 12, 201, 9, 8) for e in range(3)}
+    draws = {e: make_draws(gen, 12, 201, 9, 8, TrapEnv(device="cpu").sample_reset) for e in range(3)}
     gpu, cpu = (
         VectorizedTrainer(DiscreteMLP(2, 9, device=d), TrapEnv(device=d),
                           distances.categorical_tvd, cfg, device=d,
@@ -311,7 +311,8 @@ def test_impala_trainer_on_card_matches_cpu(cuda):
     cfg = TrainConfig(batch_size=8, learning_rate=0.05, noise_std=0.05, zeta_size=4,
                       max_strategy_history_size=4, random_seed=5, noise_backend="pallas")
     gen = torch.Generator().manual_seed(1)
-    draws = {e: make_draws(gen, 8, 10, 5, 4, 20) for e in range(3)}
+    draws = {e: make_draws(gen, 8, 10, 5, 4, ProcMazeEnv(grid=4, num_levels=20, device="cpu").sample_reset)
+             for e in range(3)}
 
     def make(d):
         env = ProcMazeEnv(grid=4, scale=8, max_steps=10, num_levels=20, device=d)
@@ -347,7 +348,8 @@ def test_impala_trainer_takes_full_f32_under_high_precision(cuda):
     cfg = TrainConfig(batch_size=8, learning_rate=0.05, noise_std=0.05, zeta_size=4,
                       max_strategy_history_size=4, random_seed=5, noise_backend="pallas")
     gen = torch.Generator().manual_seed(1)
-    draws = {e: make_draws(gen, 8, 10, 5, 4, 20) for e in range(2)}
+    draws = {e: make_draws(gen, 8, 10, 5, 4, ProcMazeEnv(grid=4, num_levels=20, device="cpu").sample_reset)
+             for e in range(2)}
 
     def run(precision, zeta=None):
         env = ProcMazeEnv(grid=4, scale=8, max_steps=10, num_levels=20, device=cuda)
@@ -893,7 +895,8 @@ def test_jax_backend_trainer_on_card_matches_cpu(cuda, kw):
                              **kw))
     E, Z = cfg.envs_per_perturbation, cfg.zeta_size
     gen = torch.Generator().manual_seed(0)
-    draws = {e: make_draws(gen, 12, 201, 9, Z, 1, E) for e in range(3)}
+    draws = {e: make_draws(gen, 12, 201, 9, Z, TrapEnv(device="cpu").sample_reset, E)
+             for e in range(3)}
     gpu, cpu = (
         VectorizedTrainer(DiscreteMLP(2, 9, device=d), TrapEnv(device=d),
                           distances.categorical_tvd, cfg, device=d,
@@ -939,3 +942,220 @@ def test_jax_backend_epoch_step_makes_no_host_synchronisation(cuda, kw):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert state.epoch == tr.state.epoch + 1
+
+
+# -- VBN, AtariCNN, PixelGridEnv, checkpoint and the eval panel on the card --------------
+
+
+def _bn_close(got, want, rtol=1e-5):
+    """BatchNorm statistics under ``utils/closeness.py``'s rule (means
+    summed in another order)."""
+    from dfd_tpu_torch.utils.closeness import bn_state_mismatch
+
+    faults, _ = bn_state_mismatch(got, want, rtol)
+    assert not faults, faults
+
+
+def test_batchnorm_train_on_card_matches_cpu(cuda):
+    from dfd_tpu_torch.models import layers
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(1, 4000, 24, generator=g) * 3 + 1
+    p = {"w": torch.rand(1, 24, generator=g) + 0.5, "b": torch.randn(1, 24, generator=g)}
+    s = {"mean": torch.randn(24, generator=g), "var": torch.rand(24, generator=g) + 0.1,
+         "n": torch.tensor(2.0)}
+    y, ns = layers.batchnorm_train(p, s, x)
+    on = lambda t: {k: v.to(cuda) for k, v in t.items()}
+    y_g, ns_g = layers.batchnorm_train(on(p), on(s), x.to(cuda))
+    torch.testing.assert_close(y_g.cpu(), y, rtol=1e-5, atol=1e-5)
+    _bn_close({"bn": ns_g}, {"bn": ns})
+
+
+def _vbn_models():
+    from dfd_tpu_torch.models import AtariCNN, DiscreteMLP, ImpalaPolicy
+
+    small = dict(channels=(8, 16, 16), hidden=32)
+    return {
+        "mlp": (lambda d: DiscreteMLP(2, 9, device=d), (60, 2), False),
+        "impala_patches": (lambda d: ImpalaPolicy((3, 32, 32), 5, device=d, **small),
+                           (20, 3, 32, 32), True),
+        "impala_fused_feat_bf16": (lambda d: ImpalaPolicy(
+            (3, 32, 32), 5, conv_impl="fused_feat", compute_dtype=torch.bfloat16, device=d,
+            **small), (20, 3, 32, 32), True),
+        "atari": (lambda d: AtariCNN((24, 24), 5, in_channels=3, device=d), (20, 3, 24, 24),
+                  False),
+        "atari_bf16": (lambda d: AtariCNN((24, 24), 5, in_channels=3,
+                                          compute_dtype=torch.bfloat16, device=d),
+                       (20, 3, 24, 24), False),
+    }
+
+
+@pytest.mark.parametrize("name", list(_vbn_models()))
+def test_model_vbn_on_card_matches_cpu(cuda, name):
+    """Each model's VBN refresh on the card against the CPU's, on the same
+    weights and buffer (IMPALA's with arrival rewards, in f32 whatever its
+    compute_dtype, launching no fused kernel).  bf16 AtariCNN: an f32
+    intermediate one ulp apart can round to the neighbouring bf16 value, so
+    its statistics are held to 2e-3 of their scale."""
+    make, shape, recurrent = _vbn_models()[name]
+    from dfd_tpu_torch.core.device import full_f32
+
+    models = {d: make(d) for d in ("cpu", cuda)}
+    params, state = models["cpu"].init(3)
+    flat = models["cpu"].get_flat(params)
+    flat = flat + 0.05 * torch.randn(flat.shape, generator=torch.Generator().manual_seed(1))
+    g = torch.Generator().manual_seed(2)
+    buffer = torch.rand(shape, generator=g) * (255 if recurrent else 1)
+    rewards = torch.randn(shape[0], generator=g) * 2
+    before = (fr.fused_res_stage.launches, fr.fused_feat_pool.launches)
+    out = {}
+    with full_f32():
+        for d, m in models.items():
+            st = {k: {n: v.to(d) for n, v in s.items()} for k, s in state.items()}
+            out[d] = m.vbn(m.set_flat(flat.to(d)[None]), st, buffer.to(d),
+                           rewards=rewards.to(d))
+    torch.cuda.synchronize()
+    assert (fr.fused_res_stage.launches, fr.fused_feat_pool.launches) == before
+    _bn_close(out[cuda], out["cpu"], rtol=2e-3 if name == "atari_bf16" else 1e-5)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_atari_forward_on_card_matches_cpu(cuda, bf16):
+    """AtariCNN's probabilities of a population of 3 on the card and the CPU
+    (bf16: to 2e-3, the neighbouring-bf16 rounding)."""
+    from dfd_tpu_torch.core.device import full_f32
+    from dfd_tpu_torch.models import AtariCNN
+
+    cd = torch.bfloat16 if bf16 else None
+    models = {d: AtariCNN((64, 64), 5, in_channels=3, compute_dtype=cd, device=d)
+              for d in ("cpu", cuda)}
+    params, state = models["cpu"].init(0)
+    flat = models["cpu"].get_flat(params)
+    g = torch.Generator().manual_seed(3)
+    flats = flat + 0.05 * torch.randn((3, flat.numel()), generator=g)
+    frames = torch.rand(3, 4, 3, 64, 64, generator=g)
+    with full_f32():
+        want = models["cpu"].apply(models["cpu"].set_flat(flats), state, frames)
+        st = {k: {n: v.to(cuda) for n, v in s.items()} for k, s in state.items()}
+        got = models[cuda].apply(models[cuda].set_flat(flats.to(cuda)), st, frames.to(cuda))
+    torch.testing.assert_close(got.cpu(), want, **(dict(rtol=0, atol=2e-3) if bf16 else
+                                                   dict(rtol=1e-5, atol=1e-6)))
+
+
+def test_pixelgrid_on_card_matches_cpu(cuda):
+    """40 steps of 64 episodes: states, frames, rewards and dones equal."""
+    from dfd_tpu_torch.envs import PixelGridEnv
+
+    envs = {d: PixelGridEnv(grid=8, scale=8, max_steps=40, intensity=1.0, device=d)
+            for d in ("cpu", cuda)}
+    g = torch.Generator().manual_seed(0)
+    draw = envs["cpu"].sample_reset((64,), g)
+    actions = torch.randint(0, 5, (40, 64), generator=g)
+    runs = {d: [env.reset(64, draw.to(d))] for d, env in envs.items()}
+    for d, env in envs.items():
+        state = runs[d][0][0]
+        for t in range(40):
+            state, obs, rew, done = env.step(state, actions[t].to(d))
+            runs[d].append((state, obs, rew, done))
+    for a, b in zip(runs["cpu"], runs[cuda]):
+        for x, y in zip(torch.utils._pytree.tree_leaves(a), torch.utils._pytree.tree_leaves(b)):
+            assert torch.equal(x, y.cpu())
+
+
+def test_vbn_trainer_on_card_matches_cpu(cuda):
+    """The trap MLP with a VBN buffer of 50 on the jax noise backend: flat,
+    bn_state and rewards of the card's trainer against the CPU's on the same
+    draws, zeta and buffer; one more epoch step makes no host sync."""
+    from dfd_tpu_torch.config import TrainConfig
+    from dfd_tpu_torch.envs import TrapEnv
+    from dfd_tpu_torch.models import DiscreteMLP
+    from dfd_tpu_torch.ops import distances
+    from dfd_tpu_torch.runners import VectorizedTrainer, make_draws
+
+    cfg = TrainConfig(batch_size=12, learning_rate=0.05, noise_std=0.05, zeta_size=8,
+                      max_strategy_history_size=4, random_seed=2, vbn_buffer_size=50)
+    gen = torch.Generator().manual_seed(0)
+    draws = {e: make_draws(gen, 12, 201, 9, 8, TrapEnv(device="cpu").sample_reset) for e in range(4)}
+    gpu, cpu = (VectorizedTrainer(DiscreteMLP(2, 9, device=d), TrapEnv(device=d),
+                                  distances.categorical_tvd, cfg, device=d,
+                                  draw_source=lambda e: draws[e]) for d in (cuda, "cpu"))
+    gpu.state = gpu.state._replace(zeta=cpu.state.zeta.to(cuda))
+    gpu._vbn_buffer = tuple(x.to(cuda) for x in cpu._vbn_buffer)
+    gpu.train(3)
+    cpu.train(3)
+    torch.testing.assert_close(gpu.state.flat.cpu(), cpu.state.flat, rtol=1e-5, atol=1e-6)
+    _bn_close(gpu.state.bn_state, cpu.state.bn_state)
+    for hg, hc in zip(gpu.reporter.history, cpu.reporter.history):
+        assert math.isclose(hg["Noisy Reward"], hc["Noisy Reward"], rel_tol=1e-6)
+    gpu.draw_source = gpu._own_draws  # drawn on the card: moving the CPU's draws would wait
+    archive, count = gpu._archive_inputs()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, _ = gpu._epoch_step(gpu.state, archive, count)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert float(state.bn_state["bn1"]["n"]) == 4
+
+
+def test_checkpoint_on_card_resumes_bit_for_bit(cuda, tmp_path):
+    """A CUDA generator's state (a CPU byte tensor) round-trips: the resumed
+    run's draws, flat and bn_state equal the unbroken run's bit for bit."""
+    from dfd_tpu_torch.config import TrainConfig
+    from dfd_tpu_torch.envs import TrapEnv
+    from dfd_tpu_torch.models import DiscreteMLP
+    from dfd_tpu_torch.ops import distances
+    from dfd_tpu_torch.runners import VectorizedTrainer
+    from dfd_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    cfg = TrainConfig(batch_size=16, learning_rate=0.05, noise_std=0.05, zeta_size=8,
+                      max_strategy_history_size=3, random_seed=1, vbn_buffer_size=30)
+    make = lambda: VectorizedTrainer(DiscreteMLP(2, 9, device=cuda), TrapEnv(device=cuda),
+                                     distances.categorical_tvd, cfg, device=cuda)
+    path = str(tmp_path / "card.npz")
+    a = make()
+    a.train(2)
+    save_checkpoint(path, a)
+    a.train(2)
+    b = make()
+    load_checkpoint(path, b)
+    b.train(2)
+    assert torch.equal(a.state.flat, b.state.flat)
+    for layer in a.state.bn_state:
+        for k, v in a.state.bn_state[layer].items():
+            assert torch.equal(v, b.state.bn_state[layer][k])
+    assert torch.equal(a.generator.get_state(), b.generator.get_state())
+
+
+def test_eval_panel_on_card_matches_cpu(cuda):
+    """The small fused_feat IMPALA's panel of 16 on the card (one torso call
+    a step, each launching the f32 fused kernels its stages take) equals the
+    CPU trainer's on the card's state, and moves nothing."""
+    from dfd_tpu_torch.config import TrainConfig
+    from dfd_tpu_torch.core.device import tree_to
+    from dfd_tpu_torch.envs import ProcMazeEnv
+    from dfd_tpu_torch.models import ImpalaPolicy
+    from dfd_tpu_torch.ops import distances
+    from dfd_tpu_torch.runners import VectorizedTrainer
+
+    cfg = TrainConfig(batch_size=8, learning_rate=0.05, noise_std=0.05, zeta_size=4,
+                      max_strategy_history_size=4, random_seed=4, vbn_buffer_size=10)
+
+    def make(d):
+        env = ProcMazeEnv(grid=4, scale=8, max_steps=10, num_levels=50, device=d)
+        model = ImpalaPolicy(env.obs_shape, 5, channels=(8, 16, 16), hidden=32,
+                             conv_impl="fused_feat", device=d)
+        return VectorizedTrainer(model, env, distances.categorical_tvd, cfg, device=d)
+
+    gpu, cpu = make(cuda), make("cpu")
+    gpu.train(2)
+    cpu.state = tree_to(gpu.state, "cpu")
+    res, feat = fr.fused_res_stage.launches, fr.fused_feat_pool.launches
+    before = gpu.generator.get_state()
+    got = gpu.eval_panel(16, panel_seed=5)
+    stages = gpu.model._stages  # at 3x32x32, 8/16/16: the res pair of stage 0, the feat of 1
+    per_call = (sum(st.res_fused for st in stages), sum(st.feat_fused for st in stages))
+    assert per_call == (1, 1)
+    assert (fr.fused_res_stage.launches - res, fr.fused_feat_pool.launches - feat) == (10, 10)
+    assert torch.equal(before, gpu.generator.get_state()) and gpu.state.epoch == 2
+    assert (got == cpu.eval_panel(16, panel_seed=5)).all()

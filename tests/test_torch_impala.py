@@ -289,9 +289,6 @@ def test_unported_options_raise():
         ImpalaPolicy(FRAME, 5, conv_impl="winograd", device=CPU)
     with pytest.raises(ValueError, match="compute_dtype"):
         ImpalaPolicy(FRAME, 5, compute_dtype=torch.float16, device=CPU)
-    pm = ImpalaPolicy(FRAME, 5, device=CPU, **SMALL)
-    with pytest.raises(NotImplementedError, match="VBN"):
-        pm.vbn({}, {}, None)
 
 
 def test_params_from_numpy_carries_the_lstm_and_bn_state():

@@ -62,14 +62,14 @@ def test_episode_rollout_matches_jax():
         )
 
     want = jax.jit(jax.vmap(one_episode))(flats, keys, det)
-    g, u, level = episode_draws(keys, T, 5, jenv.num_levels)
+    g, u, level = episode_draws(keys, T, 5, penv)
     _, bn = params_from_numpy(pm, params_np, bn_np, CPU)
     got = port_rollout.episode_rollout(
         pm, penv, pm.set_flat(torch.from_numpy(flats)), bn, T, torch.from_numpy(det),
         torch.from_numpy(zero), torch.from_numpy(one), normalize_obs=False,
-        obs_stats_update_chance=0.0, action_gumbel=torch.from_numpy(np.array(g))[:, None],
-        stats_uniform=torch.from_numpy(np.array(u))[:, None],
-        reset_level=torch.from_numpy(np.array(level))[:, None], collect_limit=Z,
+        obs_stats_update_chance=0.0, action_gumbel=torch.from_numpy(g)[:, None],
+        stats_uniform=torch.from_numpy(u)[:, None], reset_level=torch.from_numpy(level)[:, None],
+        collect_limit=Z,
     )
     got = got._replace(reward=got.reward[:, 0], entropy=got.entropy[:, 0], steps=got.steps[:, 0])
     np.testing.assert_array_equal(_np(got.reward), np.asarray(want.reward))

@@ -58,16 +58,15 @@ def _rollout_pair(normalize_obs):
         )
 
     want = jax.jit(jax.vmap(one))(flats, keys, det)
-    g, u, level = episode_draws(keys, T, 9)
+    g, u, level = episode_draws(keys, T, 9, TrapEnv(device=CPU))
 
     _, bn = params_from_numpy(pm, params_np, bn_np, CPU)
     got = port_rollout.episode_rollout(
         pm, TrapEnv(device=CPU), pm.set_flat(torch.from_numpy(flats)), bn, T,
         torch.from_numpy(det), torch.from_numpy(mean), torch.from_numpy(std),
         normalize_obs=normalize_obs, obs_stats_update_chance=0.3,
-        action_gumbel=torch.from_numpy(np.array(g))[:, None],
-        stats_uniform=torch.from_numpy(np.array(u))[:, None],
-        reset_level=torch.from_numpy(np.array(level))[:, None], collect_limit=Z,
+        action_gumbel=torch.from_numpy(g)[:, None], stats_uniform=torch.from_numpy(u)[:, None],
+        reset_level=torch.from_numpy(level)[:, None], collect_limit=Z,
     )
     got = got._replace(reward=got.reward[:, 0], entropy=got.entropy[:, 0], steps=got.steps[:, 0],
                        obs_stats=type(got.obs_stats)(*(x[:, 0] for x in got.obs_stats)))
@@ -180,7 +179,8 @@ def test_chunked_port_matches_unchunked_port():
     """The same draws through P = 16 at once and in chunks of 4: equal
     rewards every epoch, and flat within 1e-5."""
     gen = torch.Generator().manual_seed(7)
-    epoch_draws = [make_draws(gen, 16, 201, 9, 8, 1, 2) for _ in range(3)]
+    epoch_draws = [make_draws(gen, 16, 201, 9, 8, TrapEnv(device=CPU).sample_reset, 2)
+                   for _ in range(3)]
     trainers = [VectorizedTrainer(DiscreteMLP(2, 9, device=CPU), TrapEnv(device=CPU),
                                   distances.categorical_tvd,
                                   TrainConfig(**dict(JAX_BASE, envs_per_perturbation=2,
@@ -207,7 +207,6 @@ def _with_continuous_env():
 @pytest.mark.parametrize(
     "case, item",
     [
-        (lambda: dict(cfg=dict(vbn_buffer_size=4)), "Queue 1: VBN"),
         (lambda: dict(mesh=object()), "Queue 1: multi-device"),
         (_with_continuous_env, "Queue 1: GaussianMLP"),
     ],

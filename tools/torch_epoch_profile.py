@@ -1,6 +1,7 @@
 """Where one epoch of the PyTorch/CUDA port's trainer spends its time on the card.
 
-    python3 tools/torch_epoch_profile.py [--config {mlp_trap,impala_procmaze,impala_prod_bf16}]
+    python3 tools/torch_epoch_profile.py [--config {mlp_trap,impala_procmaze,impala_prod_bf16,
+                                                    impala_procmaze_vbn,cnn_pixelgrid}]
                                          [--out chiprun_out/torch_epoch_profile]
 
 Runs ``dfd_tpu_torch``'s ``VectorizedTrainer`` on one configuration, each
@@ -14,15 +15,20 @@ eps from ``normal_kernel``, the dense combine):
   P = 128, T = 40;
 - ``impala_prod_bf16`` (``bench.py:221-240``): ``ImpalaPolicy`` 64/128/128,
   hidden 512, bf16 operands, ``conv_impl="fused_feat"``, the same env,
-  P = 64, T = 40.
+  P = 64, T = 40;
+- ``impala_procmaze_vbn``: ``impala_procmaze`` with ``vbn_buffer_size=1000``
+  (the reference's launch value), its VBN refresh a range of its own;
+- ``cnn_pixelgrid`` (``bench.py:183-202``): ``AtariCNN`` on 3x64x64 frames,
+  bf16 operands, ``PixelGridEnv(grid=8, scale=8, max_steps=40,
+  intensity=1.0)``, P = 256, T = 40.
 
 It warms two epochs, times ten epochs of ``train`` without the profiler,
 then traces one more with ``torch.profiler``, its stages (perturb, rollout,
-novelty, combine) marked as profiler ranges; for the IMPALA configurations
+novelty, combine, vbn) marked as profiler ranges; for the pixel configurations
 the model's ``linear`` layers (the fc, 2048 -> 256 or 8192 -> 512, and the
 policy head), its ``lstm`` steps and its ``patches`` convs (stage 0's
 feature conv and stage 2's residual convs, whose 8x8 frames the fused
-kernels' gate leaves on that path) are ranges too.  Prints the untraced epochs' median and
+kernels' gate leaves on that path; the CNN's two convs) are ranges too.  Prints the untraced epochs' median and
 longest time, their env-steps/s and the median split between the epoch step
 and the host archive; the traced epoch's wall time, the device's busy time
 and idle share and the kernel launch count; each stage's host time and the
@@ -48,7 +54,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch  # noqa: E402
 
 
-STAGES = ("perturb", "rollout", "novelty", "combine")
+STAGES = ("perturb", "rollout", "novelty", "combine", "vbn")
 LAYERS = ("linear", "lstm", "patches")  # the IMPALA ranges inside the stages
 PORTED = ("normal_kernel", "perturb_kernel", "combine_kernel", "res_stage_mma_kernel",
           "feat_pool_mma_kernel", "res_stage_tf32_kernel", "feat_pool_tf32_kernel")
@@ -65,7 +71,7 @@ def _device_us(evt, total: bool = False) -> float:
 def _mark_stages(tr, layer_ranges: bool) -> None:
     """Wrap the epoch's stages in profiler ranges named by ``STAGES`` and,
     with ``layer_ranges``, the model layers named by ``LAYERS``."""
-    from dfd_tpu_torch.models import impala, layers
+    from dfd_tpu_torch.models import atari, impala, layers
     from dfd_tpu_torch.runners import vectorized
 
     def ranged(fn, name):
@@ -81,15 +87,18 @@ def _mark_stages(tr, layer_ranges: bool) -> None:
                 ranged(getattr(vectorized.fd_combine, name), "combine"))
     vectorized.fd_rollout.episode_rollout = ranged(vectorized.fd_rollout.episode_rollout, "rollout")
     tr._batch_novelty = ranged(tr._batch_novelty, "novelty")
+    tr.model.vbn = ranged(tr.model.vbn, "vbn")
     if layer_ranges:
         layers.linear = ranged(layers.linear, "linear")
         layers.lstm_step = ranged(layers.lstm_step, "lstm")
         impala.conv3x3_patches = ranged(impala.conv3x3_patches, "patches")
+        atari.conv2d = ranged(atari.conv2d, "patches")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", choices=("mlp_trap", "impala_procmaze", "impala_prod_bf16"),
+    ap.add_argument("--config", choices=("mlp_trap", "impala_procmaze", "impala_prod_bf16",
+                                         "impala_procmaze_vbn", "cnn_pixelgrid"),
                     default="mlp_trap")
     ap.add_argument("--out", default="chiprun_out/torch_epoch_profile")
     args = ap.parse_args()
@@ -100,8 +109,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from dfd_tpu_torch.config import TrainConfig
-    from dfd_tpu_torch.envs import ProcMazeEnv, TrapEnv
-    from dfd_tpu_torch.models import DiscreteMLP, ImpalaPolicy
+    from dfd_tpu_torch.envs import PixelGridEnv, ProcMazeEnv, TrapEnv
+    from dfd_tpu_torch.models import AtariCNN, DiscreteMLP, ImpalaPolicy
     from dfd_tpu_torch.ops import distances
     from dfd_tpu_torch.runners import VectorizedTrainer
     from dfd_tpu_torch.utils.profiling import trace
@@ -116,12 +125,19 @@ def main() -> int:
                           zeta_size=64, max_strategy_history_size=16, random_seed=0,
                           scan_unroll=8)
         tr = VectorizedTrainer(DiscreteMLP(2, 9), TrapEnv(), distances.categorical_tvd, cfg)
+    elif args.config == "cnn_pixelgrid":
+        env = PixelGridEnv(grid=8, scale=8, max_steps=40, intensity=1.0)
+        cfg = TrainConfig(batch_size=256, zeta_size=16, max_strategy_history_size=8,
+                          episode_length=40, random_seed=0)
+        model = AtariCNN((64, 64), env.n_actions, in_channels=3, compute_dtype=torch.bfloat16)
+        tr = VectorizedTrainer(model, env, distances.categorical_tvd, cfg)
     else:
         env = ProcMazeEnv(grid=8, scale=8, max_steps=40, num_levels=200)
         prod = args.config == "impala_prod_bf16"
         widths = dict(compute_dtype=torch.bfloat16, channels=(64, 128, 128), hidden=512)
         cfg = TrainConfig(batch_size=64 if prod else 128, zeta_size=8,
-                          max_strategy_history_size=4, episode_length=40, random_seed=0)
+                          max_strategy_history_size=4, episode_length=40, random_seed=0,
+                          vbn_buffer_size=1000 if args.config == "impala_procmaze_vbn" else 0)
         model = ImpalaPolicy(env.obs_shape, env.n_actions, conv_impl="fused_feat",
                              **(widths if prod else {}))
         tr = VectorizedTrainer(model, env, distances.categorical_tvd, cfg)
