@@ -18,11 +18,11 @@ carry at every step; both are frozen once the episode is done, as in the JAX
 package.  The weight layouts a forward derives from the weights alone are
 computed once per rollout (``model.prepare``).
 
-The randomness is passed in as draws instead of keys: ``action_gumbel``
-[M, E, T, A] (the Gumbel noise of the categorical sample), ``stats_uniform``
-[M, E, T] (the per-step coin of the sampled statistics) and ``reset_level``
-[M, E, *env.reset_shape] (each episode's reset draw: its level, for envs
-with levels).
+The randomness is passed in as draws instead of keys: ``action_noise``
+[M, E, T, A] (the Gumbel noise of a categorical sample, or the standard
+normals of a Gaussian one), ``stats_uniform`` [M, E, T] (the per-step coin of
+the sampled statistics) and ``reset_level`` [M, E, *env.reset_shape] (each
+episode's reset draw: its level, cells or start state).
 """
 
 from __future__ import annotations
@@ -57,7 +57,7 @@ def episode_rollout(
     obs_std: torch.Tensor,
     normalize_obs: bool,
     obs_stats_update_chance: float,
-    action_gumbel: torch.Tensor,
+    action_noise: torch.Tensor,
     stats_uniform: torch.Tensor,
     reset_level: torch.Tensor,
     collect_limit: int,
@@ -91,9 +91,10 @@ def episode_rollout(
             obs = torch.clamp((obs - obs_mean) / obs_std, -10, 10)
         action, step_entropy, new_carry = model.act_step(
             params, bn_state, obs, prev_reward, prev_done, carry, deterministic,
-            action_gumbel[:, :, t],
+            action_noise[:, :, t],
         )
-        new_env_state, new_obs, reward, step_done = env.step(env_state, action.reshape(N))
+        new_env_state, new_obs, reward, step_done = env.step(
+            env_state, action.reshape((N,) + action.shape[2:]))
         new_obs = new_obs.reshape((M, E) + obs_shape)
         reward, step_done = reward.reshape(M, E), step_done.reshape(M, E)
 

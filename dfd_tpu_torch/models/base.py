@@ -81,24 +81,31 @@ class PolicyModel(abc.ABC):
 
     def act_step(self, params: Params, state: State, obs: torch.Tensor,
                  prev_reward: torch.Tensor, prev_done: torch.Tensor, carry,
-                 deterministic: torch.Tensor, gumbel: torch.Tensor):
+                 deterministic: torch.Tensor, noise: torch.Tensor):
         """One acting step for each of E episodes of every member: (action
-        [M, E], entropy [M, E], carry).
+        [M, E] or [M, E, A], entropy [M, E], carry).
 
         ``obs`` [M, E, *obs], a member's E episodes forwarded through its
         own weights; ``prev_reward`` [M, E] the reward of the previous step
         and ``prev_done`` [M, E] whether the episode is over (read by
-        recurrent models only); ``deterministic`` [M] bool picks the argmax;
-        otherwise the action is ``argmax(log(max(p, 1e-38)) + gumbel)``
-        (``gumbel`` [M, E, A]), which is how ``jax.random.categorical``
-        samples, so feeding JAX's Gumbel draws reproduces its actions.  This
-        default serves feed-forward models and returns ``carry`` as it
+        recurrent models only); ``deterministic`` [M] bool picks the argmax,
+        or the mean.  ``noise`` [M, E, A] is each step's draw: for a
+        categorical policy Gumbel noise, and the action is
+        ``argmax(log(max(p, 1e-38)) + noise)``, which is how
+        ``jax.random.categorical`` samples; for a Gaussian policy standard
+        normals, and the action is ``mean + std * noise``, JAX's
+        ``mean + std * normal(key, (A,))``, its entropy summed over the
+        action's dimensions.  Feeding JAX's draws reproduces its actions.
+        This default serves feed-forward models and returns ``carry`` as it
         came."""
-        if not self.discrete:
-            raise NotImplementedError("continuous policies come with GaussianMLP")
-        probs = self.apply(params, state, obs)
-        action, entropy = sample_action(probs, deterministic, gumbel)
-        return action, entropy, carry
+        if self.discrete:
+            probs = self.apply(params, state, obs)
+            action, entropy = sample_action(probs, deterministic, noise)
+            return action, entropy, carry
+        mean, std = self.apply(params, state, obs)
+        det = deterministic.reshape(deterministic.shape + (1,) * (mean.ndim - 1))
+        action = torch.where(det, mean, mean + std * noise)
+        return action, layers.gaussian_entropy(std).sum(dim=-1), carry
 
     def get_flat(self, params: Params) -> torch.Tensor:
         return flatten(params, self.param_spec)

@@ -10,8 +10,10 @@ per-member forward.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 BN_EPS = 1e-5
@@ -91,3 +93,22 @@ def categorical_entropy(probs: torch.Tensor) -> torch.Tensor:
     pos = probs > 0
     plogp = torch.where(pos, probs * torch.log(torch.where(pos, probs, 1.0)), 0.0)
     return -plogp.sum(dim=-1)
+
+
+# 0.5 + 0.5 log(2 pi) in float32 as the JAX package computes it: log of the
+# float32 2 pi correctly rounded (numpy's float32 log is one ulp off here)
+_GAUSSIAN_ENTROPY_CONST = float(np.float32(0.5) + np.float32(0.5)
+                                * np.float32(math.log(np.float32(2 * np.pi))))
+
+
+def gaussian_entropy(std: torch.Tensor) -> torch.Tensor:
+    """Per-dimension Normal entropy 0.5 + 0.5 log(2 pi) + log std."""
+    return _GAUSSIAN_ENTROPY_CONST + torch.log(std)
+
+
+def map_continuous_to_action(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tanh head: the first half is the mean in [-1, 1]; the second maps to
+    a stddev in [0.1, 1.0] (reference utils/torch_helpers.py:15-25)."""
+    t = torch.tanh(y)
+    n = t.shape[-1] // 2
+    return t[..., :n], 0.55 + 0.45 * t[..., n:]

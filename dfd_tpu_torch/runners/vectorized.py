@@ -88,30 +88,36 @@ class EpochDraws(NamedTuple):
     E episodes a member; the eval slot's episodes repeat one draw, as the
     JAX trainer repeats its key, and only its episode 0 is read)."""
 
-    action_gumbel: torch.Tensor  # [M, E, T, A] Gumbel noise of each sampled action
+    action_noise: torch.Tensor   # [M, E, T, A] each sampled action's noise: Gumbel (categorical,
+                                 # A = n_actions) or standard normal (Gaussian, A = action_dim)
     stats_uniform: torch.Tensor  # [M, E, T] coin of the sampled observation statistics
     tie_signs: torch.Tensor      # [P] +-1 fitness of an all-equal batch
     zeta_perm: torch.Tensor      # [Z] zeta slots the eval states replace
-    reset_level: torch.Tensor    # [M, E, *env.reset_shape] int64 reset draw of each episode
-                                 # (its level in [0, num_levels) for envs with levels)
+    reset_level: torch.Tensor    # [M, E, *env.reset_shape] each episode's reset draw, the env's
+                                 # own: int64 (a level, cells) or float32 (a physics env's start)
 
 
-def make_draws(generator: torch.Generator, P: int, T: int, A: int, Z: int,
-               sample_reset: Callable[..., torch.Tensor], E: int = 1) -> EpochDraws:
-    """One epoch's draws from ``generator``, on its device.  The resets come
-    from ``sample_reset(shape, generator)``, an env's ``sample_reset``."""
+def make_draws(generator: torch.Generator, P: int, T: int, Z: int, env: TorchEnv,
+               E: int = 1) -> EpochDraws:
+    """One epoch's draws for ``env`` from ``generator``, on its device: its
+    ``action_width`` of Gumbel action noise for a discrete env, else of
+    standard normals, and its resets from ``env.sample_reset``."""
     dev = generator.device
-    u = torch.rand((P + 1, E, T, A), generator=generator, device=dev)
-    gumbel = -torch.log(-torch.log(u.clamp_min_(torch.finfo(torch.float32).tiny)))
+    A = env.action_width
+    if env.discrete:
+        u = torch.rand((P + 1, E, T, A), generator=generator, device=dev)
+        noise = -torch.log(-torch.log(u.clamp_min_(torch.finfo(torch.float32).tiny)))
+    else:
+        noise = torch.randn((P + 1, E, T, A), generator=generator, device=dev)
     stats_uniform = torch.rand((P + 1, E, T), generator=generator, device=dev)
     bits = torch.randint(0, 2, (P,), generator=generator, device=dev)
     tie_signs = (2 * bits - 1).to(torch.float32)
     zeta_perm = torch.randperm(Z, generator=generator, device=dev)
-    reset_level = sample_reset((P + 1, E), generator)
+    reset_level = env.sample_reset((P + 1, E), generator)
     # the eval slot repeats its episode 0
-    for x in (gumbel, stats_uniform, reset_level):
+    for x in (noise, stats_uniform, reset_level):
         x[P] = x[P, :1]
-    return EpochDraws(gumbel, stats_uniform, tie_signs, zeta_perm, reset_level)
+    return EpochDraws(noise, stats_uniform, tie_signs, zeta_perm, reset_level)
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -134,8 +140,6 @@ class VectorizedTrainer:
         self.device = resolve_device(device)
         if mesh is not None:
             raise _not_ported("a device mesh", "multi-device")
-        if not env.discrete:
-            raise _not_ported("a continuous action space", "GaussianMLP")
         if model.device != self.device or env.device != self.device:
             raise ValueError(
                 f"model ({model.device}) and env ({env.device}) must live on {self.device}"
@@ -221,7 +225,7 @@ class VectorizedTrainer:
         over, and the next epoch's resets are drawn from the new env."""
         if tuple(env.obs_shape) != tuple(self.env.obs_shape):
             raise ValueError(f"obs_shape mismatch: {env.obs_shape} vs {self.env.obs_shape}")
-        if env.discrete != self.env.discrete or env.n_actions != self.env.n_actions:
+        if env.discrete != self.env.discrete or env.action_width != self.env.action_width:
             raise ValueError("action space mismatch between old and new env")
         if env.device != self.device:
             raise ValueError(f"env ({env.device}) must live on {self.device}")
@@ -239,13 +243,13 @@ class VectorizedTrainer:
         and the epoch do not move."""
         keys = _levels.fold_in(_levels.key_data(panel_seed), np.arange(n_panel))
         reset = self.env.reset_draw(_levels.split(keys, 3)[:, 0])
-        state, T, A = self.state, self.horizon, self.env.n_actions
+        state, T, A = self.state, self.horizon, self.env.action_width
         obs_mean, obs_std = welford.mean_std(state.obs_stats)
         res = fd_rollout.episode_rollout(
             self.model, self.env, self.model.set_flat(state.flat[None]), state.bn_state, T,
             torch.ones(1, dtype=torch.bool, device=self.device), obs_mean, obs_std,
             normalize_obs=self.cfg.normalize_obs, obs_stats_update_chance=0.0,
-            action_gumbel=torch.zeros((1, n_panel, T, A), device=self.device),
+            action_noise=torch.zeros((1, n_panel, T, A), device=self.device),
             stats_uniform=torch.ones((1, n_panel, T), device=self.device),
             reset_level=torch.as_tensor(reset, device=self.device)[None], collect_limit=0,
         )
@@ -364,7 +368,7 @@ class VectorizedTrainer:
                 obs_mean=obs_mean, obs_std=obs_std,
                 normalize_obs=cfg.normalize_obs,
                 obs_stats_update_chance=cfg.obs_stats_update_chance,
-                action_gumbel=draws.action_gumbel[rows, :episodes],
+                action_noise=draws.action_noise[rows, :episodes],
                 stats_uniform=draws.stats_uniform[rows, :episodes],
                 reset_level=draws.reset_level[rows, :episodes],
                 collect_limit=collect_limit,
@@ -511,12 +515,12 @@ class VectorizedTrainer:
     # -- pieces ------------------------------------------------------------------
 
     def _own_draws(self, epoch: int) -> EpochDraws:
-        return make_draws(self.generator, self.P, self.horizon, self.env.n_actions,
-                          self.state.zeta.shape[0], self.env.sample_reset, E=self.E)
+        return make_draws(self.generator, self.P, self.horizon, self.state.zeta.shape[0],
+                          self.env, E=self.E)
 
     def _checked_draws(self, epoch: int, Z: int) -> EpochDraws:
         draws = EpochDraws(*(x.to(self.device) for x in self.draw_source(epoch)))
-        M, E, T, A = self.P + 1, self.E, self.horizon, self.env.n_actions
+        M, E, T, A = self.P + 1, self.E, self.horizon, self.env.action_width
         expect = ((M, E, T, A), (M, E, T), (self.P,), (Z,), (M, E) + tuple(self.env.reset_shape))
         got = tuple(tuple(x.shape) for x in draws)
         if got != expect:
@@ -549,10 +553,13 @@ class VectorizedTrainer:
         return new_zeta
 
     def _archive_inputs(self):
-        """Fixed-shape archive tensor [H, Z, F] on the device + valid count."""
+        """Fixed-shape archive tensor [H, Z, F] on the device + valid count;
+        F is the strategy's width: the action count, or 2 action_dim for a
+        Gaussian policy's (mean, std)."""
         t = self.handler.strategy_tensor
         Z = self.state.zeta.shape[0]
-        full = np.zeros((self.H, Z, self.model.output_shape), np.float32)
+        F = self.model.output_shape if self.model.discrete else 2 * self.model.output_shape
+        full = np.zeros((self.H, Z, F), np.float32)
         count = 0
         if isinstance(t, np.ndarray) and t.ndim == 3:
             count = min(len(t), self.H)
@@ -561,15 +568,20 @@ class VectorizedTrainer:
 
     def _seed_buffer(self, n: int, with_rewards: bool = False):
         """Observation buffer [n, *obs] from a random-action rollout of one
-        env (reference run_sequential.py:198-213); ``with_rewards`` also
+        env (reference run_sequential.py:198-213), the actions uniform over
+        the discrete ones or in [-1, 1) each dimension; ``with_rewards`` also
         returns each observation's arrival reward [n] (0 at resets), what a
         recurrent policy's VBN pass reads through its LSTM."""
         env = self.env
         if n == 0:
             return torch.zeros((0,) + tuple(env.obs_shape), dtype=torch.float32,
                                device=self.device)
-        actions = torch.randint(0, env.n_actions, (n,), generator=self.generator,
-                                device=self.device)
+        if env.discrete:
+            actions = torch.randint(0, env.n_actions, (n,), generator=self.generator,
+                                    device=self.device)
+        else:
+            actions = torch.rand((n, env.action_dim), generator=self.generator,
+                                 device=self.device) * 2.0 - 1.0
         resets = env.sample_reset((n + 1,), self.generator)  # one draw per reset
         env_state, obs = env.reset(1, resets[:1])
         reward = torch.zeros(1, dtype=torch.float32, device=self.device)

@@ -19,7 +19,9 @@ rebuild one epoch's draws from the JAX trainer's own key chain with
   words on the host; step t draws from ``fold_in(act, t)`` and
   ``fold_in(stats, t)``;
 - ``jax.random.categorical(k, logits)`` is ``argmax(gumbel(k, (A,)) +
-  logits)``, so the Gumbel draw reproduces JAX's sampled action.
+  logits)``, so the Gumbel draw reproduces JAX's sampled action; a Gaussian
+  policy acts ``mean + std * normal(k, (A,))`` (``models/base.py:106-108``),
+  so for a continuous env the draw is that normal.
 """
 
 from __future__ import annotations
@@ -36,13 +38,15 @@ from dfd_tpu_torch.utils.closeness import bn_state_mismatch
 torch.set_num_threads(1)  # the suite runs under xdist: one thread per worker
 
 
-def _episode_draws(keys, T: int, A: int):
-    """(gumbel [M, T, A], stats uniform [M, T], reset key words [M, 2])."""
+def _episode_draws(keys, T: int, A: int, discrete: bool = True):
+    """(action noise [M, T, A]: Gumbel for a discrete env, else normal;
+    stats uniform [M, T]; reset key words [M, 2])."""
+    draw = jax.random.gumbel if discrete else jax.random.normal
 
     def one(k):
         reset, act, stats = jax.random.split(k, 3)
         ts = jnp.arange(T)
-        g = jax.vmap(lambda t: jax.random.gumbel(jax.random.fold_in(act, t), (A,), jnp.float32))(ts)
+        g = jax.vmap(lambda t: draw(jax.random.fold_in(act, t), (A,), jnp.float32))(ts)
         u = jax.vmap(lambda t: jax.random.uniform(jax.random.fold_in(stats, t)))(ts)
         return g, u, jax.random.key_data(reset)
 
@@ -50,10 +54,11 @@ def _episode_draws(keys, T: int, A: int):
 
 
 def episode_draws(keys, T: int, A: int, env):
-    """(gumbel [M, T, A], stats uniform [M, T], reset draw [M, *reset_shape])
-    of the episodes keyed by ``keys``, the resets those the port ``env``
-    computes from the reset keys."""
-    g, u, reset = _episode_draws(keys, T, A)
+    """(action noise [M, T, A], stats uniform [M, T], reset draw
+    [M, *reset_shape]) of the episodes keyed by ``keys``, the resets those
+    the port ``env`` computes from the reset keys; the noise Gumbel or
+    normal as ``env`` is discrete or continuous."""
+    g, u, reset = _episode_draws(keys, T, A, env.discrete)
     return np.array(g), np.array(u), env.reset_draw(np.array(reset))
 
 
@@ -67,11 +72,11 @@ def episode_keys(roll_key, eval_key, P: int, E: int):
     return jnp.concatenate([keys, jnp.repeat(eval_key[None, None], E, axis=1)])
 
 
-@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4, 5))
-def _epoch_draws(key, P: int, T: int, A: int, Z: int, E: int):
+@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4, 5, 6))
+def _epoch_draws(key, P: int, T: int, A: int, Z: int, E: int, discrete: bool):
     key, _eps, roll_key, eval_key, tie_key, zeta_key = jax.random.split(key, 6)
     keys = episode_keys(roll_key, eval_key, P, E).reshape(-1)
-    g, u, reset = _episode_draws(keys, T, A)
+    g, u, reset = _episode_draws(keys, T, A, discrete)
     tie = jax.random.rademacher(tie_key, (P,), jnp.float32)
     perm = jax.random.permutation(zeta_key, Z)
     M = P + 1
@@ -83,10 +88,11 @@ def jax_epoch_draws(jax_trainer, env):
     the resets computed by the port ``env`` from JAX's reset keys."""
     from dfd_tpu_torch.runners import EpochDraws
 
-    st = jax_trainer.state
-    *out, reset = _epoch_draws(st.key, jax_trainer.P, jax_trainer.horizon,
-                               jax_trainer.env.n_actions, int(st.zeta.shape[0]),
-                               jax_trainer.cfg.envs_per_perturbation)
+    st, jenv = jax_trainer.state, jax_trainer.env
+    A = jenv.n_actions if jenv.discrete else jenv.action_dim
+    *out, reset = _epoch_draws(st.key, jax_trainer.P, jax_trainer.horizon, A,
+                               int(st.zeta.shape[0]), jax_trainer.cfg.envs_per_perturbation,
+                               jenv.discrete)
     out.append(env.reset_draw(np.array(reset)))
     return EpochDraws(*(torch.from_numpy(np.array(x)) for x in out))
 
@@ -168,11 +174,17 @@ METRICS = ("Policy Reward", "Policy Entropy", "Policy Novelty", "Noisy Reward",
            "Noisy Novelty", "Update Magnitude", "Omega", "Epoch", "Cumulative Timesteps")
 
 
-def run_and_compare(jtr, ptr, draws, n_epochs, monkeypatch, loose=(), loose_rtol=1e-5):
+def run_and_compare(jtr, ptr, draws, n_epochs, monkeypatch, loose=(), loose_rtol=1e-5,
+                    reward_rtol=None, flat_rtol=1e-5, loose_atol=0.0):
     """``train(1)`` on both trainers ``n_epochs`` times, the port on JAX's
-    draws; after every epoch the port's per-member rewards equal JAX's, and
-    ``flat``, every reported metric (those in ``loose`` to ``loose_rtol``),
-    the timestep count, the archive size, zeta and ``bn_state`` agree."""
+    draws; after every epoch the port's per-member rewards equal JAX's
+    (within ``reward_rtol`` of the largest |reward| where it is given: a
+    continuous env's float rewards; a categorical env's stay exact), and
+    ``flat`` (to ``flat_rtol``), every reported metric (those in ``loose``
+    to ``loose_rtol`` and ``loose_atol``: a number, or a dict of each
+    metric's), the timestep count, the archive size, zeta (a
+    continuous env's observations within ``reward_rtol`` of their largest)
+    and ``bn_state`` agree."""
     from dfd_tpu_torch.fd import rollout as port_rollout
 
     seen = []
@@ -193,16 +205,24 @@ def run_and_compare(jtr, ptr, draws, n_epochs, monkeypatch, loose=(), loose_rtol
         calls = port_rollout_rows(ptr, epoch)
         assert len(seen) == len(calls), f"epoch {e}: {len(seen)} rollouts"
         for res, (rows, episodes) in zip(seen, calls):
-            np.testing.assert_array_equal(res.reward.cpu().numpy(),
-                                          want_rewards[rows, :episodes], err_msg=f"epoch {e}")
+            got, want = res.reward.cpu().numpy(), want_rewards[rows, :episodes]
+            if reward_rtol is None:
+                np.testing.assert_array_equal(got, want, err_msg=f"epoch {e}")
+            else:
+                np.testing.assert_allclose(got, want, rtol=0,
+                                           atol=reward_rtol * np.abs(want).max(),
+                                           err_msg=f"epoch {e}")
         np.testing.assert_allclose(ptr.state.flat.cpu().numpy(), np.asarray(jtr.state.flat),
-                                   rtol=1e-5, atol=1e-6, err_msg=f"epoch {e}")
+                                   rtol=flat_rtol, atol=1e-6, err_msg=f"epoch {e}")
         jm, pm = jtr.reporter.history[-1], ptr.reporter.history[-1]
         for k in METRICS:
             np.testing.assert_allclose(pm[k], jm[k], rtol=loose_rtol if k in loose else 1e-5,
+                                       atol=(loose_atol.get(k, 0.0) if isinstance(loose_atol, dict)
+                                             else loose_atol) if k in loose else 0.0,
                                        err_msg=f"epoch {e}: {k}")
         assert ptr.cumulative_timesteps == jtr.cumulative_timesteps
         assert len(ptr.handler.archive) == len(jtr.handler.archive)
-        np.testing.assert_allclose(ptr.state.zeta.cpu().numpy(), np.asarray(jtr.state.zeta),
-                                   rtol=1e-6)
+        zeta = np.asarray(jtr.state.zeta)
+        zeta_atol = 0 if reward_rtol is None else reward_rtol * max(1.0, np.abs(zeta).max())
+        np.testing.assert_allclose(ptr.state.zeta.cpu().numpy(), zeta, rtol=1e-6, atol=zeta_atol)
         assert_bn_close(ptr.state.bn_state, jtr.state.bn_state, f"epoch {e}: bn_state")

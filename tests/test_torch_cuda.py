@@ -138,7 +138,7 @@ def test_trainer_on_card_matches_cpu(cuda):
                       max_strategy_history_size=4, random_seed=2, noise_backend="pallas",
                       antithetic=True, normalize_obs=True, obs_stats_update_chance=0.05)
     gen = torch.Generator().manual_seed(0)
-    draws = {e: make_draws(gen, 12, 201, 9, 8, TrapEnv(device="cpu").sample_reset) for e in range(3)}
+    draws = {e: make_draws(gen, 12, 201, 8, TrapEnv(device="cpu")) for e in range(3)}
     gpu, cpu = (
         VectorizedTrainer(DiscreteMLP(2, 9, device=d), TrapEnv(device=d),
                           distances.categorical_tvd, cfg, device=d,
@@ -311,7 +311,7 @@ def test_impala_trainer_on_card_matches_cpu(cuda):
     cfg = TrainConfig(batch_size=8, learning_rate=0.05, noise_std=0.05, zeta_size=4,
                       max_strategy_history_size=4, random_seed=5, noise_backend="pallas")
     gen = torch.Generator().manual_seed(1)
-    draws = {e: make_draws(gen, 8, 10, 5, 4, ProcMazeEnv(grid=4, num_levels=20, device="cpu").sample_reset)
+    draws = {e: make_draws(gen, 8, 10, 4, ProcMazeEnv(grid=4, num_levels=20, device="cpu"))
              for e in range(3)}
 
     def make(d):
@@ -348,7 +348,7 @@ def test_impala_trainer_takes_full_f32_under_high_precision(cuda):
     cfg = TrainConfig(batch_size=8, learning_rate=0.05, noise_std=0.05, zeta_size=4,
                       max_strategy_history_size=4, random_seed=5, noise_backend="pallas")
     gen = torch.Generator().manual_seed(1)
-    draws = {e: make_draws(gen, 8, 10, 5, 4, ProcMazeEnv(grid=4, num_levels=20, device="cpu").sample_reset)
+    draws = {e: make_draws(gen, 8, 10, 4, ProcMazeEnv(grid=4, num_levels=20, device="cpu"))
              for e in range(2)}
 
     def run(precision, zeta=None):
@@ -895,7 +895,7 @@ def test_jax_backend_trainer_on_card_matches_cpu(cuda, kw):
                              **kw))
     E, Z = cfg.envs_per_perturbation, cfg.zeta_size
     gen = torch.Generator().manual_seed(0)
-    draws = {e: make_draws(gen, 12, 201, 9, Z, TrapEnv(device="cpu").sample_reset, E)
+    draws = {e: make_draws(gen, 12, 201, Z, TrapEnv(device="cpu"), E)
              for e in range(3)}
     gpu, cpu = (
         VectorizedTrainer(DiscreteMLP(2, 9, device=d), TrapEnv(device=d),
@@ -1075,7 +1075,7 @@ def test_vbn_trainer_on_card_matches_cpu(cuda):
     cfg = TrainConfig(batch_size=12, learning_rate=0.05, noise_std=0.05, zeta_size=8,
                       max_strategy_history_size=4, random_seed=2, vbn_buffer_size=50)
     gen = torch.Generator().manual_seed(0)
-    draws = {e: make_draws(gen, 12, 201, 9, 8, TrapEnv(device="cpu").sample_reset) for e in range(4)}
+    draws = {e: make_draws(gen, 12, 201, 8, TrapEnv(device="cpu")) for e in range(4)}
     gpu, cpu = (VectorizedTrainer(DiscreteMLP(2, 9, device=d), TrapEnv(device=d),
                                   distances.categorical_tvd, cfg, device=d,
                                   draw_source=lambda e: draws[e]) for d in (cuda, "cpu"))
@@ -1159,3 +1159,109 @@ def test_eval_panel_on_card_matches_cpu(cuda):
     assert (fr.fused_res_stage.launches - res, fr.fused_feat_pool.launches - feat) == (10, 10)
     assert torch.equal(before, gpu.generator.get_state()) and gpu.state.epoch == 2
     assert (got == cpu.eval_panel(16, panel_seed=5)).all()
+
+
+# -- the swimmer's step kernel and the Gaussian trainer on the card ----------------------
+
+
+def _rel(got, want) -> float:
+    return ((got.double() - want.double()).abs().max()
+            / want.double().abs().max().clamp_min(1)).item()
+
+
+@pytest.mark.parametrize("n_links, N", [(7, 513), (3, 37), (5, 37), (7, 1)])
+def test_swimmer_kernel_matches_plain(cuda, n_links, N):
+    """swimmer_step_kernel against swimmer_step_plain from random states
+    (angles and velocities in [-1, 1], actions in [-1.5, 1.5]), one launch a
+    step: after one step qdot and obs within twice float32's conditioning
+    bound cond(M + dt D) 2^-24 (~5e3 at 7 links), q within dt frame_skip of
+    it, the reward within 2e-5; after 100 wave-gait steps qdot 1e-3, q 5e-4,
+    the reward 1e-4; t and done exact throughout."""
+    from dfd_tpu_torch.envs import SwimmerEnv
+    from dfd_tpu_torch.ops import swimmer as sw
+
+    env = SwimmerEnv(n_links=n_links, max_steps=100, device=cuda)
+    c = env.consts
+    g = torch.Generator(cuda).manual_seed(n_links)
+    unif = lambda *shape, lim: (torch.rand(*shape, generator=g, device=cuda) * 2 - 1) * lim
+    q, qd, a = unif(N, c.ndof, lim=1.0), unif(N, c.ndof, lim=1.0), unif(N, n_links - 1, lim=1.5)
+    t = torch.randint(0, 100, (N,), generator=g, device=cuda)
+    c64 = c._replace(T=c.T.double(), Aphi=c.Aphi.double(), M0=c.M0.double(), D0=c.D0.double())
+    M, D, _ = sw.terms_closed(c64, q.double(), qd.double())
+    tol = 2 * torch.linalg.cond(M + c.dt * D).max().item() * 2.0 ** -24
+    before = sw.swimmer_step.launches
+    got, want = sw.swimmer_step(c, q, qd, t, a), sw.swimmer_step_plain(c, q, qd, t, a)
+    assert sw.swimmer_step.launches - before == 1
+    assert _rel(got[1], want[1]) <= tol and _rel(got[3], want[3]) <= tol
+    assert _rel(got[0], want[0]) <= c.dt * c.frame_skip * tol * max(1.0, want[1].abs().max().item())
+    assert (got[4] - want[4]).abs().max().item() <= 2e-5
+    assert torch.equal(got[2], want[2]) and torch.equal(got[5], want[5])
+    ka = kp = (q, qd, torch.zeros(N, dtype=torch.int64, device=cuda))
+    for s in range(100):
+        act = torch.sin(0.4 * s + 0.8 * torch.arange(n_links - 1, device=cuda,
+                                                      dtype=torch.float32))
+        act = act.expand(N, -1).contiguous()
+        kk, pp = sw.swimmer_step(c, *ka, act), sw.swimmer_step_plain(c, *kp, act)
+        assert torch.equal(kk[2], pp[2]) and torch.equal(kk[5], pp[5])
+        ka, kp = kk[:3], pp[:3]
+    assert _rel(kk[1], pp[1]) <= 1e-3 and _rel(kk[0], pp[0]) <= 5e-4
+    assert (kk[4] - pp[4]).abs().max().item() <= 1e-4 and pp[5].all()
+
+
+def test_swimmer_wrapper_refuses_on_the_card_what_the_cpu_refuses(cuda):
+    """The CPU test's refusals on CUDA tensors, with no launch; an empty
+    batch returns without one."""
+    from dfd_tpu_torch.envs import SwimmerEnv
+    from dfd_tpu_torch.ops import swimmer as sw
+
+    env = SwimmerEnv(n_links=3, device=cuda)
+    state, _ = env.reset(4, torch.zeros(4, 8, device=cuda))
+    c, a = env.consts, torch.zeros(4, 2, device=cuda)
+    before = sw.swimmer_step.launches
+    for args, what in [((state.q.double(), state.qdot, state.t, a), "q must be"),
+                       ((state.q, state.qdot, state.t.int(), a), "t must be"),
+                       ((state.q, state.qdot, state.t, torch.zeros(4, 3, device=cuda)),
+                        "action must be"),
+                       ((state.q, state.qdot, state.t, a.cpu()), "must lie on q's device")]:
+        with pytest.raises(ValueError, match=what):
+            sw.swimmer_step(c, *args)
+    with pytest.raises(ValueError, match="n_links must be one of"):
+        sw.swimmer_step(c._replace(n_links=4), state.q, state.qdot, state.t, a)
+    out = sw.swimmer_step(c, state.q[:0], state.qdot[:0], state.t[:0], a[:0])
+    assert sw.swimmer_step.launches == before and out[3].shape == (0, 8)
+
+
+@pytest.mark.parametrize("backend", ["jax", "pallas"])
+def test_gaussian_trainer_on_card_matches_cpu(cuda, backend):
+    """GaussianMLP on SwimmerEnv at P = 8, T = 25, normalized observations,
+    3 epochs on the same draws: swimmer_step_kernel T times an epoch; flat,
+    the observation statistics and the mean rewards within 1e-4 of the CPU
+    trainer's (the swimmer's float32 conditioning; the CPU tests hold the
+    CPU trainer to JAX's at the same tolerance)."""
+    from dfd_tpu_torch.config import TrainConfig
+    from dfd_tpu_torch.envs import SwimmerEnv
+    from dfd_tpu_torch.models import GaussianMLP
+    from dfd_tpu_torch.ops import distances
+    from dfd_tpu_torch.ops import swimmer as sw
+    from dfd_tpu_torch.runners import VectorizedTrainer, make_draws
+
+    cfg = TrainConfig(batch_size=8, learning_rate=0.05, noise_std=0.05, zeta_size=4,
+                      max_strategy_history_size=4, episode_length=25, random_seed=5,
+                      normalize_obs=True, obs_stats_update_chance=0.2, noise_backend=backend)
+    gen = torch.Generator().manual_seed(8)
+    draws = {e: make_draws(gen, 8, 25, 4, SwimmerEnv(device="cpu")) for e in range(3)}
+    gpu, cpu = (VectorizedTrainer(GaussianMLP(16, 6, device=d), SwimmerEnv(device=d),
+                                  distances.gaussian_wasserstein_from_strategies, cfg, device=d,
+                                  draw_source=lambda e: draws[e]) for d in (cuda, "cpu"))
+    gpu.state = gpu.state._replace(zeta=cpu.state.zeta.to(cuda))
+    before = sw.swimmer_step.launches
+    gpu.train(3)
+    cpu.train(3)
+    assert sw.swimmer_step.launches - before == 3 * 25
+    torch.testing.assert_close(gpu.state.flat.cpu(), cpu.state.flat, rtol=1e-4, atol=1e-6)
+    for a, b in zip(gpu.state.obs_stats, cpu.state.obs_stats):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-4 * max(1.0, b.abs().max().item()))
+    for hg, hc in zip(gpu.reporter.history, cpu.reporter.history):
+        for k in ("Noisy Reward", "Policy Reward"):
+            assert math.isclose(hg[k], hc[k], rel_tol=1e-4, abs_tol=1e-5), (k, hg[k], hc[k])
+        assert hg["Cumulative Timesteps"] == hc["Cumulative Timesteps"]

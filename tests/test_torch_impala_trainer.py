@@ -67,7 +67,7 @@ def test_episode_rollout_matches_jax():
     got = port_rollout.episode_rollout(
         pm, penv, pm.set_flat(torch.from_numpy(flats)), bn, T, torch.from_numpy(det),
         torch.from_numpy(zero), torch.from_numpy(one), normalize_obs=False,
-        obs_stats_update_chance=0.0, action_gumbel=torch.from_numpy(g)[:, None],
+        obs_stats_update_chance=0.0, action_noise=torch.from_numpy(g)[:, None],
         stats_uniform=torch.from_numpy(u)[:, None], reset_level=torch.from_numpy(level)[:, None],
         collect_limit=Z,
     )

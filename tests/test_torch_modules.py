@@ -70,7 +70,8 @@ def test_port_sources_import_no_jax():
     assert {ROOT / "dfd_tpu_torch" / m for m in (
         "ops/gemm_chain.py", "ops/relayout.py", "ops/res_chain.py", "probes/_common.py",
         "probes/gemm.py", "probes/torso.py", "probes/pool.py", "probes/wide.py",
-        "core/noise.py", "ops/noise.py")} <= set(files)
+        "core/noise.py", "ops/noise.py", "ops/smallsolve.py", "ops/swimmer.py",
+        "envs/swimmer.py", "envs/pendulum.py", "envs/cartpole.py", "models/mujoco.py")} <= set(files)
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders, offenders
 

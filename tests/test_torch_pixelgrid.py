@@ -178,7 +178,7 @@ def test_atari_episode_rollout_on_pixelgrid_matches_jax():
     g, u, reset = episode_draws(keys, T_, 5, penv)
     got = port_rollout.episode_rollout(
         pm, penv, pm.set_flat(T(flats)), bn, T_, T(det), T(zero), T(one), normalize_obs=False,
-        obs_stats_update_chance=0.0, action_gumbel=T(g)[:, None], stats_uniform=T(u)[:, None],
+        obs_stats_update_chance=0.0, action_noise=T(g)[:, None], stats_uniform=T(u)[:, None],
         reset_level=T(reset)[:, None], collect_limit=Z,
     )
     np.testing.assert_array_equal(_np(got.reward[:, 0]), np.asarray(want.reward))

@@ -65,7 +65,7 @@ def _rollout_pair(normalize_obs):
         pm, TrapEnv(device=CPU), pm.set_flat(torch.from_numpy(flats)), bn, T,
         torch.from_numpy(det), torch.from_numpy(mean), torch.from_numpy(std),
         normalize_obs=normalize_obs, obs_stats_update_chance=0.3,
-        action_gumbel=torch.from_numpy(g)[:, None], stats_uniform=torch.from_numpy(u)[:, None],
+        action_noise=torch.from_numpy(g)[:, None], stats_uniform=torch.from_numpy(u)[:, None],
         reset_level=torch.from_numpy(level)[:, None], collect_limit=Z,
     )
     got = got._replace(reward=got.reward[:, 0], entropy=got.entropy[:, 0], steps=got.steps[:, 0],
@@ -179,7 +179,7 @@ def test_chunked_port_matches_unchunked_port():
     """The same draws through P = 16 at once and in chunks of 4: equal
     rewards every epoch, and flat within 1e-5."""
     gen = torch.Generator().manual_seed(7)
-    epoch_draws = [make_draws(gen, 16, 201, 9, 8, TrapEnv(device=CPU).sample_reset, 2)
+    epoch_draws = [make_draws(gen, 16, 201, 8, TrapEnv(device=CPU), 2)
                    for _ in range(3)]
     trainers = [VectorizedTrainer(DiscreteMLP(2, 9, device=CPU), TrapEnv(device=CPU),
                                   distances.categorical_tvd,
@@ -196,19 +196,10 @@ def test_chunked_port_matches_unchunked_port():
                                atol=1e-6)
 
 
-class _ContinuousTrap(TrapEnv):
-    discrete = False
-
-
-def _with_continuous_env():
-    return dict(env=_ContinuousTrap(device=CPU))
-
-
 @pytest.mark.parametrize(
     "case, item",
     [
         (lambda: dict(mesh=object()), "Queue 1: multi-device"),
-        (_with_continuous_env, "Queue 1: GaussianMLP"),
     ],
 )
 def test_unported_paths_raise(case, item):

@@ -1,7 +1,8 @@
 """Where one epoch of the PyTorch/CUDA port's trainer spends its time on the card.
 
     python3 tools/torch_epoch_profile.py [--config {mlp_trap,impala_procmaze,impala_prod_bf16,
-                                                    impala_procmaze_vbn,cnn_pixelgrid}]
+                                                    impala_procmaze_vbn,cnn_pixelgrid,
+                                                    gaussian_swimmer}]
                                          [--out chiprun_out/torch_epoch_profile]
 
 Runs ``dfd_tpu_torch``'s ``VectorizedTrainer`` on one configuration, each
@@ -20,15 +21,20 @@ eps from ``normal_kernel``, the dense combine):
   (the reference's launch value), its VBN refresh a range of its own;
 - ``cnn_pixelgrid`` (``bench.py:183-202``): ``AtariCNN`` on 3x64x64 frames,
   bf16 operands, ``PixelGridEnv(grid=8, scale=8, max_steps=40,
-  intensity=1.0)``, P = 256, T = 40.
+  intensity=1.0)``, P = 256, T = 40;
+- ``gaussian_swimmer`` (``bench.py:173-181``): ``GaussianMLP(16, 6)`` on
+  ``SwimmerEnv(max_steps=100)`` (7 links, one ``swimmer_step_kernel``
+  launch a step), the Wasserstein distance, P = 512, T = 100,
+  ``normalize_obs=True``.
 
 It warms two epochs, times ten epochs of ``train`` without the profiler,
 then traces one more with ``torch.profiler``, its stages (perturb, rollout,
-novelty, combine, vbn) marked as profiler ranges; for the pixel configurations
-the model's ``linear`` layers (the fc, 2048 -> 256 or 8192 -> 512, and the
-policy head), its ``lstm`` steps and its ``patches`` convs (stage 0's
-feature conv and stage 2's residual convs, whose 8x8 frames the fused
-kernels' gate leaves on that path; the CNN's two convs) are ranges too.  Prints the untraced epochs' median and
+novelty, combine, vbn) marked as profiler ranges; for every configuration
+but ``mlp_trap`` the model's ``linear`` layers (the fc, 2048 -> 256 or
+8192 -> 512, and the policy head; the Gaussian MLP's three), its ``lstm``
+steps, its ``patches`` convs (stage 0's feature conv and stage 2's residual
+convs, whose 8x8 frames the fused kernels' gate leaves on that path; the
+CNN's two convs) and the env's ``step`` (``env``) are ranges too.  Prints the untraced epochs' median and
 longest time, their env-steps/s and the median split between the epoch step
 and the host archive; the traced epoch's wall time, the device's busy time
 and idle share and the kernel launch count; each stage's host time and the
@@ -55,9 +61,10 @@ import torch  # noqa: E402
 
 
 STAGES = ("perturb", "rollout", "novelty", "combine", "vbn")
-LAYERS = ("linear", "lstm", "patches")  # the IMPALA ranges inside the stages
+LAYERS = ("linear", "lstm", "patches", "env")  # the model's and env's ranges inside the stages
 PORTED = ("normal_kernel", "perturb_kernel", "combine_kernel", "res_stage_mma_kernel",
-          "feat_pool_mma_kernel", "res_stage_tf32_kernel", "feat_pool_tf32_kernel")
+          "feat_pool_mma_kernel", "res_stage_tf32_kernel", "feat_pool_tf32_kernel",
+          "swimmer_step_kernel")
 
 
 def _device_us(evt, total: bool = False) -> float:
@@ -93,12 +100,14 @@ def _mark_stages(tr, layer_ranges: bool) -> None:
         layers.lstm_step = ranged(layers.lstm_step, "lstm")
         impala.conv3x3_patches = ranged(impala.conv3x3_patches, "patches")
         atari.conv2d = ranged(atari.conv2d, "patches")
+        tr.env.step = ranged(tr.env.step, "env")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config", choices=("mlp_trap", "impala_procmaze", "impala_prod_bf16",
-                                         "impala_procmaze_vbn", "cnn_pixelgrid"),
+                                         "impala_procmaze_vbn", "cnn_pixelgrid",
+                                         "gaussian_swimmer"),
                     default="mlp_trap")
     ap.add_argument("--out", default="chiprun_out/torch_epoch_profile")
     args = ap.parse_args()
@@ -109,8 +118,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from dfd_tpu_torch.config import TrainConfig
-    from dfd_tpu_torch.envs import PixelGridEnv, ProcMazeEnv, TrapEnv
-    from dfd_tpu_torch.models import AtariCNN, DiscreteMLP, ImpalaPolicy
+    from dfd_tpu_torch.envs import PixelGridEnv, ProcMazeEnv, SwimmerEnv, TrapEnv
+    from dfd_tpu_torch.models import AtariCNN, DiscreteMLP, GaussianMLP, ImpalaPolicy
     from dfd_tpu_torch.ops import distances
     from dfd_tpu_torch.runners import VectorizedTrainer
     from dfd_tpu_torch.utils.profiling import trace
@@ -131,6 +140,11 @@ def main() -> int:
                           episode_length=40, random_seed=0)
         model = AtariCNN((64, 64), env.n_actions, in_channels=3, compute_dtype=torch.bfloat16)
         tr = VectorizedTrainer(model, env, distances.categorical_tvd, cfg)
+    elif args.config == "gaussian_swimmer":
+        cfg = TrainConfig(batch_size=512, zeta_size=16, max_strategy_history_size=8,
+                          episode_length=100, random_seed=0, normalize_obs=True)
+        tr = VectorizedTrainer(GaussianMLP(16, 6), SwimmerEnv(max_steps=100),
+                               distances.gaussian_wasserstein_from_strategies, cfg)
     else:
         env = ProcMazeEnv(grid=8, scale=8, max_steps=40, num_levels=200)
         prod = args.config == "impala_prod_bf16"

@@ -7,15 +7,16 @@ unpacked with ``git archive``) whose C entry points have the interfaces of
 commit 67921d8: ``dfd_combine``, ``dfd_res_chain``, ``dfd_gemm_chain``,
 ``dfd_roll``, ``dfd_strided_copy``, ``dfd_gather_cols`` and
 ``dfd_transpose`` with their plans, ``dfd_concat_scaled(x, out, n, scales,
-n_scales, stream)`` without one.
+n_scales, stream)`` without one; for ``swimmer``, a ``dfd_swimmer_step`` that
+takes this checkout's ``SwimmerArgs``.
 Its ``dfd_tpu_torch/ops/csrc/perturb.cu``, ``gemm_chain.cu``,
-``res_chain.cu`` and ``relayout.cu`` are built with the same ``nvcc`` flags
+``res_chain.cu``, ``relayout.cu`` and ``swimmer.cu`` are built with the same ``nvcc`` flags
 as this checkout's (``dfd_tpu_torch/ops/build.py``) into
 ``build/kernel_turns/`` and called through their own C entry points; this
 checkout's kernels go through their wrappers.  ``--kernels`` picks the
 groups to time (``perturb``: perturb, combine and combine's plan sweep;
-``gemm_chain``; ``res_chain``; ``relayout``), all by default; only their
-libraries are built.  Each case is timed parent,
+``gemm_chain``; ``res_chain``; ``relayout``; ``swimmer``), all by default;
+only their libraries are built.  Each case is timed parent,
 change, change, parent (``time_ms``, CUDA events), so the two versions share
 the card, its clocks and its power limit: perturb and combine at the trained
 cells' shapes (combine also antithetic at ``mlp_trap``'s), gemm_chain at the
@@ -38,7 +39,10 @@ concat of ``x`` by 3 and by 8 scales and of ``x.view(-1)[1:]`` by 3 (the
 probe's concat, of its ``x [128, 1024]`` by 3, among the probe cases).  Combine
 and the relayouts take five such rounds, and their spread (the fastest and
 slowest round's ratio) is printed.  Each output is checked against the
-plain version first (the relayouts bit for bit).
+plain version first (the relayouts bit for bit).  The swimmer's step runs
+at ``gaussian_swimmer``'s 513 episodes of 7 links from random states and
+actions, in five rounds, after a check of whether the two versions' outputs
+are equal bit for bit.
 
 Then combine's plans at ``impala_procmaze``'s and ``impala_prod_bf16``'s
 shapes: this checkout's ``perturb.cu`` is built once more with the entry's
@@ -64,11 +68,13 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+from dfd_tpu_torch.envs import SwimmerEnv  # noqa: E402
 from dfd_tpu_torch.ops import build  # noqa: E402
 from dfd_tpu_torch.ops import gemm_chain as gc  # noqa: E402
 from dfd_tpu_torch.ops import perturb as pk  # noqa: E402
 from dfd_tpu_torch.ops import relayout as rl  # noqa: E402
 from dfd_tpu_torch.ops import res_chain as rc  # noqa: E402
+from dfd_tpu_torch.ops import swimmer as sw  # noqa: E402
 from dfd_tpu_torch.probes import gemm as pgemm  # noqa: E402
 from dfd_tpu_torch.probes import pool as ppool  # noqa: E402
 from dfd_tpu_torch.probes import torso as ptorso  # noqa: E402
@@ -80,7 +86,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PERTURB_SHAPES = ((2048, 5197), (128, 1_156_139), (64, 7_872_651))
 # the production transposes of x [33280, 1024], as x.view(rows, cols) (chip_smoke.py's)
 TRANSPOSES = ((33280, 1024), (64, 532480), (532480, 64), (16, 2129920), (2129920, 16))
-GROUPS = ("perturb", "gemm_chain", "res_chain", "relayout")
+GROUPS = ("perturb", "gemm_chain", "res_chain", "relayout", "swimmer")
 
 
 # dfd_combine's refusal of any plan but combine_plan's, and what the sweep builds instead
@@ -93,7 +99,7 @@ def build_parent(parent: Path, groups) -> dict:
     checkout's perturb taking any plan (``anyplan``), compiled together."""
     out_dir = ROOT / "build" / "kernel_turns"
     out_dir.mkdir(parents=True, exist_ok=True)
-    names = [g for g in ("perturb", "gemm_chain", "res_chain", "relayout") if g in groups]
+    names = [g for g in GROUPS if g in groups]
     if "perturb" in groups:
         src = (ROOT / "dfd_tpu_torch" / "ops" / "csrc" / "perturb.cu").read_text()
         if PLAN_CHECK not in src:
@@ -132,6 +138,8 @@ def build_parent(parent: Path, groups) -> dict:
         lib.dfd_gather_cols.argtypes = [vp, vp, vp, i64, i64, i64] + [i32] * 4 + [i64, i32, vp]
         lib.dfd_transpose.argtypes = [vp, vp, i64, i64] + [i32] * 6 + [vp]
         lib.dfd_concat_scaled.argtypes = [vp, vp, i64, vp, i32, vp]
+    if "swimmer" in libs:
+        libs["swimmer"].dfd_swimmer_step.argtypes = [ctypes.POINTER(sw._Args), i32, vp]
     return libs
 
 
@@ -431,6 +439,28 @@ def main() -> int:
 
     if "relayout" in args.kernels:
         rows += relayout_turns(libs, dev)
+
+    if "swimmer" in args.kernels:
+        c = SwimmerEnv(max_steps=100, device=dev).consts
+        g = torch.Generator(dev).manual_seed(7)
+        unif = lambda *shape: torch.rand(*shape, generator=g, device=dev) * 2 - 1
+        N = 513
+        q, qd, a = unif(N, c.ndof), unif(N, c.ndof), 1.5 * unif(N, c.n_links - 1)
+        t = torch.randint(0, 100, (N,), generator=g, device=dev)
+        outs = tuple(torch.empty_like(x) for x in sw.swimmer_step(c, q, qd, t, a))
+
+        def parent():
+            build.raise_on(libs["swimmer"].dfd_swimmer_step(
+                ctypes.byref(sw.kernel_args(c, (q, qd, t, a), outs)), c.n_links, stream()),
+                "parent swimmer_step")
+            return outs
+
+        change = lambda: sw.swimmer_step(c, q, qd, t, a)
+        equal = all(torch.equal(x, y) for x, y in zip(parent(), change()))
+        print(f"turns: swimmer_step N={N} 7 links: the outputs equal bit for bit: {equal}",
+              flush=True)
+        rows.append(dict(turns(f"swimmer_step N={N} 7 links", parent, change, 50, rounds=5),
+                         bit_equal=equal))
 
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
