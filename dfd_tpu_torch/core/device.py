@@ -1,11 +1,14 @@
-"""Device selection: the port runs on the card unless told otherwise; and
-its float32 products in full float32 (:func:`full_f32`)."""
+"""Device selection: the port runs on the card unless told otherwise; its
+float32 products in full float32 (:func:`full_f32`); and the host
+topology's small copies to the card without a host synchronisation
+(:class:`Staging`)."""
 
 from __future__ import annotations
 
 import contextlib
 from typing import Iterator
 
+import numpy as np
 import torch
 
 
@@ -55,3 +58,37 @@ def tree_to(tree, device):
         return type(tree)(*(tree_to(v, device) for v in tree)) if hasattr(tree, "_fields") \
             else tuple(tree_to(v, device) for v in tree)
     return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+class Staging:
+    """Copies of small numpy arrays to ``device`` that make no host
+    synchronisation, for the host topology's per-step transfers.
+
+    On the card each array goes through a pinned buffer kept for its shape
+    and dtype and is copied with ``non_blocking=True`` (a blocking copy from
+    pageable memory waits for the stream).  A buffer is rewritten only once
+    the copy that last read it has completed: its CUDA event is queried, and
+    waited for only if it has not (in the host loop a read back always
+    comes between two uses).  On the CPU the tensor shares the array's
+    memory."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._buffers = {}
+
+    def __call__(self, array) -> torch.Tensor:
+        a = np.ascontiguousarray(array)
+        if self.device.type != "cuda":
+            return torch.as_tensor(a, device=self.device)
+        key = (a.shape, a.dtype.str)
+        if key not in self._buffers:
+            self._buffers[key] = [torch.from_numpy(np.empty_like(a)).pin_memory(), None]
+        entry = self._buffers[key]
+        host, done = entry
+        if done is not None and not done.query():
+            done.synchronize()
+        host.numpy()[...] = a
+        out = host.to(self.device, non_blocking=True)
+        entry[1] = torch.cuda.Event()
+        entry[1].record()
+        return out

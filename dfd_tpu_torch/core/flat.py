@@ -6,7 +6,8 @@ compares flat vectors, so the order here is the order there.
 
 :func:`unflatten` also takes a population ``[M, d]`` of flat vectors and then
 returns ``[M, *shape]`` leaves that are *views* of it, so a perturbed
-population is never copied into per-layer tensors.
+population is never copied into per-layer tensors.  :func:`update_from_flat`
+replaces the spec's leaves of a tree the same way and keeps the others.
 """
 
 from __future__ import annotations
@@ -74,3 +75,20 @@ def unflatten(vec: torch.Tensor, spec: FlatSpec) -> Dict[str, Any]:
     for (path, shape, _), (_, start, end) in zip(spec.entries, spec.offsets()):
         _set(tree, path, vec[..., start:end].view(lead + shape))
     return tree
+
+
+def update_from_flat(tree: Dict[str, Any], vec: torch.Tensor, spec: FlatSpec) -> Dict[str, Any]:
+    """A copy of ``tree`` with the spec's leaves replaced by views of ``vec``
+    ([d], or a population [M, d] as in :func:`unflatten`).
+
+    Leaves outside the spec (such as the BatchNorm statistics when ``spec``
+    is the trainable one) are carried over by reference."""
+    new = _copy_tree(tree)
+    lead = tuple(vec.shape[:-1])
+    for (path, shape, _), (_, start, end) in zip(spec.entries, spec.offsets()):
+        _set(new, path, vec[..., start:end].view(lead + shape))
+    return new
+
+
+def _copy_tree(tree: Dict[str, Any]) -> Dict[str, Any]:
+    return {k: (_copy_tree(v) if isinstance(v, dict) else v) for k, v in tree.items()}

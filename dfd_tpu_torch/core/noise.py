@@ -16,6 +16,16 @@ Blocks of members are consecutive ids (``generate_block``,
 ``perturb_block``): one launch draws a block, each antithetic pair once.
 ``prepare`` moves an epoch's keys to the device once, so the blocks of that
 epoch make no host synchronisation.
+
+The host sources of the sequential topology, as in ``dfd_tpu.core.noise``:
+
+- :class:`CounterNoiseSampler` — a worker's stateful ``sample()`` over
+  :class:`CounterNoise` (on the card each draw is one ``normal_kernel``
+  launch);
+- :class:`RNGNoiseSource`, :class:`SimpleNoiseSource` and
+  :class:`SharedNoiseTable` — numpy sources with the reference's
+  encode/decode contract, copies of the JAX package's (the same numpy
+  streams, bit for bit).
 """
 
 from __future__ import annotations
@@ -121,3 +131,98 @@ class CounterNoise:
     def decode(self, encoded: str) -> np.ndarray:
         epoch, member_id = (int(x) for x in encoded.split(","))
         return self.generate(epoch, member_id).cpu().numpy()
+
+
+class CounterNoiseSampler:
+    """Stateful sampling facade over :class:`CounterNoise` for thin workers.
+
+    The Worker's duck-type is ``sample() -> (encoded, noise)`` with no
+    arguments; this wraps the stateless counter scheme with a per-client
+    member counter (offset by the client's minted seed for global
+    uniqueness), so the learner regenerates each vector from its
+    "(epoch, member)" encoding.  ``Worker.update`` pushes each broadcast
+    epoch through :meth:`set_epoch`; the member counter stays monotone
+    across epochs."""
+
+    def __init__(self, base: CounterNoise, id_offset: int = 0):
+        self.base = base
+        self.n_params = base.n_params
+        self._next = int(id_offset) & 0x3FFFFFFF
+        self._epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = max(int(epoch), 0)
+        # antithetic pairs (2k, 2k+1) share one epoch key: re-align an odd
+        # counter so that no mirrored pair straddles an epoch boundary
+        if self.base.antithetic and self._next % 2:
+            self._next = (self._next + 1) & 0x7FFFFFFF
+
+    def sample(self):
+        member = self._next
+        self._next = (self._next + 1) & 0x7FFFFFFF
+        return self.base.sample(epoch=self._epoch, member_id=member)
+
+    def decode(self, encoded: str) -> np.ndarray:
+        return self.base.decode(encoded)
+
+
+class RNGNoiseSource:
+    """PCG64-replay noise: encode = the 128-bit generator state, "state,inc",
+    the reference's default source's wire format and stream (through
+    ``bit_generator.state``, which numpy 2 still serves)."""
+
+    def __init__(self, n_params: int, random_seed: int = 123):
+        self.rng = np.random.default_rng(np.random.SeedSequence(random_seed))
+        self._template_state = self.rng.bit_generator.state
+        self.n_params = int(n_params)
+
+    def sample(self):
+        st = self.rng.bit_generator.state["state"]
+        encoded = "{},{}".format(st["state"], st["inc"])
+        return encoded, self.rng.standard_normal(size=self.n_params)
+
+    def decode(self, encoded: str):
+        state_str, inc_str = encoded.split(",")
+        st = dict(self._template_state)
+        st["state"] = {"state": int(state_str), "inc": int(inc_str)}
+        st["has_uint32"] = 0
+        st["uinteger"] = 0
+        self.rng.bit_generator.state = st
+        return self.rng.standard_normal(size=self.n_params)
+
+
+class SimpleNoiseSource:
+    """Noise ships verbatim (encode = the vector itself)."""
+
+    def __init__(self, n_params: int, random_seed: int = 123):
+        self.rng = np.random.RandomState(random_seed)
+        self.n_params = int(n_params)
+
+    def sample(self):
+        noise = self.rng.randn(self.n_params)
+        return noise, noise
+
+    def decode(self, encoded):
+        return encoded
+
+
+class SharedNoiseTable:
+    """OpenAI-ES-style pre-generated table; encode = a start index."""
+
+    def __init__(self, size: int, n_params: int, random_seed: int = 123):
+        if size <= n_params:
+            raise ValueError(
+                "noise table size {} must exceed parameter count {}".format(size, n_params)
+            )
+        self._rng = np.random.RandomState(random_seed)
+        self._table = self._rng.randn(size).astype(np.float32)
+        self._n_params = int(n_params)
+        self._max_sample_idx = size - n_params
+
+    def sample(self):
+        idx = self._rng.randint(0, self._max_sample_idx)
+        return str(idx), self._table[idx : idx + self._n_params]
+
+    def decode(self, encoded):
+        idx = int(encoded)
+        return self._table[idx : idx + self._n_params]

@@ -1,5 +1,12 @@
 """Streaming observation statistics (Welford / Chan parallel merge), the
-functional form of ``dfd_tpu.core.welford``.
+two forms of ``dfd_tpu.core.welford``:
+
+- :class:`Welford`, the host class of the sequential topology: numpy, a
+  copy of the JAX package's, so it matches it (and the reference's
+  ``WelfordRunningStat``) bit for bit;
+- the functional form over tensors (:class:`WelfordState`, :func:`init`,
+  :func:`update_batch`, :func:`merge`, :func:`mean_std`) that the
+  population trainer runs on the device.
 
 A :class:`WelfordState` may carry leading batch axes: ``count`` has shape
 ``[*B]`` and ``mean``/``m2`` have shape ``[*B, *obs]``.  The rollout keeps
@@ -11,7 +18,97 @@ from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
+
+
+class Welford:
+    """Host-side running mean/variance with mergeable partial updates."""
+
+    def __init__(self, shape):
+        self.shape = shape
+        self.running_mean = np.zeros(shape, dtype=np.float32)
+        self.running_variance = np.zeros(shape, dtype=np.float32)  # sum of squared deviations (M2)
+        self.count = 0
+
+    # -- single / batched updates ------------------------------------------------
+
+    def update(self, sample) -> None:
+        if isinstance(sample, dict):  # IMPALA-style dict observations
+            sample = sample["frame"]
+        prev = self.count
+        self.count += 1
+        delta = (np.asarray(sample) - self.running_mean).reshape(self.running_mean.shape)
+        delta_n = (delta / self.count).reshape(self.running_mean.shape)
+        self.running_mean += delta_n
+        self.running_variance += delta * delta_n * prev
+
+    def increment(self, samples, num: int) -> None:
+        if num > 1:
+            for i in range(num):
+                self.update(samples[i])
+        else:
+            self.update(samples)
+
+    def reset(self) -> None:
+        self.__init__(self.shape)
+
+    # -- guarded views -----------------------------------------------------------
+
+    @property
+    def mean(self) -> np.ndarray:
+        if self.count < 2:
+            return np.zeros(self.shape, dtype=np.float32)
+        return self.running_mean
+
+    @property
+    def std(self) -> np.ndarray:
+        if self.count < 2:
+            return np.ones(self.shape, dtype=np.float32)
+        var = self.running_variance / (self.count - 1)
+        # A zero-variance feature is constant; dividing by 1 leaves it constant
+        # and (x - mean)/std then standardizes it to exactly zero.
+        var = np.where(var == 0, 1.0, var)
+        return np.sqrt(var)
+
+    # -- parallel merge ----------------------------------------------------------
+
+    def merge_serialized(self, update) -> None:
+        """Fold a serialized partial statistic (``serialize()`` format) in."""
+        n = int(np.prod(self.shape))
+        other_mean = np.asarray(update[:n], dtype=np.float32).reshape(self.running_mean.shape)
+        other_m2 = np.asarray(update[n:-1], dtype=np.float32).reshape(self.running_variance.shape)
+        other_count = update[-1]
+        if other_count == 0:
+            return
+        total = self.count + other_count
+        delta = other_mean - self.running_mean
+        self.running_mean = (self.count * self.running_mean + other_count * other_mean) / total
+        self.running_variance = (
+            self.running_variance + other_m2 + delta * delta * self.count * other_count / total
+        )
+        self.count = total
+
+    # -- wire format -------------------------------------------------------------
+
+    def serialize(self):
+        return (
+            self.running_mean.ravel().tolist()
+            + self.running_variance.ravel().tolist()
+            + [self.count]
+        )
+
+    def deserialize(self, data) -> None:
+        self.reset()
+        n = int(np.prod(self.shape))
+        self.running_mean = np.reshape(np.asarray(data[:n], dtype=np.float32), self.shape)
+        self.running_variance = np.reshape(np.asarray(data[n:-1], dtype=np.float32), self.shape)
+        self.count = data[-1]
+
+
+# ---------------------------------------------------------------------------
+# Functional form over tensors
+# ---------------------------------------------------------------------------
 
 
 class WelfordState(NamedTuple):

@@ -108,11 +108,18 @@ class AtariCNN(PolicyModel):
             ("bn3", (256,)),
             ("head", (A, 256)),
         ]
+        self._bns = ("bn1", "bn2", "bn3")
         # torch registration order: conv1, bn1, conv2, bn2, fc, bn3, head
-        param_entries = []
+        param_entries, state_entries = [], []
         for name, wshape in self._weight_shapes:
-            param_entries += [((name, "w"), wshape, f32), ((name, "b"), (wshape[0],), f32)]
+            b = wshape[0]
+            param_entries += [((name, "w"), wshape, f32), ((name, "b"), (b,), f32)]
+            state_entries += [((name, "w"), wshape, f32), ((name, "b"), (b,), f32)]
+            if name in self._bns:
+                state_entries += [((name, "mean"), (b,), f32), ((name, "var"), (b,), f32),
+                                  ((name, "n"), (), f32)]
         self.param_spec = FlatSpec.make(param_entries)
+        self.state_spec = FlatSpec.make(state_entries)
 
     def init(self, seed: int) -> Tuple[Params, State]:
         """The JAX model's init, draw for draw (numpy normc over every
@@ -181,3 +188,21 @@ class AtariCNN(PolicyModel):
         new_state = dict(state)
         self._features(params, state, self._to_nchw(buffer), new_state=new_state)
         return new_state
+
+    # -- full-state (wire) view --------------------------------------------------
+
+    def _merge_full(self, params, state):
+        merged = {}
+        for name, _ in self._weight_shapes:
+            merged[name] = dict(params[name])
+            if name in self._bns:
+                merged[name].update(state[name])
+        return merged
+
+    def _split_full(self, merged):
+        params, state = {}, {}
+        for name, _ in self._weight_shapes:
+            params[name] = {"w": merged[name]["w"], "b": merged[name]["b"]}
+            if name in self._bns:
+                state[name] = {k: merged[name][k] for k in ("mean", "var", "n")}
+        return params, state

@@ -6,7 +6,12 @@ learner perturbs, ``state`` the non-trainable tree (BatchNorm running
 statistics), as in ``dfd_tpu.models.base``.  Here ``params`` carries a
 leading population axis ``[M]`` on every leaf (see
 :func:`dfd_tpu_torch.core.flat.unflatten`), and every forward serves the
-whole population at once.
+whole population at once; the host topology runs them at M = 1.
+
+The wire view (:meth:`PolicyModel.serialize`, :meth:`PolicyModel.deserialize`)
+is the full-state flat vector over ``state_spec`` (trainable parameters and
+BatchNorm statistics in the reference's ``state_dict`` order), for one
+unbatched set of weights, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ class PolicyModel(abc.ABC):
 
     #: FlatSpec over trainable parameters, in torch parameters_to_vector order
     param_spec: FlatSpec
+    #: FlatSpec over the full state (params + buffers), in state_dict order
+    state_spec: FlatSpec
     #: shape of one observation (for obs-normalization statistics)
     input_shape: Any
     #: number of actions (discrete) or action dimensions (continuous)
@@ -113,6 +120,25 @@ class PolicyModel(abc.ABC):
     def set_flat(self, vec: torch.Tensor) -> Params:
         """Params viewing ``vec``: [d] gives unbatched leaves, [M, d] a population."""
         return unflatten(vec, self.param_spec)
+
+    # -- full-state (wire) view ----------------------------------------------------
+
+    def serialize(self, params: Params, state: State) -> torch.Tensor:
+        """The full-state flat vector of unbatched ``params`` and ``state``
+        (the wire format of an FDState broadcast)."""
+        return flatten(self._merge_full(params, state), self.state_spec)
+
+    def deserialize(self, vec: torch.Tensor) -> Tuple[Params, State]:
+        """(params, state) viewing the full-state vector ``vec`` [D]."""
+        return self._split_full(unflatten(vec, self.state_spec))
+
+    def _merge_full(self, params: Params, state: State) -> Dict[str, Any]:
+        """One tree of the parameters and the statistics (the models with
+        BatchNorm override it)."""
+        return params
+
+    def _split_full(self, merged: Dict[str, Any]) -> Tuple[Params, State]:
+        return merged, {}
 
 
 def sample_action(probs: torch.Tensor, deterministic: torch.Tensor, gumbel: torch.Tensor):

@@ -33,7 +33,7 @@ class DiscreteMLP(PolicyModel):
 
         dims = (self.input_shape,) + self.hidden
         f32 = np.float32
-        param_entries = []
+        param_entries, state_entries = [], []
         # blocks of BatchNorm(d_in) + Linear(d_in -> d_out), then the head
         self._blocks = []
         for k, (d_in, d_out) in enumerate(zip(dims, self.hidden + (self.output_shape,))):
@@ -45,7 +45,17 @@ class DiscreteMLP(PolicyModel):
                 ((ln, "w"), (d_out, d_in), f32),
                 ((ln, "b"), (d_out,), f32),
             ]
+            state_entries += [
+                ((bn, "w"), (d_in,), f32),
+                ((bn, "b"), (d_in,), f32),
+                ((bn, "mean"), (d_in,), f32),
+                ((bn, "var"), (d_in,), f32),
+                ((bn, "n"), (), f32),
+                ((ln, "w"), (d_out, d_in), f32),
+                ((ln, "b"), (d_out,), f32),
+            ]
         self.param_spec = FlatSpec.make(param_entries)
+        self.state_spec = FlatSpec.make(state_entries)
 
     def init(self, seed: int) -> Tuple[Params, State]:
         """The JAX package's init, draw for draw (numpy normc), on ``device``."""
@@ -98,3 +108,21 @@ class DiscreteMLP(PolicyModel):
             if k < n_blocks - 1:
                 x = torch.relu(x)
         return new_state
+
+    # -- full-state (wire) view --------------------------------------------------
+
+    def _merge_full(self, params: Params, state: State):
+        merged = {}
+        for bn, ln, _, _ in self._blocks:
+            merged[bn] = {**params[bn], **state[bn]}
+            merged[ln] = dict(params[ln])
+        return merged
+
+    def _split_full(self, merged):
+        params: Params = {}
+        state: State = {}
+        for bn, ln, _, _ in self._blocks:
+            params[bn] = {"w": merged[bn]["w"], "b": merged[bn]["b"]}
+            params[ln] = dict(merged[ln])
+            state[bn] = {k: merged[bn][k] for k in ("mean", "var", "n")}
+        return params, state

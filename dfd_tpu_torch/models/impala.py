@@ -309,6 +309,17 @@ class ImpalaPolicy(PolicyModel):
             hs.append(out)
         return torch.cat(hs, dim=1), (h[:, 0], c[:, 0])
 
+    def step_probs(self, params, state, frame: torch.Tensor, prev_reward: torch.Tensor, carry):
+        """One timestep of each member on one frame, the host policy's step:
+        frame [M, C, H, W], prev_reward [M] (read clipped), carry (h, c)
+        [M, hidden] -> (probs [M, A], carry)."""
+        core = self._core_input(self._torso(params, state, frame[:, None])[:, 0], prev_reward)
+        if self.use_lstm:
+            h, (hh, cc) = layers.lstm_step(params["lstm"], core[:, None],
+                                           tuple(v[:, None] for v in carry))
+            core, carry = h[:, 0], (hh[:, 0], cc[:, 0])
+        return self._head(params, state, core[:, None])[:, 0], carry
+
     def act_step(self, params, state, obs, prev_reward, prev_done, carry, deterministic, gumbel):
         """One step of E episodes of every member: obs [M, E, C, H, W] (a
         member's episodes are the frames of its torso call), prev_reward
@@ -389,3 +400,23 @@ class ImpalaPolicy(PolicyModel):
         _, new_state["policy_bn"] = layers.batchnorm_train(
             params["policy_bn"], state["policy_bn"], core_out)
         return new_state
+
+    # -- full-state (wire) view --------------------------------------------------
+
+    def _merge_full(self, params, state):
+        merged = {}
+        for name, kind, _ in self._layers:
+            merged[name] = dict(params[name])
+            if kind == "bn":
+                merged[name].update(state[name])
+        return merged
+
+    def _split_full(self, merged):
+        params, state = {}, {}
+        for name, kind, _ in self._layers:
+            if kind == "bn":
+                params[name] = {"w": merged[name]["w"], "b": merged[name]["b"]}
+                state[name] = {k: merged[name][k] for k in ("mean", "var", "n")}
+            else:
+                params[name] = dict(merged[name])
+        return params, state

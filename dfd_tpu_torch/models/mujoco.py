@@ -37,6 +37,7 @@ class GaussianMLP(PolicyModel):
         for k, (d_in, d_out) in enumerate(self._layer_dims):
             entries += [((f"l{k + 1}", "w"), (d_out, d_in), f32), ((f"l{k + 1}", "b"), (d_out,), f32)]
         self.param_spec = FlatSpec.make(entries)
+        self.state_spec = self.param_spec  # no buffers
 
     def init(self, seed: int) -> Tuple[Params, State]:
         """The JAX package's init, draw for draw (numpy normc), on ``device``."""

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -16,6 +17,17 @@ def standardize(x: torch.Tensor) -> torch.Tensor:
     s = population_std(x)
     safe = torch.where(s == 0, torch.ones_like(s), s)
     return torch.where(s == 0, x, (x - m) / safe)
+
+
+def standardize_host(arr) -> np.ndarray:
+    """The host learner's numpy form, branchy like the reference: (x -
+    mean)/std, or x unchanged when std == 0."""
+    x = np.asarray(arr)
+    m = x.mean()
+    s = x.std()
+    if s == 0:
+        return x
+    return (x - m) / s
 
 
 def affine_transform(value, from_min, from_max, to_min, to_max):

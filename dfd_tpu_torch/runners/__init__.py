@@ -1,3 +1,19 @@
+from dfd_tpu_torch.runners.agent import Agent
+from dfd_tpu_torch.runners.host_env import HostEnv
+from dfd_tpu_torch.runners.policy import HostPolicy, NumpySampler
+from dfd_tpu_torch.runners.sequential import SequentialRunner
 from dfd_tpu_torch.runners.vectorized import EpochDraws, TrainState, VectorizedTrainer, make_draws
+from dfd_tpu_torch.runners.worker import Worker
 
-__all__ = ["EpochDraws", "TrainState", "VectorizedTrainer", "make_draws"]
+__all__ = [
+    "Agent",
+    "Worker",
+    "HostEnv",
+    "HostPolicy",
+    "NumpySampler",
+    "SequentialRunner",
+    "EpochDraws",
+    "TrainState",
+    "VectorizedTrainer",
+    "make_draws",
+]

@@ -1,0 +1,184 @@
+"""The port's command line (``python -m dfd_tpu_torch``) on the CPU
+(``--device cpu``), the cases of ``tests/test_cli.py`` that this port
+covers, plus its factory against the JAX package's, the entry points that
+are not ported yet, and the default device's refusal without a card.
+
+The sequential topology's playback files are byte-equal to the JAX CLI's
+for the same seed: its action streams are the same
+(``tests/test_torch_sequential.py``).
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from dfd_tpu.__main__ import main as jax_main
+from dfd_tpu.utils import factory as jfactory
+from dfd_tpu_torch.__main__ import main
+from dfd_tpu_torch.utils import factory
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMALL = ["--batch-size", "4", "--zeta-size", "8", "--history-size", "4", "--quiet"]
+CPU = ["--device", "cpu"]
+
+
+def test_cli_train_vectorized(tmp_path, capsys):
+    ckpt = str(tmp_path / "c.npz")
+    rc = main(["train", "--env", "SimpleTrapEnv-v0", "--epochs", "2", *SMALL, *CPU,
+               "--checkpoint", ckpt])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert "Noisy Reward" in out and "'Epoch': 2" in out
+    assert os.path.exists(ckpt)
+
+
+def test_cli_train_resume(tmp_path, capsys):
+    ckpt = str(tmp_path / "c.npz")
+    main(["train", "--env", "SimpleTrapEnv-v0", "--epochs", "1", *SMALL, *CPU,
+          "--checkpoint", ckpt])
+    rc = main(["train", "--env", "SimpleTrapEnv-v0", "--epochs", "1", *SMALL, *CPU,
+               "--resume", ckpt])
+    assert rc == 0
+    assert "'Epoch': 2" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("backend", ["jax", "pallas"])
+def test_cli_train_fast_on_each_noise_backend(backend, capsys):
+    rc = main(["train", "--env", "SimpleTrapEnv-v0", "--epochs", "2", "--fast",
+               "--sync-every", "1", "--noise-backend", backend, "--unroll", "4", *SMALL, *CPU])
+    assert rc == 0
+    assert "'Epoch': 2" in capsys.readouterr().out
+
+
+def test_cli_train_sequential(capsys):
+    rc = main(["train", "--topology", "sequential", "--env", "SimpleTrapEnv-v0", "--epochs", "1",
+               "--batch-size", "3", "--zeta-size", "6", "--history-size", "4", *CPU])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert "Begin Epoch Report" in out and "Update Magnitude" in out
+
+
+def test_cli_sweep(capsys):
+    rc = main(["sweep", "--env", "SimpleTrapEnv-v0", "--trials", "2", "--epochs", "2",
+               "--batch-size", "4", "--zeta-size", "8", "--history-size", "4", *CPU])
+    assert rc == 0
+    assert "best:" in capsys.readouterr().out
+
+
+def test_cli_antithetic_requires_vectorized(capsys):
+    rc = main(["train", "--topology", "sequential", "--env", "SimpleTrapEnv-v0", "--epochs", "1",
+               *SMALL, *CPU, "--antithetic"])
+    assert rc == 2
+    assert "antithetic" in capsys.readouterr().err
+
+
+def test_cli_playback_requires_sequential(capsys):
+    rc = main(["train", "--env", "SimpleTrapEnv-v0", "--epochs", "1", *SMALL, *CPU,
+               "--playback-id", "x"])
+    assert rc == 2
+    assert "playback" in capsys.readouterr().err
+
+
+def test_cli_playback_files_are_byte_equal_to_jax(tmp_path, monkeypatch):
+    args = ["train", "--topology", "sequential", "--env", "SimpleTrapEnv-v0", "--epochs", "1",
+            "--batch-size", "3", "--zeta-size", "8", "--history-size", "4", "--quiet",
+            "--playback-id", "cli_worker"]
+    files = []
+    for run, extra, sub in ((jax_main, [], "jax"), (main, CPU, "port")):
+        (tmp_path / sub).mkdir()
+        monkeypatch.chdir(tmp_path / sub)
+        assert run(args + extra) == 0
+        path = tmp_path / sub / "data" / "custom_novelty_playbacks" / "in_progress" / \
+            "cli_worker.txt"
+        files.append(path.read_bytes())
+    assert files[1] == files[0]
+    lines = files[1].decode().splitlines()
+    assert len(lines) >= 3 and all(len(line.split()) == 200 for line in lines)
+
+
+def test_cli_profile_dir_writes_a_trace(tmp_path, capsys):
+    prof = tmp_path / "trace"
+    rc = main(["train", "--env", "SimpleTrapEnv-v0", "--epochs", "3", *SMALL, *CPU,
+               "--profile-dir", str(prof), "--profile-epochs", "1"])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert "profile: traced 1 epoch(s)" in out
+    assert "'Epoch': 3" in out  # profiling must not eat epochs
+    assert (prof / "trace.json").stat().st_size > 0
+
+
+def test_cli_runs_as_a_module():
+    out = subprocess.run(
+        [sys.executable, "-m", "dfd_tpu_torch", "train", "--topology", "sequential",
+         "--epochs", "1", "--batch-size", "2", "--zeta-size", "4", "--history-size", "4",
+         "--quiet", *CPU],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=ROOT))
+    assert out.returncode == 0, out.stderr
+
+
+def test_cli_default_device_fails_without_a_card(monkeypatch, capsys):
+    """No card: the default ``--device cuda`` refuses, with resolve_device's
+    message and rc 2, rather than training on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in (["train", "--epochs", "1", *SMALL],
+                 ["train", "--topology", "sequential", "--epochs", "1", *SMALL],
+                 ["sweep", "--trials", "1", "--epochs", "1"]):
+        assert main(argv) == 2
+        assert "no CUDA device is available" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv, item", [
+    (["server"], "item 9.1"),
+    (["client"], "item 9.1"),
+    (["client", "--mode", "fat"], "item 9.2"),
+    (["client", "--mode", "slice"], "item 9.2"),
+    (["bench"], "item 9.7"),
+    (["train", "--mesh", "--epochs", "1", *CPU], "item 8"),
+])
+def test_cli_unported_entry_points_name_their_roadmap_items(argv, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue 1: {item}"):
+        main(argv)
+
+
+def test_factory_refuses_the_gym_ids_naming_their_roadmap_item():
+    with pytest.raises(NotImplementedError, match="item 9.5"):
+        factory.get_init_data("CartPole-v0-gym-only", 1, "cpu")
+
+
+@pytest.mark.parametrize("env_id", sorted(jfactory.JAX_ENVS) + sorted(jfactory.JAX_PIXEL_ENVS))
+def test_factory_matches_jax(env_id):
+    """Every registered id: the same model class and parameter count, env
+    shapes and distance, in both the host and the vectorized forms; the
+    host env resets to JAX's first observation."""
+    assert set(factory.JAX_ENVS) == set(jfactory.JAX_ENVS)
+    assert set(factory.JAX_PIXEL_ENVS) == set(jfactory.JAX_PIXEL_ENVS)
+    jenv, jmodel, jdist = jfactory.get_init_data(env_id, 4)
+    penv, pmodel, pdist = factory.get_init_data(env_id, 4, "cpu")
+    assert type(pmodel).__name__ == type(jmodel).__name__
+    assert pmodel.num_params == jmodel.num_params
+    assert pmodel.state_spec.size == jmodel.state_spec.size
+    assert pmodel.device.type == "cpu"
+    assert pdist.__name__ == jdist.__name__
+    assert type(penv).__name__ == type(jenv).__name__
+    assert penv.n_actions == jenv.n_actions
+    jo, po = jenv.reset(), penv.reset()
+    if isinstance(jo, dict):
+        jo, po = jo["frame"], po["frame"]
+    np.testing.assert_array_equal(po, jo)
+    venv, vmodel, _ = factory.get_vectorized_init_data(env_id, "cpu")
+    jvenv = jfactory.make_jax_env(env_id)
+    assert tuple(venv.obs_shape) == tuple(jvenv.obs_shape)
+    assert venv.max_episode_steps == jvenv.max_episode_steps
+    assert vmodel.num_params == jmodel.num_params
+
+
+def test_cli_population_chunk_and_normalize_obs(capsys):
+    rc = main(["train", "--env", "SimpleTrapEnv-v0", "--epochs", "2", "--population-chunk", "2",
+               "--normalize-obs", *SMALL, *CPU])
+    assert rc == 0
+    assert "'Epoch': 2" in capsys.readouterr().out

@@ -1265,3 +1265,97 @@ def test_gaussian_trainer_on_card_matches_cpu(cuda, backend):
         for k in ("Noisy Reward", "Policy Reward"):
             assert math.isclose(hg[k], hc[k], rel_tol=1e-4, abs_tol=1e-5), (k, hg[k], hc[k])
         assert hg["Cumulative Timesteps"] == hc["Cumulative Timesteps"]
+
+
+# -- the host classes, the sequential topology and the command line on the card ----------
+
+
+def test_host_env_swimmer_episode_launches_the_kernel_once_a_step(cuda):
+    """A HostEnv episode of the 7-link swimmer on the card (n = 1, a grid of
+    one block and one thread): one swimmer_step_kernel launch a step, the
+    resets exact, and each step held to the plain step on the CPU under the
+    same wave-gait actions (the episode bounds of test_swimmer_kernel_matches_plain:
+    observations 1e-3 of their largest, the reward 1e-4)."""
+    from dfd_tpu_torch.envs import SwimmerEnv
+    from dfd_tpu_torch.ops import swimmer as sw
+    from dfd_tpu_torch.runners import HostEnv
+
+    gpu, cpu = (HostEnv(SwimmerEnv(max_steps=40, device=d), seed=9) for d in (cuda, "cpu"))
+    for episode in range(2):
+        go, co = gpu.reset(), cpu.reset()
+        assert (go == co).all()
+        before, steps, done = sw.swimmer_step.launches, 0, False
+        while not done:
+            act = [math.sin(0.4 * steps + 0.8 * j) for j in range(6)]
+            (go, gr, done, _), (co, cr, cdone, _) = gpu.step(act), cpu.step(act)
+            steps += 1
+            assert done == cdone
+            assert abs(go - co).max() <= 1e-3 * max(1.0, abs(co).max())
+            assert abs(gr - cr) <= 1e-4
+        assert steps == 40 and sw.swimmer_step.launches - before == steps
+
+
+def test_counter_noise_sampler_draws_through_normal_kernel(cuda):
+    """CounterNoiseSampler on the card: one normal_kernel launch a sample,
+    encodings equal to the CPU's, eps within 4e-6 of the CPU's (the CPU's
+    libm against CUDA's log1pf and sqrtf: the port's rule for eps), and a
+    decode on the card bit for bit the sample."""
+    from dfd_tpu_torch.core.noise import CounterNoise, CounterNoiseSampler
+    from dfd_tpu_torch.ops import noise as nz
+
+    gpu = CounterNoiseSampler(CounterNoise(5197, 4, device=cuda), id_offset=7)
+    cpu = CounterNoiseSampler(CounterNoise(5197, 4, device="cpu"), id_offset=7)
+    for epoch in (0, 3):
+        gpu.set_epoch(epoch)
+        cpu.set_epoch(epoch)
+        before = nz.normal.launches
+        (ge, geps), (ce, ceps) = gpu.sample(), cpu.sample()
+        assert nz.normal.launches - before == 1
+        assert ge == ce and abs(geps - ceps).max() <= 4e-6
+        assert (gpu.decode(ge) == geps).all()
+
+
+def test_sequential_trap_runner_on_card_matches_cpu(cuda):
+    """SequentialRunner on the trap env, 2 epochs of 10 with evals at 0.3,
+    policy and env on the card against the same run on the CPU: equal
+    actions and rewards (numpy sampling on probabilities within float32's
+    rounding), flat within rtol 1e-5."""
+    from dfd_tpu_torch.runners import SequentialRunner
+    from dfd_tpu_torch.utils import factory
+    from dfd_tpu_torch.utils.metrics import EpochReporter
+
+    runs = []
+    for d in (cuda, "cpu"):
+        env, model, dist = factory.get_init_data("SimpleTrapEnv-v0", 123, d)
+        actions = []
+        step = env.step
+        env.step = lambda a, step=step, actions=actions: (actions.append(a), step(a))[1]
+        r = SequentialRunner(model, env, dist, batch_size=10, zeta_size=16,
+                             max_strategy_history_size=16, random_seed=123, eval_prob=0.3,
+                             reporter=EpochReporter(quiet=True))
+        r.train(2)
+        runs.append((r, actions))
+    (g, ga), (c, ca) = runs
+    assert ga == ca
+    for hg, hc in zip(g.reporter.history, c.reporter.history):
+        for k in ("Noisy Reward", "Policy Reward", "Cumulative Timesteps", "Omega"):
+            assert hg[k] == hc[k], k
+    assert abs(g.learner.flat - c.learner.flat).max() <= 1e-5 * abs(c.learner.flat).max()
+
+
+@pytest.mark.parametrize("backend", ["jax", "pallas"])
+def test_cli_train_on_card_launches_the_noise_kernels(cuda, backend, capsys):
+    """``main(["train", ...])`` on the default device (the card): 3 epochs
+    launch normal_kernel once an epoch (jax), or perturb and combine once
+    each an epoch (pallas)."""
+    from dfd_tpu_torch.__main__ import main
+    from dfd_tpu_torch.ops import noise as nz
+    from dfd_tpu_torch.ops import perturb as pkk
+
+    counts = lambda: (nz.normal.launches, pkk.perturb.launches, pkk.combine.launches)
+    before = counts()
+    rc = main(["train", "--env", "SimpleTrapEnv-v0", "--epochs", "3", "--batch-size", "16",
+               "--zeta-size", "8", "--history-size", "4", "--quiet", "--noise-backend", backend])
+    assert rc == 0 and "'Epoch': 3" in capsys.readouterr().out
+    got = tuple(a - b for a, b in zip(counts(), before))
+    assert got == ((3, 0, 0) if backend == "jax" else (0, 3, 3)), got
