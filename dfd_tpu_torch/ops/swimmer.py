@@ -8,9 +8,15 @@ centre-of-mass reward, the control cost and the step counter).  The JAX
 package counts on XLA to fuse the ~330 elementwise ops of a substep; written
 as eager PyTorch, a step of the default 7-link swimmer is ~1,300 launches.
 The kernel (``csrc/swimmer.cu``) runs every episode's step in one launch,
-one thread an episode, a template on the link count (3, 5 and 7 links; any
-other count is refused on every device: a thread holds its episode's
-matrices in registers, and each form is compiled for its size).
+a warp an episode and four episodes a block (513 episodes are 129 blocks,
+one on each of 129 SMs), a template on the link count (3, 5 and 7 links;
+any other count is refused on every device: each form is compiled for its
+size).  The warp's lanes split each substep's work (a link's angles and
+Jacobian a lane, the entries of M and of the system over the lanes, the
+Cholesky factor's rows a lane, column by column) and exchange through the
+episode's scratch in shared memory between phases; every lane keeps the
+state and the forward substitution in registers and runs the back
+substitution itself.
 
 :func:`swimmer_step` runs the kernel on CUDA tensors and
 :func:`swimmer_step_plain` on CPU ones, after the same checks on both;
@@ -21,9 +27,9 @@ with its own terms on any device.
 
 Tolerance: the kernel contracts products into fused multiply-adds (nvcc's
 default ``-fmad=true``) where the plain version rounds twice, and sums the
-links in its own order; cosf, sinf, sqrtf and the divisions are the accurate
-ones on both.  The two agree to ulps after one step; the deviation grows
-along a trajectory (see ``chip_smoke.py``'s limits).
+links in its own order; cosf, sinf, sqrtf and the divisions are the
+accurate ones on both.  The two agree to ulps after one step; the deviation
+grows along a trajectory (see ``chip_smoke.py``'s limits).
 """
 
 from __future__ import annotations
@@ -209,8 +215,8 @@ def _kernels() -> ctypes.CDLL:
 
 def check_links(n_links: int) -> None:
     if n_links not in LINKS:
-        raise ValueError(f"n_links must be one of {LINKS} (the swimmer kernel's template forms: a "
-                         f"thread holds its episode's matrices in registers), got {n_links}")
+        raise ValueError(f"n_links must be one of {LINKS} (the swimmer kernel's template forms, "
+                         f"each compiled for its size), got {n_links}")
 
 
 def _check(c: SwimmerConstants, q, qdot, t, action) -> bool:

@@ -1208,6 +1208,61 @@ def test_swimmer_kernel_matches_plain(cuda, n_links, N):
     assert (kk[4] - pp[4]).abs().max().item() <= 1e-4 and pp[5].all()
 
 
+@pytest.mark.parametrize("N", [1, 5, 33, 513])
+def test_swimmer_kernel_episode_ignores_its_neighbours(cuda, N):
+    """Each of N episodes stepped alone (N = 1, one block) gives the outputs
+    it gives among the N, bit for bit, at N that leave the last block with
+    fewer episodes than it holds; and 20 more launches on the same inputs
+    give the first one's outputs, bit for bit (the only check of the lanes'
+    exchanges for races that runs on the card)."""
+    from dfd_tpu_torch.envs import SwimmerEnv
+    from dfd_tpu_torch.ops import swimmer as sw
+
+    c = SwimmerEnv(device=cuda).consts
+    g = torch.Generator(cuda).manual_seed(100 + N)
+    unif = lambda *shape, lim: (torch.rand(*shape, generator=g, device=cuda) * 2 - 1) * lim
+    ins = (unif(N, c.ndof, lim=1.0), unif(N, c.ndof, lim=1.0),
+           torch.randint(0, 100, (N,), generator=g, device=cuda), unif(N, c.n_links - 1, lim=1.5))
+    together = sw.swimmer_step(c, *ins)
+    alone = [sw.swimmer_step(c, *(x[e:e + 1].contiguous() for x in ins)) for e in range(N)]
+    for k, out in enumerate(together):
+        assert torch.equal(torch.cat([a[k] for a in alone]), out), k
+    for _ in range(20):
+        assert all(torch.equal(x, y) for x, y in zip(sw.swimmer_step(c, *ins), together))
+
+
+def test_swimmer_kernel_reruns_a_substep_its_fast_path_cannot_take(cuda):
+    """An episode at rest with straight joints and torques of 1e-25 (its
+    right-hand side, and so the numerators of its substitutions, far below
+    the 2^-60 that the kernel's branch-free divisions take) has its substeps
+    run again on the compiler's division and sqrtf: its velocities and
+    observations within the conditioning bound of the plain step's, relative
+    to their largest, t and done exact; its neighbours' outputs are those of
+    the batch without it, bit for bit."""
+    from dfd_tpu_torch.envs import SwimmerEnv
+    from dfd_tpu_torch.ops import swimmer as sw
+
+    c = SwimmerEnv(device=cuda).consts
+    g = torch.Generator(cuda).manual_seed(3)
+    unif = lambda *shape, lim: (torch.rand(*shape, generator=g, device=cuda) * 2 - 1) * lim
+    N = 9
+    ins = [unif(N, c.ndof, lim=1.0), unif(N, c.ndof, lim=1.0),
+           torch.randint(0, 100, (N,), generator=g, device=cuda), unif(N, c.n_links - 1, lim=1.5)]
+    calm = sw.swimmer_step(c, *ins)
+    ins = [x.clone() for x in ins]
+    ins[0][4, 3:], ins[1][4], ins[3][4] = 0.0, 0.0, ins[3][4] * 1e-25
+    got, want = sw.swimmer_step(c, *ins), sw.swimmer_step_plain(c, *ins)
+    c64 = c._replace(T=c.T.double(), Aphi=c.Aphi.double(), M0=c.M0.double(), D0=c.D0.double())
+    M, D, _ = sw.terms_closed(c64, ins[0][4:5].double(), ins[1][4:5].double())
+    tol = 2 * torch.linalg.cond(M + c.dt * D).max().item() * 2.0 ** -24
+    assert 0 < want[1][4].abs().max().item() < 2.0 ** -60
+    rel = lambda x, y: ((x.double() - y.double()).abs().max() / y.double().abs().max()).item()
+    assert rel(got[1][4], want[1][4]) <= tol and rel(got[3][4, 7:], want[3][4, 7:]) <= tol
+    assert torch.equal(got[2], want[2]) and torch.equal(got[5], want[5])
+    rest = [e for e in range(N) if e != 4]
+    assert all(torch.equal(x[rest], y[rest]) for x, y in zip(got, calm))
+
+
 def test_swimmer_wrapper_refuses_on_the_card_what_the_cpu_refuses(cuda):
     """The CPU test's refusals on CUDA tensors, with no launch; an empty
     batch returns without one."""
@@ -1272,10 +1327,11 @@ def test_gaussian_trainer_on_card_matches_cpu(cuda, backend):
 
 def test_host_env_swimmer_episode_launches_the_kernel_once_a_step(cuda):
     """A HostEnv episode of the 7-link swimmer on the card (n = 1, a grid of
-    one block and one thread): one swimmer_step_kernel launch a step, the
-    resets exact, and each step held to the plain step on the CPU under the
-    same wave-gait actions (the episode bounds of test_swimmer_kernel_matches_plain:
-    observations 1e-3 of their largest, the reward 1e-4)."""
+    one block whose one episode runs on a warp): one swimmer_step_kernel
+    launch a step, the resets exact, and each step held to the plain step on
+    the CPU under the same wave-gait actions (the episode bounds of
+    test_swimmer_kernel_matches_plain: observations 1e-3 of their largest,
+    the reward 1e-4)."""
     from dfd_tpu_torch.envs import SwimmerEnv
     from dfd_tpu_torch.ops import swimmer as sw
     from dfd_tpu_torch.runners import HostEnv

@@ -239,7 +239,8 @@ def test_swimmer_refuses_what_the_kernel_refuses():
 @pytest.fixture(scope="module")
 def host_kernel(tmp_path_factory):
     """``csrc/swimmer.cu`` compiled as plain C++: ``dfd_swimmer_step_host``
-    runs ``swimmer_episode`` over the episodes in a loop."""
+    runs ``swimmer_episode`` over the episodes in a loop, each phase of an
+    episode as a loop over its lanes, exchanging through a local scratch."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the kernel's source for the host")
@@ -291,3 +292,18 @@ def test_host_compiled_kernel_matches_plain(host_kernel, n_links):
         assert torch.equal(g[2], w[2]) and torch.equal(g[5], w[5])
     assert _rel(_np(g[1]), _np(w[1])) <= 1e-3 and _rel(_np(g[0]), _np(w[0])) <= 5e-4
     assert float((g[4] - w[4]).abs().max()) <= 1e-4 and w[5].all()
+
+
+@pytest.mark.parametrize("n_links", [3, 5, 7])
+def test_host_compiled_kernel_episode_ignores_its_neighbours(host_kernel, n_links):
+    """Each of 37 episodes stepped alone (N = 1) gives the outputs it gives
+    among the 37, bit for bit: an episode's result depends on neither its
+    neighbours nor its slot."""
+    c, rng = SwimmerEnv(n_links=n_links, device=CPU).consts, np.random.RandomState(10 + n_links)
+    f32 = lambda *shape, lim: torch.from_numpy(rng.uniform(-lim, lim, shape).astype(np.float32))
+    ins = (f32(37, c.ndof, lim=1.0), f32(37, c.ndof, lim=1.0),
+           torch.from_numpy(rng.randint(0, 100, 37).astype(np.int64)), f32(37, n_links - 1, lim=1.5))
+    together = host_kernel(c, *ins)
+    alone = [host_kernel(c, *(x[e:e + 1].contiguous() for x in ins)) for e in range(37)]
+    for k, out in enumerate(together):
+        assert torch.equal(torch.cat([a[k] for a in alone]), out), k

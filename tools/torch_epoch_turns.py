@@ -20,7 +20,14 @@ limit.  The cells take their ``bench.py`` ``TrainConfig``s (the default
   ``ProcMazeEnv`` 3x64x64, P = 128;
 - ``impala_prod_bf16`` (``bench.py:221-240``): 64/128/128, hidden 512, bf16
   operands, P = 64; ``impala_prod_bf16_c16`` the same in population chunks
-  of 16.
+  of 16;
+- ``gaussian_swimmer`` (``bench.py:173-181``): ``GaussianMLP(16, 6)`` on
+  ``SwimmerEnv(max_steps=100)``, P = 512, normalized observations
+  (``swimmer_step_kernel`` at N = 513, once a rollout step);
+- ``swimmer_host``: the sequential topology's ``Swimmer-v0`` as
+  ``chip_smoke.py``'s host paths build it (the factory's model and env,
+  batch 4, zeta 16, archive 16, seed 123; ``swimmer_step_kernel`` at N = 1,
+  once a host env step), timed as ``train(epochs)`` after one warm epoch.
 
 Prints each turn's epoch time per cell, then per cell each round's
 change / parent ratio (the two changes' mean over the two parents') and the
@@ -39,19 +46,31 @@ import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CELLS = ("mlp_trap", "mlp_trap_e8", "impala_procmaze", "impala_prod_bf16",
-         "impala_prod_bf16_c16")
+         "impala_prod_bf16_c16", "gaussian_swimmer", "swimmer_host")
 
 
 def make_trainer(cell: str):
     import torch
 
     from dfd_tpu_torch.config import TrainConfig
-    from dfd_tpu_torch.envs import ProcMazeEnv, TrapEnv
-    from dfd_tpu_torch.models import DiscreteMLP, ImpalaPolicy
+    from dfd_tpu_torch.envs import ProcMazeEnv, SwimmerEnv, TrapEnv
+    from dfd_tpu_torch.models import DiscreteMLP, GaussianMLP, ImpalaPolicy
     from dfd_tpu_torch.ops import distances
-    from dfd_tpu_torch.runners import VectorizedTrainer
+    from dfd_tpu_torch.runners import SequentialRunner, VectorizedTrainer
+    from dfd_tpu_torch.utils import factory
+    from dfd_tpu_torch.utils.metrics import EpochReporter
 
     tvd = distances.categorical_tvd
+    if cell == "swimmer_host":
+        env, model, dist = factory.get_init_data("Swimmer-v0", 123, "cuda")
+        return SequentialRunner(model, env, dist, batch_size=4, zeta_size=16,
+                                max_strategy_history_size=16, random_seed=123,
+                                reporter=EpochReporter(quiet=True))
+    if cell == "gaussian_swimmer":
+        cfg = TrainConfig(batch_size=512, zeta_size=16, max_strategy_history_size=8,
+                          episode_length=100, random_seed=0, normalize_obs=True)
+        return VectorizedTrainer(GaussianMLP(16, 6), SwimmerEnv(max_steps=100),
+                                 distances.gaussian_wasserstein_from_strategies, cfg)
     if cell.startswith("mlp_trap"):
         cfg = TrainConfig(batch_size=2048, learning_rate=0.05, noise_std=0.05, zeta_size=64,
                           max_strategy_history_size=16, random_seed=0, scan_unroll=8,
@@ -77,10 +96,15 @@ def worker(cells, epochs: int) -> dict:
     out = {}
     for cell in cells:
         tr = make_trainer(cell)
-        tr.train_fast(2, sync_every=2)  # builds the kernels, fills the archive for novelty
+        if cell == "swimmer_host":
+            warm, run = (lambda: tr.train(1)), (lambda: tr.train(epochs))
+        else:
+            warm, run = (lambda: tr.train_fast(2, sync_every=2)), \
+                (lambda: tr.train_fast(epochs, sync_every=epochs))
+        warm()  # builds the kernels, fills the archive for novelty
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        tr.train_fast(epochs, sync_every=epochs)
+        run()
         torch.cuda.synchronize()
         out[cell] = (time.perf_counter() - t0) / epochs * 1e3
         del tr

@@ -41,8 +41,9 @@ and the relayouts take five such rounds, and their spread (the fastest and
 slowest round's ratio) is printed.  Each output is checked against the
 plain version first (the relayouts bit for bit).  The swimmer's step runs
 at ``gaussian_swimmer``'s 513 episodes of 7 links from random states and
-actions, in five rounds, after a check of whether the two versions' outputs
-are equal bit for bit.
+actions and at the host topology's one episode (the first of them), five
+rounds each, after a check of whether the two versions' outputs are equal
+bit for bit and of their largest absolute difference.
 
 Then combine's plans at ``impala_procmaze``'s and ``impala_prod_bf16``'s
 shapes: this checkout's ``perturb.cu`` is built once more with the entry's
@@ -145,8 +146,9 @@ def build_parent(parent: Path, groups) -> dict:
 
 def turns(name: str, parent, change, iters: int, rounds: int = 1, library=None) -> dict:
     """``rounds`` times parent, change, change, parent (parent, change,
-    library, library, change, parent with a ``library`` call); the mean of
-    each version's times, and each round's ratio of parent to change."""
+    library, library, change, parent with a ``library`` call); the mean and
+    median of each version's times, and each round's ratio of parent to
+    change."""
     if parent is None:  # the parent refuses the case: change and library alone
         order = (change, library, library, change)
     elif library is None:
@@ -157,10 +159,12 @@ def turns(name: str, parent, change, iters: int, rounds: int = 1, library=None) 
     t = [time_ms(f, torch.device("cuda"), iters) for _ in range(rounds) for f in order]
     at = lambda f: [x for i, x in enumerate(t) if order[i % n] is f]
     mean = lambda xs: sum(xs) / len(xs)
-    row = {"case": name, "change_ms": mean(at(change)), "turns_ms": t}
+    row = {"case": name, "change_ms": mean(at(change)), "change_median_ms":
+           float(np.median(at(change))), "turns_ms": t}
     spread = ""
     if parent is not None:
         row["parent_ms"] = mean(at(parent))
+        row["parent_median_ms"] = float(np.median(at(parent)))
         row["speedup"] = row["parent_ms"] / row["change_ms"]
         ratios = [sum(x for j, x in enumerate(t[i:i + n]) if order[j] is parent)
                   / sum(x for j, x in enumerate(t[i:i + n]) if order[j] is change)
@@ -445,22 +449,27 @@ def main() -> int:
         g = torch.Generator(dev).manual_seed(7)
         unif = lambda *shape: torch.rand(*shape, generator=g, device=dev) * 2 - 1
         N = 513
-        q, qd, a = unif(N, c.ndof), unif(N, c.ndof), 1.5 * unif(N, c.n_links - 1)
-        t = torch.randint(0, 100, (N,), generator=g, device=dev)
-        outs = tuple(torch.empty_like(x) for x in sw.swimmer_step(c, q, qd, t, a))
+        state = (unif(N, c.ndof), unif(N, c.ndof),
+                 torch.randint(0, 100, (N,), generator=g, device=dev), 1.5 * unif(N, c.n_links - 1))
+        # gaussian_swimmer's launch, then the host topology's (its first episode)
+        for n in (N, 1):
+            ins = tuple(x[:n].contiguous() for x in state)
+            outs = tuple(torch.empty_like(x) for x in sw.swimmer_step(c, *ins))
 
-        def parent():
-            build.raise_on(libs["swimmer"].dfd_swimmer_step(
-                ctypes.byref(sw.kernel_args(c, (q, qd, t, a), outs)), c.n_links, stream()),
-                "parent swimmer_step")
-            return outs
+            def parent():
+                build.raise_on(libs["swimmer"].dfd_swimmer_step(
+                    ctypes.byref(sw.kernel_args(c, ins, outs)), c.n_links, stream()),
+                    "parent swimmer_step")
+                return outs
 
-        change = lambda: sw.swimmer_step(c, q, qd, t, a)
-        equal = all(torch.equal(x, y) for x, y in zip(parent(), change()))
-        print(f"turns: swimmer_step N={N} 7 links: the outputs equal bit for bit: {equal}",
-              flush=True)
-        rows.append(dict(turns(f"swimmer_step N={N} 7 links", parent, change, 50, rounds=5),
-                         bit_equal=equal))
+            change = lambda: sw.swimmer_step(c, *ins)
+            pairs = list(zip(parent(), change()))
+            equal = all(torch.equal(x, y) for x, y in pairs)
+            diff = max((x.double() - y.double()).abs().max().item() for x, y in pairs)
+            print(f"turns: swimmer_step N={n} 7 links: the outputs equal bit for bit: {equal}; "
+                  f"largest absolute difference {diff:.3g}", flush=True)
+            rows.append(dict(turns(f"swimmer_step N={n} 7 links", parent, change, 50, rounds=5),
+                             bit_equal=equal, max_abs_diff=diff))
 
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
