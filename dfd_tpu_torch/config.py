@@ -1,9 +1,11 @@
 """Typed training configuration, field for field the JAX package's.
 
 The same fields and defaults as ``dfd_tpu.config`` so that one config object
-drives both packages.  ``e_lowering``, ``mesh_axes`` and
-``scan_unroll`` are XLA lowering choices the port does not read (E > 1
-episodes are one rollout over M * E rows, whatever ``e_lowering`` says).
+drives both packages.  ``mesh_axes`` and ``scan_unroll`` are XLA lowering
+choices the port does not read.  ``e_lowering`` is checked as the JAX
+trainer checks it (``flat``, ``nested`` or ``auto`` where E > 1, unchunked,
+with a zeta), but E > 1 episodes are one rollout over M * E rows whichever
+of the three it names.
 """
 
 from __future__ import annotations

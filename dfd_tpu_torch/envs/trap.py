@@ -27,10 +27,32 @@ EPISODE_LENGTH = 200
 _DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "trap_map.npz")
 
 
+def parse_map_text(text: str) -> np.ndarray:
+    """Parse a map in the reference's text format into a walkability grid.
+
+    Mirrors the reference parser's behavior exactly: rows are split on single
+    spaces and a tile is walkable iff its token is exactly "0" (so trailing
+    newline tokens make unwalkable cells).
+    """
+    rows = []
+    for line in text.splitlines(keepends=True):
+        rows.append([tok == "0" for tok in line.split(" ")])
+    width = max(len(r) for r in rows)
+    grid = np.zeros((len(rows), width), dtype=bool)
+    for i, r in enumerate(rows):
+        grid[i, : len(r)] = r
+    return grid
+
+
 def load_walkable_grid(path: str | None = None) -> np.ndarray:
-    """Load the walkability grid (``walkable`` in an npz; default the
-    shipped reference map)."""
-    return np.load(path or _DATA)["walkable"]
+    """Load the walkability grid from npz (default: the shipped reference
+    map) or a reference-format text map."""
+    if path is None:
+        return np.load(_DATA)["walkable"]
+    if path.endswith(".npz"):
+        return np.load(path)["walkable"]
+    with open(path) as f:
+        return parse_map_text(f.read())
 
 
 class TrapState(NamedTuple):

@@ -128,6 +128,8 @@ def episode_rollout(
 
 def _keep(done: torch.Tensor, new, old):
     """Each of ``old`` where ``done`` (their leading axes) is set, else each
-    of ``new``."""
-    return (torch.where(done.reshape(done.shape + (1,) * (o.ndim - done.ndim)), o, n)
+    of ``new``; a nested state tuple (a wrapper env's inner state) is kept
+    field by field."""
+    return (type(o)(*_keep(done, n, o)) if isinstance(o, tuple) else
+            torch.where(done.reshape(done.shape + (1,) * (o.ndim - done.ndim)), o, n)
             for n, o in zip(new, old))

@@ -114,6 +114,24 @@ class PolicyModel(abc.ABC):
         action = torch.where(det, mean, mean + std * noise)
         return action, layers.gaussian_entropy(std).sum(dim=-1), carry
 
+    def act(self, params: Params, state: State, obs: torch.Tensor, noise: torch.Tensor,
+            deterministic=False) -> torch.Tensor:
+        """Each member's action for one observation ``obs`` [*obs] from a
+        fresh episode (a recurrent model's initial carry, a zero previous
+        reward): [M], or [M, A] for a Gaussian policy.  ``noise`` [A] or
+        [M, A] is the step's draw, as :meth:`act_step` takes it (unread
+        where ``deterministic``)."""
+        M = next(iter(params.values()))["w"].shape[0]
+        dev = obs.device
+        det = torch.as_tensor(deterministic, device=dev).expand(M)
+        carry = tuple(c.reshape((M, 1) + c.shape[1:]) for c in self.initial_carry(M))
+        action, _, _ = self.act_step(
+            params, state, obs.expand((M,) + tuple(obs.shape))[:, None],
+            torch.zeros((M, 1), dtype=torch.float32, device=dev),
+            torch.zeros((M, 1), dtype=torch.bool, device=dev), carry, det,
+            noise.to(dev).expand(M, noise.shape[-1])[:, None])
+        return action[:, 0]
+
     def get_flat(self, params: Params) -> torch.Tensor:
         return flatten(params, self.param_spec)
 

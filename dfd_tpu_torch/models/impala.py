@@ -18,6 +18,14 @@ the same shape gates (decided once here, from the frame shape):
 
 - ``"patches"``: every conv as im2col (a strided view of the padded frame,
   copied once, :func:`conv3x3_patches`) and one batched product per member;
+- ``"lax"``: every conv as one grouped convolution over members x
+  channels (:func:`conv3x3`; cuDNN on the card, where JAX lowers its
+  member-batched ``lax.conv`` outside any Pallas kernel);
+- ``"split"``: the kernel's rows in the product's contraction and its
+  columns in its output, then three shifted adds (:func:`conv3x3_split`);
+- ``"nhwc"``: the torso in channels-last layout (:func:`conv3x3_nhwc`,
+  :func:`maxpool3x3s2_nhwc`), transposed back before the flatten so that
+  the fc weights' order holds;
 - ``"fused"``: a stage's residual pair through the ``fused_res_stage``
   kernel where ``fused_supported(H, W)``;
 - ``"fused_feat"``: also the feature block through the ``fused_feat_pool``
@@ -46,9 +54,16 @@ from dfd_tpu_torch.ops import fused_resblock
 
 CHANNELS = (16, 32, 32)
 HIDDEN = 256
-CONV_IMPLS = ("patches", "fused", "fused_feat")
-_UNPORTED_CONV_IMPLS = ("lax", "split", "nhwc")
+CONV_IMPLS = ("lax", "patches", "nhwc", "split", "fused", "fused_feat")
 _PREPARED = "_fused"  # the key under which prepare() keeps the kernels' layouts
+
+
+def _rounded(compute_dtype, *xs):
+    """``xs`` rounded to ``compute_dtype`` and back to float32 (unchanged
+    for None): the operands of a product taken in float32."""
+    if compute_dtype is None:
+        return xs
+    return tuple(x.to(compute_dtype).to(torch.float32) for x in xs)
 
 
 def conv3x3_patches(p, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
@@ -66,12 +81,73 @@ def conv3x3_patches(p, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     N, H, W = x.shape[1], x.shape[3], x.shape[4]
     win = F.pad(x, (1, 1, 1, 1)).unfold(3, 3, 1).unfold(4, 3, 1)      # [M, N, ci, H, W, 3, 3]
     pat = win.permute(0, 2, 5, 6, 1, 3, 4).reshape(M, 9 * ci, N * H * W)
-    wk = w.reshape(M, co, 9 * ci)
-    if compute_dtype is not None:
-        pat = pat.to(compute_dtype).to(torch.float32)
-        wk = wk.to(compute_dtype).to(torch.float32)
+    wk, pat = _rounded(compute_dtype, w.reshape(M, co, 9 * ci), pat)
     y = torch.bmm(wk, pat).reshape(M, co, N, H, W).transpose(1, 2)
     return y + p["b"][:, None, :, None, None]
+
+
+def conv3x3(p, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+    """3x3 "same" conv as one grouped convolution: the members' channels
+    side by side, a group a member.  x [M, N, ci, H, W], w [M, co, ci, 3,
+    3], b [M, co] -> [M, N, co, H, W]."""
+    w = p["w"]
+    M, co, ci = w.shape[:3]
+    N, H, W = x.shape[1], x.shape[3], x.shape[4]
+    x, w = _rounded(compute_dtype, x, w)
+    xg = x.transpose(0, 1).reshape(N, M * ci, H, W)
+    y = F.conv2d(xg, w.reshape(M * co, ci, 3, 3), padding=1, groups=M)
+    y = y.reshape(N, M, co, H, W).transpose(0, 1)
+    return y + p["b"][:, None, :, None, None]
+
+
+def conv3x3_split(p, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+    """3x3 "same" conv as a (rows -> contraction, columns -> output) split
+    product and three shifted adds, ``dfd_tpu.models.impala.conv3x3_split``
+    per member.  The vertical-only patches [M, 3ci, N*H*W] are ordered (ci,
+    dy); the weights [M, 3ci, 3co] (ci, dy) x (dx, co); the product's three
+    co-wide blocks, shifted by dx - 1 columns, sum to the conv."""
+    w = p["w"]
+    M, co, ci = w.shape[:3]
+    N, H, W = x.shape[1], x.shape[3], x.shape[4]
+    win = F.pad(x, (0, 0, 1, 1)).unfold(3, 3, 1)                      # [M, N, ci, H, W, 3]
+    pat3 = win.permute(0, 2, 5, 1, 3, 4).reshape(M, 3 * ci, N * H * W)
+    w2 = w.permute(0, 2, 3, 4, 1).reshape(M, 3 * ci, 3 * co)
+    pat3, w2 = _rounded(compute_dtype, pat3, w2)
+    y3 = torch.bmm(w2.transpose(1, 2), pat3).reshape(M, 3 * co, N, H, W)
+    y3p = F.pad(y3, (1, 1))
+    y = (y3p[:, 0 * co:1 * co, ..., 0:W] + y3p[:, 1 * co:2 * co, ..., 1:W + 1]
+         + y3p[:, 2 * co:3 * co, ..., 2:W + 2])
+    return y.transpose(1, 2) + p["b"][:, None, :, None, None]
+
+
+def conv3x3_nhwc(p, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+    """3x3 "same" conv over channels-last activations (im2col + one batched
+    product per member): x [M, N, H, W, ci] -> [M, N, H, W, co].  The
+    patches' channels are ordered (ci, kh, kw), so the OIHW weights'
+    ``reshape(co, 9ci)`` fits."""
+    w = p["w"]
+    M, co, ci = w.shape[:3]
+    N, H, W = x.shape[1], x.shape[2], x.shape[3]
+    win = F.pad(x, (0, 0, 1, 1, 1, 1)).unfold(2, 3, 1).unfold(3, 3, 1)  # [M, N, H, W, ci, 3, 3]
+    pat = win.reshape(M, N * H * W, 9 * ci)
+    wk = w.reshape(M, co, 9 * ci)
+    pat, wk = _rounded(compute_dtype, pat, wk)
+    y = torch.bmm(pat, wk.transpose(1, 2)).reshape(M, N, H, W, co)
+    return y + p["b"][:, None, None, None, :]
+
+
+def maxpool3x3s2_nhwc(x: torch.Tensor) -> torch.Tensor:
+    """3x3 max, stride 2, padding 1 (-inf) over [M, N, H, W, C]."""
+    return maxpool3x3s2(x.permute(0, 1, 4, 2, 3)).permute(0, 1, 3, 4, 2)
+
+
+def _batchnorm_nhwc(p, s, x: torch.Tensor) -> torch.Tensor:
+    """BatchNorm in inference mode over the last axis of [M, N, H, W, C]."""
+    pc = lambda v: v[:, None, None, None, :]
+    return (x - s["mean"]) / torch.sqrt(s["var"] + layers.BN_EPS) * pc(p["w"]) + pc(p["b"])
+
+
+_CONVS = {"lax": conv3x3, "split": conv3x3_split}
 
 
 def maxpool3x3s2(x: torch.Tensor) -> torch.Tensor:
@@ -105,10 +181,6 @@ class ImpalaPolicy(PolicyModel):
         """``frame_shape``: (C, H, W) of one frame.  ``compute_dtype``: None
         or ``torch.bfloat16`` (conv and fc operands rounded to bf16, products
         accumulated in float32; the LSTM and the head stay float32)."""
-        if conv_impl in _UNPORTED_CONV_IMPLS:
-            raise NotImplementedError(
-                f"conv_impl={conv_impl!r} is not ported yet (ROADMAP.md, Queue 1: "
-                "the lax/split/nhwc conv lowerings)")
         if conv_impl not in CONV_IMPLS:
             raise ValueError(f"conv_impl must be one of {CONV_IMPLS}, got {conv_impl!r}")
         if compute_dtype not in (None, torch.bfloat16):
@@ -119,6 +191,8 @@ class ImpalaPolicy(PolicyModel):
         self.hidden = int(hidden)
         self.compute_dtype = compute_dtype
         self.conv_impl = conv_impl
+        # the unfused convs; the VBN refresh's too, but nhwc's is the patches conv
+        self._conv = _CONVS.get(conv_impl, conv3x3_patches)
         self.input_shape = (c, h, w)
         self.output_shape = int(n_actions)
         self.use_lstm = use_lstm
@@ -245,6 +319,8 @@ class ImpalaPolicy(PolicyModel):
 
     def _torso(self, params, state, frames: torch.Tensor) -> torch.Tensor:
         """frames [M, N, C, H, W] (raw pixels) -> features [M, N, hidden]."""
+        if self.conv_impl == "nhwc":
+            return self._torso_nhwc(params, state, frames)
         if _PREPARED not in params:
             params = self.prepare(params, state)
         fused = params[_PREPARED]
@@ -255,7 +331,7 @@ class ImpalaPolicy(PolicyModel):
                 x = fused_resblock.fused_feat_pool(x, *fused[("feat", k)], compute_dtype=cd)
             else:
                 x = batchnorm2d_eval(params[f"feat{k}_bn"], state[f"feat{k}_bn"], x)
-                x = conv3x3_patches(params[f"feat{k}_conv"], x, cd)
+                x = self._conv(params[f"feat{k}_conv"], x, cd)
                 x = maxpool3x3s2(x)
             if stage.res_fused:
                 x = fused_resblock.fused_res_stage(x, *fused[("res", k)], compute_dtype=cd)
@@ -264,15 +340,38 @@ class ImpalaPolicy(PolicyModel):
                 res = x
                 y = batchnorm2d_eval(params[f"res{r}_{k}_bn1"], state[f"res{r}_{k}_bn1"], x)
                 y = torch.relu(y)
-                y = conv3x3_patches(params[f"res{r}_{k}_conv1"], y, cd)
+                y = self._conv(params[f"res{r}_{k}_conv1"], y, cd)
                 y = batchnorm2d_eval(params[f"res{r}_{k}_bn2"], state[f"res{r}_{k}_bn2"], y)
                 y = torch.relu(y)
-                y = conv3x3_patches(params[f"res{r}_{k}_conv2"], y, cd)
+                y = self._conv(params[f"res{r}_{k}_conv2"], y, cd)
                 x = y + res
+        return self._fc(params, state, x)
+
+    def _torso_nhwc(self, params, state, frames: torch.Tensor) -> torch.Tensor:
+        """The same torso in channels-last layout: one transpose in, one
+        back to [M, N, C, H, W] before the flatten (the fc weights' order)."""
+        cd = self.compute_dtype
+        x = frames.to(torch.float32).permute(0, 1, 3, 4, 2) / 255.0
+        bn = lambda name, v: _batchnorm_nhwc(params[name], state[name], v)
+        for k in range(len(self.channels)):
+            x = bn(f"feat{k}_bn", x)
+            x = conv3x3_nhwc(params[f"feat{k}_conv"], x, cd)
+            x = maxpool3x3s2_nhwc(x)
+            for r in (1, 2):
+                res = x
+                y = torch.relu(bn(f"res{r}_{k}_bn1", x))
+                y = conv3x3_nhwc(params[f"res{r}_{k}_conv1"], y, cd)
+                y = torch.relu(bn(f"res{r}_{k}_bn2", y))
+                y = conv3x3_nhwc(params[f"res{r}_{k}_conv2"], y, cd)
+                x = y + res
+        return self._fc(params, state, x.permute(0, 1, 4, 2, 3))
+
+    def _fc(self, params, state, x: torch.Tensor) -> torch.Tensor:
+        """The torso's end: ReLU, flatten, BN, fc, ReLU; x [M, N, C, H, W]."""
         x = torch.relu(x)
         x = x.reshape(x.shape[0], x.shape[1], -1)
         x = layers.batchnorm_eval(params["fc_bn"], state["fc_bn"], x)
-        x = layers.linear(params["fc"], x, compute_dtype=cd)
+        x = layers.linear(params["fc"], x, compute_dtype=self.compute_dtype)
         return torch.relu(x)
 
     def _head(self, params, state, core_output: torch.Tensor) -> torch.Tensor:
@@ -370,9 +469,11 @@ class ImpalaPolicy(PolicyModel):
         As there, the buffer is read as one sequence (the reference's
         batch-first LSTM quirk): the LSTM runs over all N frames from a zero
         carry with ``rewards`` [N] (zeros when None), clipped, appended.
-        Also as there, every conv is the float32 patches conv and neither
-        the convs nor ``fc`` round to ``compute_dtype``; train-mode BN
-        cannot be folded into the fused kernels, so none launches here."""
+        Also as there, every conv is the float32 unfused conv of
+        ``conv_impl`` (the patches conv for ``patches``, ``nhwc`` and the
+        fused routes) and neither the convs nor ``fc`` round to
+        ``compute_dtype``; train-mode BN cannot be folded into the fused
+        kernels, so none launches here."""
         new_state = dict(state)
 
         def bn2d(name, x):
@@ -383,13 +484,13 @@ class ImpalaPolicy(PolicyModel):
         n = x.shape[1]
         for k in range(len(self.channels)):
             x = bn2d(f"feat{k}_bn", x)
-            x = maxpool3x3s2(conv3x3_patches(params[f"feat{k}_conv"], x))
+            x = maxpool3x3s2(self._conv(params[f"feat{k}_conv"], x))
             for r in (1, 2):
                 res = x
                 y = torch.relu(bn2d(f"res{r}_{k}_bn1", x))
-                y = conv3x3_patches(params[f"res{r}_{k}_conv1"], y)
+                y = self._conv(params[f"res{r}_{k}_conv1"], y)
                 y = torch.relu(bn2d(f"res{r}_{k}_bn2", y))
-                y = conv3x3_patches(params[f"res{r}_{k}_conv2"], y)
+                y = self._conv(params[f"res{r}_{k}_conv2"], y)
                 x = y + res
         x = torch.relu(x).reshape(1, n, -1)
         y, new_state["fc_bn"] = layers.batchnorm_train(params["fc_bn"], state["fc_bn"], x)

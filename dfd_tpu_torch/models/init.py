@@ -30,3 +30,15 @@ def normc_layers(shapes: List[Tuple[int, ...]], seed: int) -> List[np.ndarray]:
         out.append(w)
     return out
 
+
+
+def orthogonal(shape: Tuple[int, int], gain: float, rng: np.random.RandomState) -> np.ndarray:
+    """Orthogonal init (PPO/A2C-style; the reference's unused alternative,
+    policies/policy.py:117-147).  Not draw-parity with torch."""
+    rows, cols = shape
+    a = rng.standard_normal((max(rows, cols), min(rows, cols)))
+    q, r = np.linalg.qr(a)
+    q *= np.sign(np.diag(r))
+    if rows < cols:
+        q = q.T
+    return (gain * q[:rows, :cols]).astype(np.float32)

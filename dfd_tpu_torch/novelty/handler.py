@@ -58,6 +58,18 @@ class StrategyHandler:
         dists = self.distance_fn(strategy, self.strategy_tensor)
         return float(np.min(dists))
 
+    def compute_novelty_batch(self, flats: torch.Tensor, zeta) -> torch.Tensor:
+        """Novelty of each of ``flats`` [K, d] against the archive, in one
+        batched forward on the model's device: [K]; zeros below 2 entries."""
+        dev = self.model.device
+        flats = torch.as_tensor(flats, device=dev)
+        t = self.strategy_tensor
+        if self.zeta is None or len(t) < 2:
+            return torch.zeros(flats.shape[0], dtype=torch.float32, device=dev)
+        return novelty_batch(self.model, self.model.set_flat(flats), self.bn_state,
+                             torch.as_tensor(np.asarray(zeta), device=dev),
+                             torch.as_tensor(t, device=dev), len(t), self.distance_fn)
+
     # -- internals ---------------------------------------------------------------
 
     def _evaluate_flat(self, flat, zeta) -> np.ndarray:
@@ -65,3 +77,18 @@ class StrategyHandler:
         params = self.model.set_flat(torch.as_tensor(np.asarray(flat), device=dev)[None])
         strat = self.model.strategy(params, self.bn_state, torch.as_tensor(np.asarray(zeta), device=dev))
         return strat[0].cpu().numpy()
+
+
+def novelty_batch(model, params, bn_state, zeta: torch.Tensor, archive: torch.Tensor,
+                  count: int, distance_fn) -> torch.Tensor:
+    """Each member's minimum behavioral distance to the first ``count``
+    strategies of ``archive`` [H, Z, F] (zero-padded beyond them): [M] for
+    population ``params`` of M members; zeros below 2 entries, and then, like
+    the reference's guard (strategy_handler.py:25-31), no forward at all."""
+    M = next(iter(params.values()))["w"].shape[0]
+    if count < 2:
+        return torch.zeros(M, dtype=torch.float32, device=archive.device)
+    strat = model.strategy(params, bn_state, zeta)
+    dists = distance_fn(strat[:, None], archive[None], xp=torch)  # [M, H]
+    idx = torch.arange(archive.shape[0], device=archive.device)
+    return torch.where(idx < count, dists, torch.inf).amin(dim=1)

@@ -1,5 +1,6 @@
 from dfd_tpu_torch.runners.agent import Agent
 from dfd_tpu_torch.runners.host_env import HostEnv
+from dfd_tpu_torch.runners.host_evaluator import BatchedHostEvaluator
 from dfd_tpu_torch.runners.policy import HostPolicy, NumpySampler
 from dfd_tpu_torch.runners.sequential import SequentialRunner
 from dfd_tpu_torch.runners.vectorized import EpochDraws, TrainState, VectorizedTrainer, make_draws
@@ -9,6 +10,7 @@ __all__ = [
     "Agent",
     "Worker",
     "HostEnv",
+    "BatchedHostEvaluator",
     "HostPolicy",
     "NumpySampler",
     "SequentialRunner",

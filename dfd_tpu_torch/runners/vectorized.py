@@ -65,7 +65,7 @@ from dfd_tpu_torch.fd import rollout as fd_rollout
 from dfd_tpu_torch.fd.dsgd import DSGDParams, dsgd_update, lr_scale_from_omega
 from dfd_tpu_torch.fd.omega import OmegaParams, OmegaState, omega_init, omega_step
 from dfd_tpu_torch.models.base import PolicyModel
-from dfd_tpu_torch.novelty.handler import StrategyHandler
+from dfd_tpu_torch.novelty.handler import StrategyHandler, novelty_batch
 from dfd_tpu_torch.ops.perturb import combine, noise_sumsq, perturb
 from dfd_tpu_torch.utils.metrics import EpochReporter
 from dfd_tpu_torch.utils.profiling import StageTimer
@@ -159,6 +159,12 @@ class VectorizedTrainer:
             raise ValueError(f"noise_backend must be 'jax' or 'pallas', got {cfg.noise_backend!r}")
         if self.E < 1:
             raise ValueError(f"envs_per_perturbation must be >= 1, got {self.E}")
+        # JAX reads e_lowering where E > 1, unchunked, with a zeta; the port
+        # refuses there what it refuses (every valid choice is one rollout here)
+        chunked = bool(cfg.population_chunk) and cfg.population_chunk < self.P
+        if self.E > 1 and not chunked and cfg.zeta_size > 0 and \
+                cfg.e_lowering not in ("flat", "nested", "auto"):
+            raise ValueError(f"e_lowering must be flat|nested|auto, got {cfg.e_lowering!r}")
         # chunk: members whose perturb, rollout and novelty are alive at once
         self.chunk = self.P
         if cfg.population_chunk and cfg.population_chunk < self.P:
@@ -531,14 +537,8 @@ class VectorizedTrainer:
         """Min behavioral distance to the archive; 0 when the archive has <2
         entries, and then, like the reference's guard
         (strategy_handler.py:25-31), no strategy forward runs at all."""
-        M = next(iter(pop_params.values()))["w"].shape[0]
-        if archive_count < 2:
-            return torch.zeros(M, dtype=torch.float32, device=self.device)
-        strat = self.model.strategy(pop_params, state.bn_state, state.zeta)
-        dists = self.distance_fn(strat[:, None], archive[None], xp=torch)  # [M, H]
-        idx = torch.arange(archive.shape[0], device=self.device)
-        dists = torch.where(idx < archive_count, dists, torch.inf)
-        return dists.amin(dim=1)
+        return novelty_batch(self.model, pop_params, state.bn_state, state.zeta, archive,
+                             archive_count, self.distance_fn)
 
     def _update_zeta(self, zeta, states, steps, perm):
         """Replace a random permutation of zeta slots with the first visited
@@ -591,9 +591,7 @@ class VectorizedTrainer:
             rewards.append(reward)
             new_state, new_obs, new_reward, done = env.step(env_state, actions[k:k + 1])
             reset_state, reset_obs = env.reset(1, resets[k + 1:k + 2])
-            env_state = type(new_state)(*(
-                torch.where(done.reshape(done.shape + (1,) * (r.ndim - 1)), r, s)
-                for r, s in zip(reset_state, new_state)))
+            env_state = type(new_state)(*fd_rollout._keep(done, new_state, reset_state))
             obs = torch.where(done.reshape((1,) + (1,) * len(env.obs_shape)), reset_obs, new_obs)
             reward = torch.where(done, 0.0, new_reward.to(torch.float32))
         buf = torch.stack(buf)

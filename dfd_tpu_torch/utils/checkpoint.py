@@ -19,6 +19,11 @@ re-evaluated on the restored zeta, and the duplicate-archive guard
 Restore into a trainer built with the same model, env and config: the
 trainer draws its zeta and VBN buffers at construction, then the load sets
 its state and its generator.
+
+:func:`save_host_checkpoint` and :func:`load_host_checkpoint` do the same
+for the sequential topology's ``SequentialRunner``, with the JAX package's
+keys, so each package reads the other's file; the server topology's half
+waits for the server (ROADMAP.md, Queue 1: item 9.1).
 """
 
 from __future__ import annotations
@@ -137,3 +142,183 @@ def _restore_archive(handler, arrays, meta, zeta) -> None:
             handler.archive.submit(flat)
     if meta["has_zeta"]:
         handler.set_zeta(zeta)
+
+
+# ---------------------------------------------------------------------------
+# Host-topology (sequential runner) checkpoints
+# ---------------------------------------------------------------------------
+
+
+def _state_leaves(state) -> list:
+    """The tensors of a (nested) env state tuple, depth first in field
+    order: ``jax.tree.leaves``' order for the JAX env's state."""
+    if isinstance(state, tuple):
+        return [leaf for field in state for leaf in _state_leaves(field)]
+    return [state]
+
+
+def _state_from_leaves(template, leaves):
+    """``template``'s (nested) tuple with its tensors replaced, in order,
+    by ``leaves`` (an iterator of tensors)."""
+    if isinstance(template, tuple):
+        return type(template)(*(_state_from_leaves(f, leaves) for f in template))
+    return next(leaves)
+
+
+def _sequential_only(runner) -> None:
+    from dfd_tpu_torch.runners.sequential import SequentialRunner
+    from dfd_tpu_torch.runners.vectorized import _not_ported
+
+    if not isinstance(runner, SequentialRunner):
+        raise _not_ported(f"a host checkpoint of {type(runner).__name__}",
+                          "item 9.1, the distributed wire, server and thin client")
+
+
+def save_host_checkpoint(path: str, runner) -> None:
+    """Persist a SequentialRunner's training state with the JAX package's
+    keys: the learner (flat, epoch, discarded returns, the policy history of
+    the drift correction), omega, the EMAs, zeta, the archive's flats, the
+    host RNG streams (MT19937 states as arrays, PCG64 states in the meta),
+    and the episode in flight (the agent's last observation and timesteps,
+    the env's state leaves without their batch axis, int64 written as
+    int32 as JAX keeps them).  The host env's reset key (``env.key``, its
+    uint32 words) rides beside them; the JAX package does not read it."""
+    _sequential_only(runner)
+    learner = runner.learner
+    arrays: Dict[str, np.ndarray] = {
+        "flat": np.asarray(learner.flat, np.float32),
+        "epoch": np.asarray(learner.epoch),
+        "discarded": np.asarray(learner.discarded_returns),
+        "zeta": np.asarray(runner.zeta),
+        "omega.omega": np.asarray(runner.omega.omega, np.float64),
+        "omega.history": np.asarray(runner.omega.reward_history, np.float64),
+        "ema.reward": np.asarray(runner.policy_reward if runner.policy_reward is not None
+                                 else np.nan),
+        "ema.entropy": np.asarray(runner.policy_entropy if runner.policy_entropy is not None
+                                  else np.nan),
+        "ema.novelty": np.asarray(runner.policy_novelty if runner.policy_novelty is not None
+                                  else np.nan),
+        "history.flats": np.stack([f for f, _ in learner.policy_history]),
+        "history.epochs": np.asarray([e for _, e in learner.policy_history]),
+    }
+    archive_flats = [p.flat for p in runner.strategy_handler.archive.points]
+    if archive_flats:
+        arrays["archive.flats"] = np.stack(archive_flats)
+
+    pcg = {}
+    for name, rs in _host_rngs(runner).items():
+        if isinstance(rs, np.random.RandomState):
+            kind, keys, pos, has_gauss, cached = rs.get_state()
+            arrays[f"rng.{name}.keys"] = np.asarray(keys)
+            arrays[f"rng.{name}.rest"] = np.asarray([pos, has_gauss, cached], np.float64)
+        elif hasattr(rs, "bit_generator"):
+            st = rs.bit_generator.state
+            pcg[name] = {
+                "state": str(st["state"]["state"]),
+                "inc": str(st["state"]["inc"]),
+                "has_uint32": int(st["has_uint32"]),
+                "uinteger": int(st["uinteger"]),
+            }
+
+    agent = runner.agent
+    arrays["agent.last_obs"] = np.asarray(agent.last_obs)
+    arrays["agent.cumulative"] = np.asarray(agent.cumulative_timesteps)
+    env_state = getattr(agent.env, "_state", None)
+    if env_state is not None:
+        for i, leaf in enumerate(_state_leaves(env_state)):
+            a = _numpy(leaf)[0]
+            arrays[f"env.leaf{i}"] = a.astype(np.int32) if a.dtype == np.int64 else a
+    key = getattr(agent.env, "_key", None)
+    if key is not None:
+        arrays["env.key"] = np.asarray(key, np.uint32)
+
+    meta = {
+        "n_archive": len(archive_flats),
+        "has_zeta": runner.strategy_handler.zeta is not None,
+        "has_obs": False,
+        "pcg": pcg,
+    }
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez_compressed(f, __meta__=json.dumps(meta), **arrays)
+    os.replace(tmp, path)
+
+
+def _host_rngs(runner) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for name, obj in (
+        ("runner", getattr(runner, "rng", None)),
+        ("buffer", getattr(runner, "_buffer_rng", None)),
+        ("worker", getattr(getattr(runner, "worker", None), "rng", None)),
+        ("agent", getattr(getattr(runner, "agent", None), "rng", None)),
+        ("sampler", getattr(getattr(getattr(runner, "policy", None), "sampler", None), "rng",
+                            None)),
+        ("noise", getattr(getattr(runner, "learner", None), "noise_source", None)
+         and getattr(runner.learner.noise_source, "rng", None)),
+    ):
+        if obj is not None:
+            out[name] = obj
+    return out
+
+
+def load_host_checkpoint(path: str, runner) -> None:
+    """Restore a SequentialRunner built with the same model, env and
+    settings, from a file this module or the JAX package wrote."""
+    _sequential_only(runner)
+    with np.load(path, allow_pickle=False) as z:
+        arrays = {k: z[k] for k in z.files}
+    meta = json.loads(str(arrays.pop("__meta__")))
+
+    learner = runner.learner
+    learner.flat = np.asarray(arrays["flat"], np.float32)
+    learner.epoch = int(arrays["epoch"])
+    learner.discarded_returns = int(arrays["discarded"])
+    learner.policy_history = [
+        (np.asarray(f, np.float32), int(e))
+        for f, e in zip(arrays["history.flats"], arrays["history.epochs"])
+    ]
+    learner._build_distance_map()
+    runner.policy.set_trainable_flat(learner.flat)
+
+    runner.omega.omega = float(arrays["omega.omega"])
+    runner.omega.reward_history = [float(v) for v in arrays["omega.history"]]
+    nan_to_none = lambda v: None if np.isnan(v) else float(v)
+    runner.policy_reward = nan_to_none(arrays["ema.reward"])
+    runner.policy_entropy = nan_to_none(arrays["ema.entropy"])
+    runner.policy_novelty = nan_to_none(arrays["ema.novelty"])
+    runner.zeta[:] = arrays["zeta"]
+
+    for name, rs in _host_rngs(runner).items():
+        if isinstance(rs, np.random.RandomState) and f"rng.{name}.keys" in arrays:
+            pos, has_gauss, cached = arrays[f"rng.{name}.rest"]
+            rs.set_state(("MT19937", arrays[f"rng.{name}.keys"].astype(np.uint32), int(pos),
+                          int(has_gauss), float(cached)))
+        elif hasattr(rs, "bit_generator") and name in meta["pcg"]:
+            saved = meta["pcg"][name]
+            st = rs.bit_generator.state
+            st["state"] = {"state": int(saved["state"]), "inc": int(saved["inc"])}
+            st["has_uint32"] = int(saved["has_uint32"])
+            st["uinteger"] = int(saved["uinteger"])
+            rs.bit_generator.state = st
+
+    # the broadcast state and the worker tag returns with the restored epoch
+    # (else the drift correction would treat them as stale)
+    runner.current_state.epoch = learner.epoch
+    runner.current_state.policy_params = runner.policy.serialize()
+    runner.worker.epoch = learner.epoch
+
+    agent = runner.agent
+    if "agent.last_obs" in arrays:
+        agent.last_obs = arrays["agent.last_obs"]
+        agent.cumulative_timesteps = int(arrays["agent.cumulative"])
+        env = agent.env
+        template = getattr(env, "_state", None)
+        if template is not None and "env.leaf0" in arrays:
+            old = _state_leaves(template)
+            leaves = (torch.as_tensor(arrays[f"env.leaf{i}"], device=t.device).to(t.dtype)[None]
+                      for i, t in enumerate(old))
+            env._state = _state_from_leaves(template, leaves)
+        if "env.key" in arrays and hasattr(env, "_key"):
+            env._key = np.asarray(arrays["env.key"], np.uint32)
+
+    _restore_archive(runner.strategy_handler, arrays, meta, np.asarray(runner.zeta))

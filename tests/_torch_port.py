@@ -162,6 +162,17 @@ def port_rollout_rows(ptr, epoch: int):
     return calls
 
 
+def trap_map_text(grid: np.ndarray) -> str:
+    """A trap grid in the reference's text format: "0" walkable, "1" not,
+    rows ending in the reference's "0\\n" token (parsed unwalkable), the last
+    row without a newline; it parses back to ``grid`` where the grid's last
+    column is unwalkable on every row but the last, as the shipped map's is."""
+    rows = [["0" if c else "1" for c in row] for row in grid]
+    for row in rows[:-1]:
+        row[-1] = "0"
+    return "\n".join(" ".join(row) for row in rows)
+
+
 def assert_bn_close(got, want, err_msg=""):
     """BatchNorm statistics ``got`` (the port's tensors) against ``want``
     (JAX's) under ``utils/closeness.py``'s rule at rtol 1e-5 (a mean over

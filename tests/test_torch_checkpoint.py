@@ -207,3 +207,94 @@ def test_last_archived_blocks_a_duplicate(tmp_path):
     fresh._last_archived = None  # without the guard the same flat goes in again
     fresh._archive_current()
     assert len(fresh.handler.archive) == n + 1
+
+
+# -- the sequential topology's host checkpoint ---------------------------------------------
+
+
+def _seq_runner(package, env_id="SimpleTrapEnv-v0", seed=7, env=None):
+    """A SequentialRunner of ``package`` ("jax" or "port") on ``env_id``'s
+    host env (or ``env``), batch 4, evals at 0.2."""
+    if package == "jax":
+        from dfd_tpu.runners import SequentialRunner as Runner
+        from dfd_tpu.utils import factory as fac
+        from dfd_tpu.utils.metrics import EpochReporter as Reporter
+        host, model, dist = fac.get_init_data(env_id, seed)
+    else:
+        from dfd_tpu_torch.runners import SequentialRunner as Runner
+        from dfd_tpu_torch.utils import factory as fac
+        from dfd_tpu_torch.utils.metrics import EpochReporter as Reporter
+        host, model, dist = fac.get_init_data(env_id, seed, CPU)
+    return Runner(model, env if env is not None else host, dist, learning_rate=0.05,
+                  noise_std=0.05, batch_size=4, random_seed=seed, zeta_size=10,
+                  max_strategy_history_size=10, eval_prob=0.2, reporter=Reporter(quiet=True))
+
+
+def _swimmer_runner():
+    from dfd_tpu_torch.envs import SwimmerEnv
+    from dfd_tpu_torch.runners import HostEnv
+
+    return _seq_runner("port", "Swimmer-v0", 5,
+                       env=HostEnv(SwimmerEnv(max_steps=25, device=CPU), seed=5))
+
+
+@pytest.mark.parametrize("make", [lambda: _seq_runner("port"), _swimmer_runner],
+                         ids=["trap", "swimmer"])
+def test_host_checkpoint_resume_is_exact(make, tmp_path):
+    """Train 2 epochs, save, train 2 more; a fresh runner loads the file and
+    trains the same 2: flat, the rewards, the timesteps, omega and the host
+    env's reset key end equal (the swimmer's resets draw from that key)."""
+    path = str(tmp_path / "host.npz")
+    a = make()
+    a.train(2)
+    checkpoint.save_host_checkpoint(path, a)
+    a.train(2)
+    b = make()
+    checkpoint.load_host_checkpoint(path, b)
+    assert b.learner.epoch == 2
+    b.train(2)
+    np.testing.assert_array_equal(a.learner.flat, b.learner.flat)
+    assert [r["Noisy Reward"] for r in a.reporter.history[-2:]] == \
+        [r["Noisy Reward"] for r in b.reporter.history[-2:]]
+    assert a.agent.cumulative_timesteps == b.agent.cumulative_timesteps
+    assert a.omega.omega == b.omega.omega
+    np.testing.assert_array_equal(a.agent.env._key, b.agent.env._key)
+    for u, v in zip(checkpoint._state_leaves(a.agent.env._state),
+                    checkpoint._state_leaves(b.agent.env._state)):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_host_checkpoint_crosses_packages(writer, tmp_path):
+    """A file one package wrote after 2 epochs, read by the other: the
+    learner, the archive, zeta, the RNG streams and the episode in flight
+    carry over, so both go on with the same epoch: actions and rewards
+    equal, flat within rtol 1e-5 (the sequential parity tests' bound)."""
+    from dfd_tpu.utils.checkpoint import load_host_checkpoint as jload
+    from dfd_tpu.utils.checkpoint import save_host_checkpoint as jsave
+
+    reader = "port" if writer == "jax" else "jax"
+    save = {"jax": jsave, "port": checkpoint.save_host_checkpoint}[writer]
+    load = {"jax": jload, "port": checkpoint.load_host_checkpoint}[reader]
+    path = str(tmp_path / "host.npz")
+    a = _seq_runner(writer)
+    a.train(2)
+    save(path, a)
+    b = _seq_runner(reader)
+    load(path, b)
+    assert b.learner.epoch == 2
+    np.testing.assert_array_equal(b.learner.flat, a.learner.flat)
+    assert len(b.strategy_handler.archive.points) == len(a.strategy_handler.archive.points)
+    a.train(1)
+    b.train(1)
+    np.testing.assert_allclose(b.learner.flat, a.learner.flat, rtol=1e-5, atol=0)
+    assert a.reporter.history[-1]["Noisy Reward"] == b.reporter.history[-1]["Noisy Reward"]
+    assert a.agent.cumulative_timesteps == b.agent.cumulative_timesteps
+    assert a.omega.omega == b.omega.omega
+
+
+def test_host_checkpoint_refuses_other_runners(tmp_path):
+    with pytest.raises(NotImplementedError, match="item 9.1"):
+        checkpoint.save_host_checkpoint(str(tmp_path / "x.npz"), object())
+    with pytest.raises(NotImplementedError, match="item 9.1"):
+        checkpoint.load_host_checkpoint(str(tmp_path / "x.npz"), object())

@@ -7,9 +7,12 @@ JAX's own draws on the pendulum and the swimmer, both noise backends, the
 swimmer's ``eval_panel``, a Gaussian checkpoint's resume, ``set_env`` and
 ``bench.py``'s ``gaussian_swimmer`` config.
 
-Tolerances.  Resets and step counts are exact; CartPole's 200 steps too
-(its dynamics are a few float32 ops in the JAX order, its rewards 1).
-The pendulum's float32 state drifts from JAX's by ulps a step (XLA's fused
+Tolerances.  Resets and step counts are exact.  CartPole's 200 steps hold
+each step's observation to 4 ulps of its size from JAX's state (its
+dynamics are a few float32 ops, XLA contracts some into fused
+multiply-adds), its rewards and ``done`` exact; the trainer on CartPole
+(``DiscreteMLP``) takes JAX's actions, so its rewards are exact and only
+its zeta carries the observations' ulps.  The pendulum's float32 state drifts from JAX's by ulps a step (XLA's fused
 multiply-adds): 200 steps within 1e-4 of the state's size.  Model forwards
 (three matrix products summed in another order, XLA's tanh and log against
 PyTorch's) within rtol 1e-5; the distances within rtol 1e-6.  The trainer's
@@ -276,6 +279,29 @@ def test_gaussian_trainer_matches_jax(env_name, backend, monkeypatch):
         np.testing.assert_allclose(_np(a), b, rtol=1e-5,
                                    atol=REWARD_RTOL * max(1.0, float(np.abs(b).max())))
     assert float(ptr.state.obs_stats.count) > 10
+
+
+def test_cartpole_trainer_matches_jax(monkeypatch):
+    """CartPole-v1 with ``DiscreteMLP(4, 2)`` on the vectorized trainer, P =
+    8, T = 60, 3 epochs on JAX's draws: rewards equal (integer step counts:
+    ``REWARD_RTOL`` of the largest is below one step), ``flat`` within rtol
+    1e-5, and zeta, the visited observations, within the continuous envs'
+    ``REWARD_RTOL`` of its largest (measured 8.4e-10 absolute)."""
+    from dfd_tpu.models import DiscreteMLP as JaxDiscreteMLP
+    from dfd_tpu_torch.models import DiscreteMLP
+
+    kw = dict(batch_size=8, learning_rate=0.05, noise_std=0.05, zeta_size=4,
+              max_strategy_history_size=4, random_seed=5, episode_length=60)
+    jtr = JaxTrainer(JaxDiscreteMLP(4, 2), JaxCartPoleEnv(), jdist.categorical_tvd,
+                     JaxTrainConfig(**kw))
+    draws = {}
+    ptr = VectorizedTrainer(DiscreteMLP(4, 2, device=CPU), CartPoleEnv(device=CPU),
+                            pdist.categorical_tvd, TrainConfig(**kw), device=CPU,
+                            draw_source=lambda epoch: draws[epoch])
+    ptr.state = train_state_from_numpy(jax_state_numpy(jtr.state), CPU)
+    assert ptr.horizon == 60
+    run_and_compare(jtr, ptr, draws, 3, monkeypatch, reward_rtol=REWARD_RTOL)
+    assert len({r["Noisy Reward"] for r in ptr.reporter.history}) > 1
 
 
 def test_eval_panel_on_swimmer_matches_jax(monkeypatch):

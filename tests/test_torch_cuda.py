@@ -1415,3 +1415,58 @@ def test_cli_train_on_card_launches_the_noise_kernels(cuda, backend, capsys):
     assert rc == 0 and "'Epoch': 3" in capsys.readouterr().out
     got = tuple(a - b for a, b in zip(counts(), before))
     assert got == ((3, 0, 0) if backend == "jax" else (0, 3, 3)), got
+
+
+def test_native_trap_pool_builds_at_first_use(cuda, tmp_path, monkeypatch):
+    """The port's g++ build of runtime/envpool.cc into a fresh build
+    directory, loaded and stepped: 201-step episodes end together."""
+    import numpy as np
+
+    from dfd_tpu_torch.envs import native_pool
+
+    monkeypatch.setattr(native_pool, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(native_pool, "_lib", None)
+    monkeypatch.delenv("DFD_ENVPOOL_LIB", raising=False)
+    pool = native_pool.NativeTrapPool(4)
+    assert native_pool.library_path().exists() and native_pool.library_path().parent == tmp_path
+    pool.reset_all()
+    for _ in range(201):
+        _, _, done = pool.step(np.full(4, 5))
+    assert done.all()
+
+
+def test_host_evaluator_on_card_matches_cpu(cuda):
+    """BatchedHostEvaluator with DiscreteMLP over two lanes of native trap
+    pools (5 + 3 members), horizon 201, on the card against the CPU on the
+    same action draws: rewards, timesteps and encodings equal (the trap
+    MLP's actions keep their margin at these seeds), entropies within rtol
+    1e-5; one normal_kernel launch an evaluation; one read back a
+    lane-step."""
+    import numpy as np
+
+    from dfd_tpu_torch.core.noise import CounterNoise
+    from dfd_tpu_torch.envs.native_pool import NativeTrapPool
+    from dfd_tpu_torch.models import DiscreteMLP
+    from dfd_tpu_torch.ops import noise as nz
+    from dfd_tpu_torch.runners.host_evaluator import BatchedHostEvaluator
+
+    gen = torch.Generator().manual_seed(0)
+    u = torch.rand((202, 8, 9), generator=gen)
+    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+    draw = lambda t, first, n: gumbel[t, first:first + n]
+    out = []
+    for d in (cuda, "cpu"):
+        model = DiscreteMLP(2, 9, device=d)
+        params, state = model.init(0)
+        ev = BatchedHostEvaluator(model, [NativeTrapPool(5), NativeTrapPool(3)],
+                                  CounterNoise(model.num_params, random_seed=1, device=d),
+                                  sigma=0.05, device=d)
+        nz.normal.launches = 0
+        rets = ev.evaluate_population(model.get_flat(params), state, epoch=2, horizon=201,
+                                      action_noise=draw)
+        out.append((rets, nz.normal.launches, ev.readbacks))
+    (g, g_launch, g_reads), (c, _, _) = out
+    assert g_launch == 1 and g_reads == 2 * 201
+    for a, b in zip(g, c):
+        assert (a.encoded_noise, a.reward, a.timesteps) == (b.encoded_noise, b.reward, b.timesteps)
+        assert np.isclose(a.entropy, b.entropy, rtol=1e-5)

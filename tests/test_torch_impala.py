@@ -1,7 +1,8 @@
 """The port's IMPALA pieces held against the JAX package's, on the CPU: the
 fused torso kernels' plain versions against the Pallas kernels in interpret
 mode (vmapped over members with their own weights), their weight helpers,
-and ``ImpalaPolicy`` for every ported ``conv_impl``.
+and ``ImpalaPolicy`` for every ``conv_impl`` (each against JAX's own
+lowering of the same name).
 
 Tolerances.  f32: rtol 1e-5 with atol 1e-5 for the kernels, whose outputs
 are sums of 9C (up to 144) products of O(1) terms and of residuals up to
@@ -202,7 +203,7 @@ def test_init_is_bit_exact_and_the_spec_matches():
     assert pm.num_params == jm.num_params == 42_523
 
 
-@pytest.mark.parametrize("impl", ["patches", "fused", "fused_feat"])
+@pytest.mark.parametrize("impl", ["lax", "patches", "nhwc", "split", "fused", "fused_feat"])
 def test_forwards_match_jax(impl):
     """apply, strategy, entropy and apply_seq (real rewards) on a perturbed
     population of M = 3."""
@@ -220,7 +221,7 @@ def test_forwards_match_jax(impl):
     np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("impl", ["patches", "fused_feat"])
+@pytest.mark.parametrize("impl", ["lax", "patches", "nhwc", "split", "fused_feat"])
 def test_act_step_reproduces_jax(impl):
     """Two chained steps with JAX's Gumbel draws: actions exact, entropy and
     carry to float32 rounding; prepare() changes nothing but the speed.  The
@@ -281,10 +282,55 @@ def test_bf16_forward_matches_jax():
     np.testing.assert_allclose(got, want, atol=2e-3)
 
 
+@pytest.mark.parametrize("impl", ["lax", "nhwc", "split"])
+def test_bf16_lowerings_match_jax(impl):
+    """bf16 operands on each unfused lowering, against JAX's own lowering at
+    the bf16 cases' tolerance (module docstring).  XLA's CPU backend has no
+    bf16 x bf16 -> f32 dot for ``split``'s einsum, so there the einsum
+    takes its bf16 operands widened to f32 (exactly) with the f32 result
+    that ``preferred_element_type`` asks for: the same products and sums."""
+    import types
+
+    from dfd_tpu.models import impala as jimpala
+
+    jm, pm, bn_np, bn, flats, jparams, pparams = _pair(impl, torch.bfloat16)
+    frames = (np.random.RandomState(9).rand(4, *FRAME) * 255).astype(np.float32)
+    widen = lambda *ops, **kw: jnp.einsum(*(o.astype(jnp.float32) if hasattr(o, "astype") else o
+                                            for o in ops), **kw)
+    proxy = types.SimpleNamespace(**{k: getattr(jnp, k) for k in dir(jnp) if not k.startswith("__")})
+    proxy.einsum = widen
+    with pytest.MonkeyPatch.context() as mp:
+        if impl == "split":
+            mp.setattr(jimpala, "jnp", proxy)
+        want = np.asarray(jax.vmap(lambda p: jm.apply(p, bn_np, frames))(jparams))
+    got = _np(pm.apply(pparams, bn, T(frames)))
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want, atol=2e-3)
+
+
+@pytest.mark.parametrize("impl", ["lax", "nhwc", "split"])
+def test_vbn_lowerings_match_jax(impl):
+    """The VBN refresh on each lowering's own conv (``nhwc``'s is the patches
+    conv, as in JAX): every BatchNorm's statistics within rtol 1e-5 under
+    ``utils/closeness.py``'s rule."""
+    from _torch_port import assert_bn_close
+
+    jm, pm, bn_np, bn, flats, jparams, pparams = _pair(impl)
+    rng = np.random.RandomState(12)
+    buf = (rng.rand(6, *FRAME) * 255).astype(np.float32)
+    rew = rng.randn(6).astype(np.float32)
+    want = jm.vbn(jm.set_flat(flats[0]), bn_np, buf, rew)
+    got = pm.vbn(pm.set_flat(T(flats[:1])), bn, T(buf), rewards=T(rew))
+    assert_bn_close(got, jax.tree.map(np.asarray, want), impl)
+
+
 def test_unported_options_raise():
-    for impl in ("lax", "split", "nhwc"):
-        with pytest.raises(NotImplementedError, match="lax/split/nhwc"):
-            ImpalaPolicy(FRAME, 5, conv_impl=impl, device=CPU)
+    """Every conv lowering of the JAX model builds; an unknown one, and a
+    compute dtype other than bfloat16, raise."""
+    from dfd_tpu.models.impala import CONV_IMPLS as JAX_CONV_IMPLS
+
+    for impl in JAX_CONV_IMPLS:
+        assert ImpalaPolicy(FRAME, 5, conv_impl=impl, device=CPU).conv_impl == impl
     with pytest.raises(ValueError, match="conv_impl"):
         ImpalaPolicy(FRAME, 5, conv_impl="winograd", device=CPU)
     with pytest.raises(ValueError, match="compute_dtype"):

@@ -71,7 +71,9 @@ def test_port_sources_import_no_jax():
         "ops/gemm_chain.py", "ops/relayout.py", "ops/res_chain.py", "probes/_common.py",
         "probes/gemm.py", "probes/torso.py", "probes/pool.py", "probes/wide.py",
         "core/noise.py", "ops/noise.py", "ops/smallsolve.py", "ops/swimmer.py",
-        "envs/swimmer.py", "envs/pendulum.py", "envs/cartpole.py", "models/mujoco.py")} <= set(files)
+        "envs/swimmer.py", "envs/pendulum.py", "envs/cartpole.py", "models/mujoco.py",
+        "envs/framestack.py", "envs/vector_host.py", "envs/native_pool.py",
+        "runners/host_evaluator.py")} <= set(files)
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders, offenders
 
@@ -339,6 +341,56 @@ def test_trap_env_matches_jax_for_201_steps():
     assert moved and bool(pdone.all())
 
 
+def test_text_map_parses_as_jax_and_the_env_matches(tmp_path):
+    """A text map written from the shipped grid, each row ending in the
+    reference's "0\\n" token, parses equal to JAX's parse and to the grid;
+    ``TrapEnv(map_path=...)`` then steps as JAX's on it."""
+    from _torch_port import trap_map_text
+    from dfd_tpu.envs.trap import parse_map_text as jparse
+    from dfd_tpu_torch.envs.trap import load_walkable_grid, parse_map_text
+
+    grid = load_walkable_grid()
+    text = trap_map_text(grid)
+    assert text.count("0\n") >= grid.shape[0] - 1
+    np.testing.assert_array_equal(parse_map_text(text), jparse(text))
+    np.testing.assert_array_equal(parse_map_text(text), grid)
+    path = tmp_path / "map.txt"
+    path.write_text(text)
+    np.testing.assert_array_equal(load_walkable_grid(str(path)), grid)
+    M = 4
+    jenv, penv = JaxTrapEnv(map_path=str(path)), TrapEnv(map_path=str(path), device=CPU)
+    actions = np.random.RandomState(5).randint(0, 9, size=(20, M))
+    jstate, _ = jax.vmap(lambda _: jenv.reset(None))(jnp.arange(M))
+    pstate, _ = penv.reset(M)
+    jstep = jax.vmap(jenv.step)
+    for t in range(20):
+        jstate, jobs, jrew, jdone = jstep(jstate, jnp.asarray(actions[t], jnp.int32))
+        pstate, pobs, prew, pdone = penv.step(pstate, T(actions[t]))
+        for a, b in zip(pstate, jstate):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        np.testing.assert_array_equal(prew.numpy(), np.asarray(jrew))
+
+
+def test_utils_exports_match_jax():
+    """``dfd_tpu_torch.utils`` exports the JAX package's nine names, and each
+    imports (the six of checkpoint, factory and sweep at first access)."""
+    import dfd_tpu.utils as jutils
+    import dfd_tpu_torch.utils as putils
+    from dfd_tpu_torch.utils import (  # noqa: F401
+        get_init_data, get_vectorized_init_data, load_checkpoint, make_jax_env, random_search,
+        save_checkpoint)
+    from dfd_tpu_torch.utils import checkpoint, factory, sweep
+
+    assert putils.__all__ == jutils.__all__
+    for name in putils.__all__:
+        assert callable(getattr(putils, name)), name
+    assert putils.save_checkpoint is checkpoint.save_checkpoint
+    assert putils.get_init_data is factory.get_init_data
+    assert putils.random_search is sweep.random_search
+    with pytest.raises(AttributeError):
+        putils.not_a_name
+
+
 # -- novelty -------------------------------------------------------------------------
 
 
@@ -358,6 +410,75 @@ def test_strategy_handler_matches_jax():
     _close(ph.strategy_tensor, jh.strategy_tensor, rtol=1e-5)
     for f in flats:
         _close(ph.compute_novelty(f), jh.compute_novelty(f), rtol=1e-5)
+
+
+def test_compute_novelty_batch_matches_jax_and_the_host_loop():
+    """The batched novelty of 7 flats against an archive of 4 equals JAX's
+    ``compute_novelty_batch`` and the port's own one-at-a-time
+    ``compute_novelty`` within rtol 1e-5; below 2 entries it is zeros."""
+    jm, pm, params_np, bn_np, _, bn = _model_pair()
+    flats = _population(jm, params_np, M=11, scale=0.4)
+    zeta = np.random.RandomState(13).rand(5, 2).astype(np.float32)
+    jh = JaxStrategyHandler(jm, bn_np, jdist.categorical_tvd, max_history_size=6)
+    ph = StrategyHandler(pm, bn, pdist.categorical_tvd, max_history_size=6)
+    ph.add_policy(flats[0])
+    ph.set_zeta(zeta)
+    assert _np(ph.compute_novelty_batch(T(flats[4:]), zeta)).tolist() == [0.0] * 7
+    for h in (jh, ph):
+        for f in flats[1 if h is ph else 0:4]:
+            h.add_policy(f)
+        h.set_zeta(zeta)
+    got = _np(ph.compute_novelty_batch(T(flats[4:]), zeta))
+    _close(got, np.asarray(jh.compute_novelty_batch(jnp.asarray(flats[4:]), jnp.asarray(zeta))),
+           rtol=1e-5)
+    _close(got, [ph.compute_novelty(f) for f in flats[4:]], rtol=1e-5)
+    assert got.shape == (7,) and (got > 0).all()
+
+
+def test_act_matches_jax():
+    """``PolicyModel.act`` on one observation: the greedy action, and the
+    sampled one on JAX's Gumbel draw of its key, for the trap MLP, a
+    Gaussian MLP (normals) and a small IMPALA (a fresh episode's carry)."""
+    from dfd_tpu.models import GaussianMLP as JaxGaussianMLP
+    from dfd_tpu.models.impala import ImpalaPolicy as JaxImpala
+    from dfd_tpu_torch.models import GaussianMLP, ImpalaPolicy
+
+    rng = np.random.RandomState(14)
+    cases = [
+        (JaxDiscreteMLP(2, 9), DiscreteMLP(2, 9, device=CPU), (2,), 9, True),
+        (JaxGaussianMLP(3, 2), GaussianMLP(3, 2, device=CPU), (3,), 2, False),
+        (JaxImpala((3, 16, 16), 5, channels=(8, 8, 8), hidden=16),
+         ImpalaPolicy((3, 16, 16), 5, channels=(8, 8, 8), hidden=16, device=CPU), (3, 16, 16),
+         5, True),
+    ]
+    for jm, pm, shape, A, discrete in cases:
+        params_np, bn_np = jm.init(2)
+        params, bn = params_from_numpy(pm, params_np, bn_np, CPU)
+        batched = pm.set_flat(pm.get_flat(params)[None])
+        for k in range(4):
+            obs = (rng.rand(*shape) * (255 if len(shape) == 3 else 1)).astype(np.float32)
+            key = jax.random.key(k)
+            draw = (jax.random.gumbel if discrete else jax.random.normal)(key, (A,), jnp.float32)
+            for det in (True, False):
+                want = np.asarray(jm.act(params_np, bn_np, jnp.asarray(obs), key, det))
+                got = _np(pm.act(batched, bn, T(obs), T(np.array(draw)), det))[0]
+                if discrete:
+                    assert int(got) == int(want), (type(pm).__name__, k, det)
+                else:
+                    _close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_orthogonal_matches_jax():
+    from dfd_tpu.models.init import orthogonal as jorthogonal
+    from dfd_tpu_torch.models.init import orthogonal
+
+    for shape, gain in (((6, 4), 1.0), ((3, 7), 0.01), ((5, 5), 2.0)):
+        got = orthogonal(shape, gain, np.random.RandomState(3))
+        want = jorthogonal(shape, gain, np.random.RandomState(3))
+        np.testing.assert_array_equal(got, want)
+        assert got.dtype == np.float32 and got.shape == shape
+        small = got if shape[0] >= shape[1] else got.T
+        np.testing.assert_allclose(small.T @ small, gain ** 2 * np.eye(min(shape)), atol=1e-5)
 
 
 # -- convert, utils ------------------------------------------------------------------

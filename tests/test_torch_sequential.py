@@ -48,6 +48,8 @@ SWIM_STEP_REWARD = 1e-4   # a step's reward against JAX's, through an episode
 SWIM_OBS = 1e-3           # an observation against JAX's, of max(1, its largest)
 SWIM_ACTION = 1e-3
 SWIM_FLAT_RTOL = 1e-4
+PENDULUM_ACTION = 1e-6    # a continuous action against JAX's (ulps of the pendulum's state)
+PENDULUM_REWARD = 2e-4    # a step's reward (up to ~16 in size) against JAX's
 
 
 class _Tape:
@@ -126,6 +128,52 @@ def test_sequential_trap_matches_jax(normalize_obs):
     assert p.policy_novelty != 0.0 or p.reporter.history[-1]["Noisy Novelty"] != 0.0
     if normalize_obs:
         assert p.agent.obs_stats.count > 0
+
+
+def test_sequential_cartpole_matches_jax():
+    """CartPole-v1 (``DiscreteMLP``), 2 epochs of 4: actions, step and
+    per-return rewards, omega and the update magnitudes equal, ``flat``
+    within rtol 1e-5; zeta, the visited observations, within 1e-6 absolute
+    (CartPole's step is 4 ulps a step off JAX's: measured 2.4e-7)."""
+    kw = dict(batch_size=4, zeta_size=8, max_strategy_history_size=8, random_seed=3,
+              eval_prob=0.3)
+    j, p = _pair(*jfactory.get_init_data("CartPole-v1", 3),
+                 *factory.get_init_data("CartPole-v1", 3, CPU), 2, **kw)
+    assert p.tape.actions == j.tape.actions and p.tape.rewards == j.tape.rewards
+    assert p.returns == j.returns
+    for hj, hp in zip(j.reporter.history, p.reporter.history):
+        for k in EXACT:
+            assert hp[k] == hj[k], k
+        for k in FORWARD:
+            np.testing.assert_allclose(hp[k], hj[k], rtol=1e-5, atol=1e-7, err_msg=k)
+    np.testing.assert_allclose(p.learner.flat, j.learner.flat, rtol=1e-5, atol=0)
+    np.testing.assert_allclose(p.zeta, j.zeta, rtol=0, atol=1e-6)
+    assert p.omega.omega == j.omega.omega
+
+
+def test_sequential_pendulum_matches_jax_within_ulps():
+    """Pendulum-v1 (``GaussianMLP``), 1 epoch of 4 with evals at 0.3: the
+    pendulum's float32 step drifts from JAX's by ulps (XLA's fused
+    multiply-adds), so the continuous actions are held to
+    ``PENDULUM_ACTION`` (measured: the first to part, at step 49 of 4,000,
+    by 4.5e-8), the step rewards to ``PENDULUM_REWARD`` (measured 1.5e-4 on
+    rewards of up to 16, ~1e-5 of their size: the state's ulps squared into
+    the cost), the returns to 200 times it, and ``flat`` within rtol 1e-5
+    (measured 9.6e-7); step counts, evals and omega exact."""
+    kw = dict(batch_size=4, zeta_size=8, max_strategy_history_size=8, random_seed=5,
+              eval_prob=0.3)
+    j, p = _pair(*jfactory.get_init_data("Pendulum-v1", 5),
+                 *factory.get_init_data("Pendulum-v1", 5, CPU), 1, **kw)
+    assert len(p.tape.actions) == len(j.tape.actions) > 0
+    np.testing.assert_allclose(np.asarray(p.tape.actions), np.asarray(j.tape.actions), rtol=0,
+                               atol=PENDULUM_ACTION)
+    np.testing.assert_allclose(p.tape.rewards, j.tape.rewards, rtol=0, atol=PENDULUM_REWARD)
+    assert [r[0::2] for r in p.returns] == [r[0::2] for r in j.returns]
+    assert [r[2] for r in p.returns] == [r[2] for r in j.returns]
+    np.testing.assert_allclose([r[1] for r in p.returns], [r[1] for r in j.returns], rtol=0,
+                               atol=200 * PENDULUM_REWARD)
+    np.testing.assert_allclose(p.learner.flat, j.learner.flat, rtol=1e-5, atol=1e-7)
+    assert [h["Omega"] for h in p.reporter.history] == [h["Omega"] for h in j.reporter.history]
 
 
 def test_sequential_pixelgrid_lstm_matches_jax():

@@ -283,3 +283,38 @@ def test_entry_points_take_full_f32_products_and_restore_the_caller(entry):
         torch.backends.cudnn.allow_tf32 = saved[1]
     assert len(seen) >= 1 and all(s == (False, False, "highest") for s in seen)
     assert after == (True, True, "high")
+
+
+@pytest.mark.parametrize(
+    "kw, refused",
+    [
+        (dict(e_lowering="bogus"), True),
+        (dict(e_lowering="bogus", envs_per_perturbation=1), False),
+        (dict(e_lowering="bogus", population_chunk=2), False),
+        (dict(e_lowering="bogus", zeta_size=0), False),
+        (dict(e_lowering="flat"), False),
+        (dict(e_lowering="nested"), False),
+        (dict(e_lowering="auto"), False),
+    ],
+    ids=["bogus", "bogus-E1", "bogus-chunked", "bogus-no-zeta", "flat", "nested", "auto"],
+)
+def test_e_lowering_is_checked_as_jax_checks_it(kw, refused):
+    """Both packages refuse an unknown ``e_lowering`` with the same message
+    exactly where JAX reads the field (E > 1, unchunked, with a zeta), and
+    accept flat, nested and auto (JAX's auto times both lowerings: a 5-step
+    episode keeps that short)."""
+    kw = dict(dict(batch_size=4, zeta_size=4, max_strategy_history_size=4, episode_length=5,
+                   envs_per_perturbation=2), **kw)
+    makers = (
+        lambda: JaxTrainer(JaxDiscreteMLP(2, 9), JaxTrapEnv(), jax_distances.categorical_tvd,
+                           JaxTrainConfig(**kw)),
+        lambda: VectorizedTrainer(DiscreteMLP(2, 9, device=CPU), TrapEnv(device=CPU),
+                                  distances.categorical_tvd, TrainConfig(**kw), device=CPU),
+    )
+    for make in makers:
+        if refused:
+            with pytest.raises(ValueError, match=r"e_lowering must be flat\|nested\|auto, "
+                                                 r"got 'bogus'"):
+                make()
+        else:
+            make()
