@@ -2,15 +2,19 @@
 
     python -m dfd_tpu_torch train --env SimpleTrapEnv-v0 --epochs 200 --batch-size 256
     python -m dfd_tpu_torch train --topology sequential --env SimpleTrapEnv-v0 --epochs 50
+    python -m dfd_tpu_torch server --env SimpleTrapEnv-v0 --port 1025
+    python -m dfd_tpu_torch client --address learner-host --port 1025 [--mode thin|fat|slice]
     python -m dfd_tpu_torch sweep --env SimpleTrapEnv-v0 --trials 10 --epochs 30
 
 The subcommands and flags are the JAX package's, plus ``--device``: the
 port trains on the card (``cuda``) unless ``--device cpu`` is given, and
 fails without a card rather than falling back.  ``train`` runs the
 vectorized trainer (the default) or the sequential topology, one episode at
-a time on the host.  ``server``, ``client``, ``bench`` and ``train --mesh``
-are not ported yet and raise ``NotImplementedError`` naming their ROADMAP
-items.
+a time on the host.  ``server`` runs the elastic learner and ``client`` its
+workers over gRPC; the wire is the JAX package's, so port and JAX processes
+serve each other.  ``bench``, ``train --mesh`` and ``client --mode slice
+--mesh`` are not ported yet and raise ``NotImplementedError`` naming their
+ROADMAP items.
 """
 
 from __future__ import annotations
@@ -158,20 +162,58 @@ def cmd_train(args) -> int:
     return 0
 
 
-def cmd_server(_args) -> int:
-    from dfd_tpu_torch.runners.vectorized import _not_ported
+def cmd_server(args) -> int:
+    from dfd_tpu_torch.runners.server import ServerRunner
+    from dfd_tpu_torch.utils.metrics import make_reporter
 
-    raise _not_ported("the server topology", "item 9.1, the distributed wire, server and "
-                                             "thin client")
+    device = _device(args)
+    if device is None:
+        return 2
+    ServerRunner(
+        reporter=make_reporter(args.wandb_project, wandb_group=args.env),
+        env_id=args.env,
+        learning_rate=args.lr,
+        noise_std=args.noise_std,
+        batch_size=args.batch_size,
+        random_seed=args.seed,
+        zeta_size=args.zeta_size,
+        max_strategy_history_size=args.history_size,
+        normalize_obs=args.normalize_obs,
+        address=args.address,
+        port=args.port,
+        timestep_limit=args.timestep_limit,
+        device=device,
+    ).train()
+    return 0
 
 
 def cmd_client(args) -> int:
     from dfd_tpu_torch.runners.vectorized import _not_ported
 
-    if args.mode == "thin":
-        raise _not_ported("client --mode thin", "item 9.1, the distributed wire, server and "
-                                                "thin client")
-    raise _not_ported(f"client --mode {args.mode}", "item 9.2, the fat and slice clients")
+    if args.mode == "slice" and args.mesh:
+        raise _not_ported("client --mode slice --mesh", "item 8, multi-device")
+    device = _device(args)
+    if device is None:
+        return 2
+    if args.mode == "fat":
+        from dfd_tpu_torch.runners.fat_client import FatClientRunner
+
+        ok = FatClientRunner(
+            n_envs=args.n_envs, address=args.address, port=args.port,
+            pipeline_lanes=args.pipeline_lanes, env_backend=args.env_backend, device=device,
+        ).run(max_windows=args.max_windows)
+    elif args.mode == "slice":
+        from dfd_tpu_torch.runners.slice_client import SliceClientRunner
+
+        ok = SliceClientRunner(
+            n_members=args.n_envs, address=args.address, port=args.port,
+            population_chunk=args.population_chunk, device=device,
+        ).run(max_windows=args.max_windows)
+    else:
+        from dfd_tpu_torch.runners.client import ClientRunner
+
+        ok = ClientRunner(address=args.address, port=args.port, device=device).run()
+    return 0 if ok else 1
 
 
 def cmd_sweep(args) -> int:
@@ -267,23 +309,40 @@ def main(argv=None) -> int:
     p.add_argument("--quiet", action="store_true")
     p.set_defaults(fn=cmd_train)
 
-    p = sub.add_parser("server", help="elastic distributed learner (not ported yet)")
+    p = sub.add_parser("server", help="elastic distributed learner")
     _add_common(p)
     p.add_argument("--address", default="localhost")
     p.add_argument("--port", type=int, default=1025)
     p.add_argument("--timestep-limit", type=int, default=50_000_000)
     p.set_defaults(fn=cmd_server)
 
-    p = sub.add_parser("client", help="elastic worker (not ported yet)")
+    p = sub.add_parser("client", help="elastic worker")
     p.add_argument("--address", default="localhost")
     p.add_argument("--port", type=int, default=1025)
-    p.add_argument("--mode", choices=["thin", "fat", "slice"], default="thin")
-    p.add_argument("--n-envs", type=int, default=64)
-    p.add_argument("--max-windows", type=int, default=None)
-    p.add_argument("--mesh", action="store_true")
-    p.add_argument("--population-chunk", type=int, default=None)
-    p.add_argument("--pipeline-lanes", type=int, default=1)
-    p.add_argument("--env-backend", choices=["auto", "serial", "thread"], default="auto")
+    p.add_argument("--mode", choices=["thin", "fat", "slice"], default="thin",
+                   help="thin: one host env per process (reference run_client); "
+                        "fat: N host envs + device-batched forwards; "
+                        "slice: device-evaluated population shards (needs a "
+                        "counter-noise server)")
+    p.add_argument("--n-envs", type=int, default=64,
+                   help="envs per window (fat) / members per shard (slice)")
+    p.add_argument("--max-windows", type=int, default=None,
+                   help="stop after N collection windows (default: run forever)")
+    p.add_argument("--mesh", action="store_true",
+                   help="slice mode: shard members over all local devices (not ported yet)")
+    p.add_argument("--population-chunk", type=int, default=None,
+                   help="slice mode: evaluate the shard in memory-bounded "
+                        "chunks of this many members (production-width models)")
+    p.add_argument("--pipeline-lanes", type=int, default=1,
+                   help="fat mode: split envs into this many lanes and "
+                        "overlap device forwards with host env stepping")
+    p.add_argument("--env-backend", choices=["auto", "serial", "thread"],
+                   default="auto",
+                   help="fat mode host-env backend: thread-pool C-engine "
+                        "envs, serial python loop, or auto (probe one step's "
+                        "cost and apply the crossover)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (cuda, or cpu); no fallback to the CPU")
     p.set_defaults(fn=cmd_client)
 
     p = sub.add_parser("sweep", help="random hyperparameter search")

@@ -70,7 +70,7 @@ class Staging:
     the copy that last read it has completed: its CUDA event is queried, and
     waited for only if it has not (in the host loop a read back always
     comes between two uses).  On the CPU the tensor shares the array's
-    memory."""
+    memory (a read-only array's copy)."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -79,7 +79,8 @@ class Staging:
     def __call__(self, array) -> torch.Tensor:
         a = np.ascontiguousarray(array)
         if self.device.type != "cuda":
-            return torch.as_tensor(a, device=self.device)
+            # a read-only array (a wire buffer) is copied: PyTorch has no read-only tensor
+            return torch.as_tensor(a if a.flags.writeable else a.copy(), device=self.device)
         key = (a.shape, a.dtype.str)
         if key not in self._buffers:
             self._buffers[key] = [torch.from_numpy(np.empty_like(a)).pin_memory(), None]

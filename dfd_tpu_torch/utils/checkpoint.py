@@ -21,9 +21,8 @@ trainer draws its zeta and VBN buffers at construction, then the load sets
 its state and its generator.
 
 :func:`save_host_checkpoint` and :func:`load_host_checkpoint` do the same
-for the sequential topology's ``SequentialRunner``, with the JAX package's
-keys, so each package reads the other's file; the server topology's half
-waits for the server (ROADMAP.md, Queue 1: item 9.1).
+for the host topologies' ``SequentialRunner`` and ``ServerRunner``, with the
+JAX package's keys, so each package reads the other's file.
 """
 
 from __future__ import annotations
@@ -145,7 +144,7 @@ def _restore_archive(handler, arrays, meta, zeta) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Host-topology (sequential runner) checkpoints
+# Host-topology (sequential / server runner) checkpoints
 # ---------------------------------------------------------------------------
 
 
@@ -165,25 +164,17 @@ def _state_from_leaves(template, leaves):
     return next(leaves)
 
 
-def _sequential_only(runner) -> None:
-    from dfd_tpu_torch.runners.sequential import SequentialRunner
-    from dfd_tpu_torch.runners.vectorized import _not_ported
-
-    if not isinstance(runner, SequentialRunner):
-        raise _not_ported(f"a host checkpoint of {type(runner).__name__}",
-                          "item 9.1, the distributed wire, server and thin client")
-
-
 def save_host_checkpoint(path: str, runner) -> None:
-    """Persist a SequentialRunner's training state with the JAX package's
-    keys: the learner (flat, epoch, discarded returns, the policy history of
-    the drift correction), omega, the EMAs, zeta, the archive's flats, the
-    host RNG streams (MT19937 states as arrays, PCG64 states in the meta),
-    and the episode in flight (the agent's last observation and timesteps,
-    the env's state leaves without their batch axis, int64 written as
-    int32 as JAX keeps them).  The host env's reset key (``env.key``, its
-    uint32 words) rides beside them; the JAX package does not read it."""
-    _sequential_only(runner)
+    """Persist a SequentialRunner's or a ServerRunner's training state with
+    the JAX package's keys: the learner (flat, epoch, discarded returns, the
+    policy history of the drift correction), omega, the EMAs, zeta, a
+    server's global observation statistics (``obs.serialized``), the
+    archive's flats, the host RNG streams (MT19937 states as arrays, PCG64
+    states in the meta), and a sequential runner's episode in flight (the
+    agent's last observation and timesteps, the env's state leaves without
+    their batch axis, int64 written as int32 as JAX keeps them).  The host
+    env's reset key (``env.key``, its uint32 words) rides beside them; the
+    JAX package does not read it."""
     learner = runner.learner
     arrays: Dict[str, np.ndarray] = {
         "flat": np.asarray(learner.flat, np.float32),
@@ -201,6 +192,8 @@ def save_host_checkpoint(path: str, runner) -> None:
         "history.flats": np.stack([f for f, _ in learner.policy_history]),
         "history.epochs": np.asarray([e for _, e in learner.policy_history]),
     }
+    if hasattr(runner, "global_obs_stats"):
+        arrays["obs.serialized"] = np.asarray(runner.global_obs_stats.serialize(), np.float64)
     archive_flats = [p.flat for p in runner.strategy_handler.archive.points]
     if archive_flats:
         arrays["archive.flats"] = np.stack(archive_flats)
@@ -220,22 +213,23 @@ def save_host_checkpoint(path: str, runner) -> None:
                 "uinteger": int(st["uinteger"]),
             }
 
-    agent = runner.agent
-    arrays["agent.last_obs"] = np.asarray(agent.last_obs)
-    arrays["agent.cumulative"] = np.asarray(agent.cumulative_timesteps)
-    env_state = getattr(agent.env, "_state", None)
-    if env_state is not None:
-        for i, leaf in enumerate(_state_leaves(env_state)):
-            a = _numpy(leaf)[0]
-            arrays[f"env.leaf{i}"] = a.astype(np.int32) if a.dtype == np.int64 else a
-    key = getattr(agent.env, "_key", None)
-    if key is not None:
-        arrays["env.key"] = np.asarray(key, np.uint32)
+    agent = getattr(runner, "agent", None)  # the sequential topology's episode
+    if agent is not None:
+        arrays["agent.last_obs"] = np.asarray(agent.last_obs)
+        arrays["agent.cumulative"] = np.asarray(agent.cumulative_timesteps)
+        env_state = getattr(agent.env, "_state", None)
+        if env_state is not None:
+            for i, leaf in enumerate(_state_leaves(env_state)):
+                a = _numpy(leaf)[0]
+                arrays[f"env.leaf{i}"] = a.astype(np.int32) if a.dtype == np.int64 else a
+        key = getattr(agent.env, "_key", None)
+        if key is not None:
+            arrays["env.key"] = np.asarray(key, np.uint32)
 
     meta = {
         "n_archive": len(archive_flats),
         "has_zeta": runner.strategy_handler.zeta is not None,
-        "has_obs": False,
+        "has_obs": hasattr(runner, "global_obs_stats"),
         "pcg": pcg,
     }
     tmp = path + ".tmp"
@@ -262,9 +256,9 @@ def _host_rngs(runner) -> Dict[str, Any]:
 
 
 def load_host_checkpoint(path: str, runner) -> None:
-    """Restore a SequentialRunner built with the same model, env and
-    settings, from a file this module or the JAX package wrote."""
-    _sequential_only(runner)
+    """Restore a SequentialRunner or a ServerRunner built with the same
+    model, env and settings, from a file this module or the JAX package
+    wrote."""
     with np.load(path, allow_pickle=False) as z:
         arrays = {k: z[k] for k in z.files}
     meta = json.loads(str(arrays.pop("__meta__")))
@@ -287,6 +281,8 @@ def load_host_checkpoint(path: str, runner) -> None:
     runner.policy_entropy = nan_to_none(arrays["ema.entropy"])
     runner.policy_novelty = nan_to_none(arrays["ema.novelty"])
     runner.zeta[:] = arrays["zeta"]
+    if meta["has_obs"] and "obs.serialized" in arrays:
+        runner.global_obs_stats.deserialize(list(arrays["obs.serialized"]))
 
     for name, rs in _host_rngs(runner).items():
         if isinstance(rs, np.random.RandomState) and f"rng.{name}.keys" in arrays:
@@ -305,10 +301,12 @@ def load_host_checkpoint(path: str, runner) -> None:
     # (else the drift correction would treat them as stale)
     runner.current_state.epoch = learner.epoch
     runner.current_state.policy_params = runner.policy.serialize()
-    runner.worker.epoch = learner.epoch
+    worker = runner.worker
+    if hasattr(worker, "epoch"):  # a sequential runner's (a server's serves the state)
+        worker.epoch = learner.epoch
 
-    agent = runner.agent
-    if "agent.last_obs" in arrays:
+    agent = getattr(runner, "agent", None)
+    if agent is not None and "agent.last_obs" in arrays:
         agent.last_obs = arrays["agent.last_obs"]
         agent.cumulative_timesteps = int(arrays["agent.cumulative"])
         env = agent.env

@@ -24,7 +24,6 @@ from dfd_tpu_torch.envs.trap import TrapEnv
 from dfd_tpu_torch.models import DiscreteMLP, GaussianMLP
 from dfd_tpu_torch.models.impala import ImpalaPolicy
 from dfd_tpu_torch.ops import distances
-from dfd_tpu_torch.runners.vectorized import _not_ported
 
 # the JAX package's native ids (dfd_tpu/utils/factory.py:27-34)
 JAX_ENVS = {
@@ -78,6 +77,7 @@ def get_init_data(env_id: str, random_seed: int, device=None) -> Tuple[object, o
     """(host-surface env, policy model, strategy distance fn) for ``env_id``."""
     from dfd_tpu_torch.envs.wrappers import ImpalaObsWrapper
     from dfd_tpu_torch.runners.host_env import HostEnv
+    from dfd_tpu_torch.runners.vectorized import _not_ported
 
     device = resolve_device(device)
     if env_id not in JAX_PIXEL_ENVS and env_id not in JAX_ENVS:

@@ -237,3 +237,21 @@ def run_and_compare(jtr, ptr, draws, n_epochs, monkeypatch, loose=(), loose_rtol
         zeta_atol = 0 if reward_rtol is None else reward_rtol * max(1.0, np.abs(zeta).max())
         np.testing.assert_allclose(ptr.state.zeta.cpu().numpy(), zeta, rtol=1e-6, atol=zeta_atol)
         assert_bn_close(ptr.state.bn_state, jtr.state.bn_state, f"epoch {e}: bn_state")
+
+
+def jax_window_draws(sub_words, member_ids, T: int, env):
+    """The port slice client's ``WindowDraws`` for the window whose sub-key
+    words are ``sub_words``, rebuilt as the JAX slice client keys a window
+    (``dfd_tpu/runners/slice_client.py:196-197``): member ``id`` under
+    ``fold_in(sub, id)`` and the eval member, last, under
+    ``fold_in(sub, 0xE7A1)``; each episode's draws as ``episode_draws``
+    gives them."""
+    from dfd_tpu_torch.runners.slice_client import EVAL_FOLD, WindowDraws
+
+    sub = jax.random.wrap_key_data(jnp.asarray(np.asarray(sub_words, np.uint32)))
+    ids = jnp.asarray(np.asarray(member_ids), jnp.int32)
+    keys = jnp.concatenate([jax.vmap(lambda i: jax.random.fold_in(sub, i))(ids),
+                            jax.random.fold_in(sub, jnp.uint32(EVAL_FOLD))[None]])
+    A = env.n_actions if env.discrete else env.action_dim
+    g, u, reset = episode_draws(keys, T, A, env)
+    return WindowDraws(torch.from_numpy(g), torch.from_numpy(u), torch.as_tensor(reset))

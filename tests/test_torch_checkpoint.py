@@ -293,8 +293,88 @@ def test_host_checkpoint_crosses_packages(writer, tmp_path):
     assert a.omega.omega == b.omega.omega
 
 
-def test_host_checkpoint_refuses_other_runners(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 9.1"):
-        checkpoint.save_host_checkpoint(str(tmp_path / "x.npz"), object())
-    with pytest.raises(NotImplementedError, match="item 9.1"):
-        checkpoint.load_host_checkpoint(str(tmp_path / "x.npz"), object())
+def _server_pair(kind):
+    """A port and a JAX ServerRunner on the same seed, the port's seed buffer
+    JAX's (its observations can be 1 ulp apart), with recorded batches:
+    two epochs to train before the checkpoint and one after it."""
+    from test_torch_distributed import _jax_server, _port_server, _recorded_batches
+
+    mine, theirs = _port_server(noise_kind=kind), _jax_server(noise_kind=kind)
+    mine.zeta[:] = theirs.zeta
+    mine.global_obs_stats.deserialize(theirs.global_obs_stats.serialize())
+    return mine, theirs, _recorded_batches(kind, mine.model.num_params)
+
+
+def _replay(runner, batches, n, jax_side=False):
+    import copy
+
+    from dfd_tpu.fd.returns import FDReturn as JFDReturn
+    from dfd_tpu_torch.fd.returns import FDReturn
+    from test_torch_distributed import StubWorker
+
+    cls = JFDReturn if jax_side else FDReturn
+    runner.worker = StubWorker([([cls(**copy.deepcopy(r)) for r in rows], *rest)
+                                for rows, *rest in batches], None)
+    runner.worker.update = lambda state: None
+    runner.train(max_epochs=n)
+
+
+def _same_server_state(a, b, obs_rtol=0.0):
+    np.testing.assert_array_equal(a.learner.flat, b.learner.flat)
+    assert a.learner.epoch == b.learner.epoch
+    assert a.learner.discarded_returns == b.learner.discarded_returns
+    assert [e for _, e in a.learner.policy_history] == [e for _, e in b.learner.policy_history]
+    for (fa, _), (fb, _) in zip(a.learner.policy_history, b.learner.policy_history):
+        np.testing.assert_array_equal(fa, fb)
+    assert a.omega.omega == b.omega.omega and a.omega.reward_history == b.omega.reward_history
+    assert (a.policy_reward, a.policy_entropy, a.policy_novelty) == \
+        (b.policy_reward, b.policy_entropy, b.policy_novelty)
+    np.testing.assert_array_equal(a.zeta, b.zeta)
+    np.testing.assert_allclose(np.float64(a.global_obs_stats.serialize()),
+                               np.float64(b.global_obs_stats.serialize()), rtol=obs_rtol, atol=0)
+    assert len(a.strategy_handler.archive.points) == len(b.strategy_handler.archive.points)
+    assert a.rng.get_state()[2] == b.rng.get_state()[2]
+    assert a.current_state.epoch == a.learner.epoch
+
+
+@pytest.mark.parametrize("kind", ["pcg", "counter"])
+def test_host_checkpoint_server_runner_resume_is_exact(kind, tmp_path):
+    """A ServerRunner saved after two epochs of recorded batches, loaded by a
+    fresh one: the state equals, and the next epoch of the same batch gives
+    the unbroken run's flat bit for bit.  Its observation statistics agree
+    to rtol 1e-6: the loaded Welford's count is a float64 (the file's), as
+    in the JAX package, so its next merge runs in float64."""
+    path = str(tmp_path / "server.npz")
+    a, _, batches = _server_pair(kind)
+    b, _, _ = _server_pair(kind)
+    _replay(a, batches[:2], 2)
+    checkpoint.save_host_checkpoint(path, a)
+    checkpoint.load_host_checkpoint(path, b)
+    _same_server_state(b, a)
+    with np.load(path) as z:
+        assert "obs.serialized" in z.files and "agent.last_obs" not in z.files
+    _replay(a, batches[2:], 1)
+    _replay(b, batches[2:], 1)
+    _same_server_state(b, a, obs_rtol=1e-6)
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_host_checkpoint_server_runner_crosses_packages(writer, tmp_path):
+    """A ServerRunner's file from either package loads in the other: the
+    learner, omega, EMAs, zeta, obs statistics, archive and RNG streams."""
+    from dfd_tpu.utils.checkpoint import load_host_checkpoint as jax_load
+    from dfd_tpu.utils.checkpoint import save_host_checkpoint as jax_save
+
+    path = str(tmp_path / "server.npz")
+    mine, theirs, batches = _server_pair("pcg")
+    _replay(mine, batches[:2], 2)
+    _replay(theirs, batches[:2], 2, jax_side=True)
+    fresh_mine, fresh_theirs, _ = _server_pair("pcg")
+    if writer == "jax":
+        jax_save(path, theirs)
+        checkpoint.load_host_checkpoint(path, fresh_mine)
+        _same_server_state(fresh_mine, theirs)
+    else:
+        checkpoint.save_host_checkpoint(path, mine)
+        jax_load(path, fresh_theirs)
+        _same_server_state(fresh_theirs, mine)

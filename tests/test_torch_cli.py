@@ -1,7 +1,9 @@
 """The port's command line (``python -m dfd_tpu_torch``) on the CPU
 (``--device cpu``), the cases of ``tests/test_cli.py`` that this port
 covers, plus its factory against the JAX package's, the entry points that
-are not ported yet, and the default device's refusal without a card.
+are not ported yet, the ``server`` and ``client`` subcommands' flags (JAX's
+plus ``--device``) and what they hand their runners, and the default
+device's refusal without a card.
 
 The sequential topology's playback files are byte-equal to the JAX CLI's
 for the same seed: its action streams are the same
@@ -133,16 +135,91 @@ def test_cli_default_device_fails_without_a_card(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["server"], "item 9.1"),
-    (["client"], "item 9.1"),
-    (["client", "--mode", "fat"], "item 9.2"),
-    (["client", "--mode", "slice"], "item 9.2"),
     (["bench"], "item 9.7"),
     (["train", "--mesh", "--epochs", "1", *CPU], "item 8"),
+    (["client", "--mode", "slice", "--mesh", *CPU], "item 8"),
 ])
 def test_cli_unported_entry_points_name_their_roadmap_items(argv, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue 1: {item}"):
         main(argv)
+
+
+def _flags(entry, cmd, capsys):
+    """The option strings of ``entry``'s ``cmd`` subcommand, from its help."""
+    import re
+
+    with pytest.raises(SystemExit):
+        entry([cmd, "--help"])
+    return set(re.findall(r"(?<![\w-])(--[a-z][a-z-]*)", capsys.readouterr().out)) - {"--help"}
+
+
+@pytest.mark.parametrize("cmd", ["server", "client"])
+def test_cli_server_and_client_have_jax_flags_plus_device(cmd, capsys):
+    assert _flags(main, cmd, capsys) == _flags(jax_main, cmd, capsys) | {"--device"}
+
+
+class _Recorder:
+    """A stand-in runner class: records its constructor's keywords and the
+    keywords of its ``train``/``run`` call."""
+
+    calls = []
+
+    def __init__(self, **kw):
+        self.calls.append(("init", kw))
+
+    def train(self, **kw):
+        self.calls.append(("train", kw))
+
+    def run(self, **kw):
+        self.calls.append(("run", kw))
+        return True
+
+
+def test_cli_server_hands_its_flags_to_the_runner(monkeypatch):
+    from dfd_tpu_torch.runners import server
+
+    monkeypatch.setattr(server, "ServerRunner", _Recorder)
+    _Recorder.calls = []
+    assert main(["server", "--env", "Swimmer-v0", "--port", "0", "--batch-size", "7", "--seed",
+                 "9", "--lr", "0.5", "--noise-std", "0.25", "--zeta-size", "3",
+                 "--history-size", "5", "--normalize-obs", "--timestep-limit", "99",
+                 "--address", "127.0.0.1", *CPU]) == 0
+    (_, kw), (what, train_kw) = _Recorder.calls
+    assert (what, train_kw) == ("train", {})
+    assert str(kw.pop("device")) == "cpu"
+    kw.pop("reporter")
+    assert kw == dict(env_id="Swimmer-v0", learning_rate=0.5, noise_std=0.25, batch_size=7,
+                      random_seed=9, zeta_size=3, max_strategy_history_size=5,
+                      normalize_obs=True, address="127.0.0.1", port=0, timestep_limit=99)
+
+
+@pytest.mark.parametrize("mode, module, cls, want", [
+    ("thin", "client", "ClientRunner", dict(address="h", port=7)),
+    ("fat", "fat_client", "FatClientRunner",
+     dict(n_envs=12, address="h", port=7, pipeline_lanes=2, env_backend="thread")),
+    ("slice", "slice_client", "SliceClientRunner",
+     dict(n_members=12, address="h", port=7, population_chunk=4)),
+])
+def test_cli_client_hands_its_flags_to_the_runner(mode, module, cls, want, monkeypatch):
+    import importlib
+
+    monkeypatch.setattr(importlib.import_module(f"dfd_tpu_torch.runners.{module}"), cls,
+                        _Recorder)
+    _Recorder.calls = []
+    assert main(["client", "--mode", mode, "--address", "h", "--port", "7", "--n-envs", "12",
+                 "--max-windows", "3", "--pipeline-lanes", "2", "--env-backend", "thread",
+                 "--population-chunk", "4", *CPU]) == 0
+    (_, kw), (what, run_kw) = _Recorder.calls
+    assert str(kw.pop("device")) == "cpu"
+    assert kw == want
+    assert (what, run_kw) == ("run", {} if mode == "thin" else {"max_windows": 3})
+
+
+def test_cli_server_and_client_refuse_without_a_card(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in (["server"], ["client"], ["client", "--mode", "fat"]):
+        assert main(argv) == 2
+        assert "no CUDA device is available" in capsys.readouterr().err
 
 
 def test_factory_refuses_the_gym_ids_naming_their_roadmap_item():

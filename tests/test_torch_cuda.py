@@ -1470,3 +1470,151 @@ def test_host_evaluator_on_card_matches_cpu(cuda):
     for a, b in zip(g, c):
         assert (a.encoded_noise, a.reward, a.timesteps) == (b.encoded_noise, b.reward, b.timesteps)
         assert np.isclose(a.entropy, b.entropy, rtol=1e-5)
+
+
+def _recorded(d, obs_dim=2, epochs=3, batch=4, seed=17):
+    """Counter-noise batches (rets, timesteps, n_delayed, n_discarded) of
+    ``epochs`` epochs: ``batch`` fresh returns and one eval a batch, a stale
+    one of epoch 0 in epoch 1."""
+    import numpy as np
+
+    from dfd_tpu_torch.fd.returns import FDReturn
+
+    rng = np.random.RandomState(seed)
+    out, member = [], 1000
+    for e in range(epochs):
+        rows = []
+        for k in range(batch + 1 + (e == 1)):
+            member += 1
+            tag = 0 if (e == 1 and k == batch + 1) else e
+            rows.append(FDReturn(epoch=tag, encoded_noise=f"{tag},{member}",
+                                 reward=float(rng.randn() * 10), novelty=float(rng.rand()),
+                                 entropy=float(rng.rand()), timesteps=int(rng.randint(10, 200)),
+                                 is_eval=k == batch,
+                                 eval_states=rng.rand(3, obs_dim).astype(np.float32)
+                                 if k == batch else []))
+        out.append((rows, sum(r.timesteps for r in rows), int(e == 1), 0))
+    return out
+
+
+class _Replay:
+    """A ServerRunner's worker replaying recorded batches."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def collect_returns(self, **_kw):
+        return self.batches.pop(0)
+
+    def update(self, state):
+        pass
+
+    def start(self, address, port):
+        return 0
+
+    def stop(self):
+        pass
+
+
+def test_server_runner_on_card_matches_cpu_on_recorded_batches(cuda):
+    """A counter-noise ServerRunner on the card decodes each return with one
+    normal_kernel launch and ends on the CPU runner's flat (rtol 1e-5:
+    normal_kernel against its plain version, bit for bit, so the host sums
+    alone differ) after 3 epochs of the same recorded batches."""
+    import copy
+
+    import numpy as np
+
+    from dfd_tpu_torch.ops import noise as nz
+    from dfd_tpu_torch.runners.server import ServerRunner
+    from dfd_tpu_torch.utils.metrics import EpochReporter
+
+    batches = _recorded(5197)
+    runs = []
+    for d in (cuda, "cpu"):
+        r = ServerRunner(batch_size=4, zeta_size=4, max_strategy_history_size=4, random_seed=5,
+                         port=0, noise_kind="counter", reporter=EpochReporter(quiet=True),
+                         device=d)
+        r.worker = _Replay(copy.deepcopy(batches))
+        nz.normal.launches = 0
+        r.train(max_epochs=3)
+        runs.append((r, nz.normal.launches))
+    (g, launches), (c, _) = runs
+    decoded = sum(not x.is_eval for rows, *_ in batches for x in rows)
+    assert launches == decoded == 13
+    assert g.learner.discarded_returns == c.learner.discarded_returns == 0
+    np.testing.assert_allclose(g.learner.flat, c.learner.flat, rtol=1e-5, atol=1e-7)
+
+
+def test_slice_window_on_card_matches_cpu(cuda):
+    """One slice window on the trap (8 members, dense and in chunks of 4) on
+    the card and on the CPU, on the same draws: encodings, rewards and
+    timesteps equal, entropies and the Welford delta within rtol 1e-5;
+    normal_kernel once a chunk."""
+    import numpy as np
+
+    from dfd_tpu_torch.fd.returns import FDState
+    from dfd_tpu_torch.models import DiscreteMLP
+    from dfd_tpu_torch.ops import noise as nz
+    from dfd_tpu_torch.runners.slice_client import SliceClientRunner, make_window_draws
+
+    cfg = dict(noise_kind="counter", env_id="SimpleTrapEnv-v0", random_seed=7, noise_std=0.05,
+               normalize_obs=True, obs_stats_update_chance=0.5, max_strategy_history_size=4,
+               noise_seed=123)
+    model = DiscreteMLP(2, 9, device="cpu")
+    params, bn = model.init(3)
+    rng = np.random.RandomState(0)
+    state = FDState(policy_params=model.serialize(params, bn).numpy().tolist(),
+                    strategy_frames=rng.rand(4, 2).astype(np.float32),
+                    strategy_history=rng.rand(2, 4, 9).astype(np.float32),
+                    obs_stats=[0.3, 0.4, 0.5, 0.6, 4], epoch=2)
+    for chunk, n_launch in ((None, 1), (4, 2)):
+        out = []
+        for d in (cuda, "cpu"):
+            r = SliceClientRunner(n_members=8, population_chunk=chunk, device=d,
+                                  draw_source=lambda sub, ids: make_window_draws(
+                                      torch.Generator().manual_seed(4), 8, 201, r.env))
+            r._configure(cfg)
+            r._apply_state(state)
+            r.windows = 1
+            nz.normal.launches = 0
+            out.append((r._collect_window(), nz.normal.launches))
+        (g, launches), (c, _) = out
+        assert launches == n_launch
+        for a, b in zip(g, c):
+            assert (a.encoded_noise, a.reward, a.timesteps) == (b.encoded_noise, b.reward,
+                                                                b.timesteps)
+            assert np.isclose(a.entropy, b.entropy, rtol=1e-5)
+            np.testing.assert_allclose(a.obs_stats_update, b.obs_stats_update, rtol=1e-5,
+                                       atol=1e-6)
+
+
+def test_thin_client_on_card_trains_against_card_server(cuda):
+    """The port's learner and a thin client, both on the card, as threads
+    over localhost: 2 epochs, every counter return decoded, both end."""
+    import threading
+    import time
+
+    import numpy as np
+
+    from dfd_tpu_torch.runners.client import ClientRunner
+    from dfd_tpu_torch.runners.server import ServerRunner
+    from dfd_tpu_torch.utils.metrics import EpochReporter
+
+    server = ServerRunner(batch_size=3, zeta_size=4, max_strategy_history_size=4,
+                          random_seed=31, port=0, noise_kind="counter",
+                          reporter=EpochReporter(quiet=True), device=cuda)
+    st = threading.Thread(target=lambda: server.train(max_epochs=2), daemon=True)
+    st.start()
+    while getattr(server, "bound_port", None) is None:
+        time.sleep(0.05)
+    client = ClientRunner(port=server.bound_port, collect_window_s=0.001, device=cuda)
+    ct = threading.Thread(target=lambda: client.run(max_iterations=100, reconnect_attempts=1),
+                          daemon=True)
+    ct.start()
+    st.join(timeout=120)
+    client.request_stop()
+    ct.join(timeout=30)
+    assert not st.is_alive() and not ct.is_alive()
+    assert server.learner.discarded_returns == 0 and len(server.reporter.history) == 2
+    assert all(np.isfinite(row["Noisy Reward"]) for row in server.reporter.history)
