@@ -5,6 +5,7 @@
     python -m dfd_tpu_torch server --env SimpleTrapEnv-v0 --port 1025
     python -m dfd_tpu_torch client --address learner-host --port 1025 [--mode thin|fat|slice]
     python -m dfd_tpu_torch sweep --env SimpleTrapEnv-v0 --trials 10 --epochs 30
+    torchrun --nproc-per-node 4 -m dfd_tpu_torch train --mesh --env SimpleTrapEnv-v0
 
 The subcommands and flags are the JAX package's, plus ``--device``: the
 port trains on the card (``cuda``) unless ``--device cpu`` is given, and
@@ -12,9 +13,13 @@ fails without a card rather than falling back.  ``train`` runs the
 vectorized trainer (the default) or the sequential topology, one episode at
 a time on the host.  ``server`` runs the elastic learner and ``client`` its
 workers over gRPC; the wire is the JAX package's, so port and JAX processes
-serve each other.  ``bench``, ``train --mesh`` and ``client --mode slice
---mesh`` are not ported yet and raise ``NotImplementedError`` naming their
-ROADMAP items.
+serve each other.  ``--mesh`` (``train`` and ``client --mode slice``) shards
+the population over the ranks of a ``torch.distributed`` process group,
+one process per card, which it joins from torchrun's variables (``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``) where they
+are set, else runs as a mesh of one; NCCL joins the cards, gloo the CPU
+(``--device cpu``).  ``bench`` is not ported yet and raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -48,6 +53,30 @@ def _device(args):
         return None
 
 
+def _mesh(device):
+    """The population mesh of this process on ``device`` (``cuda`` for the
+    card ``cuda:{LOCAL_RANK}``): a process group joined from torchrun's
+    variables where they are set, else a mesh of one."""
+    import os
+
+    from dfd_tpu_torch.parallel import initialize_multihost, make_pop_mesh
+
+    env = os.environ
+    if int(env.get("WORLD_SIZE", "1")) > 1:
+        initialize_multihost(f"{env.get('MASTER_ADDR', 'localhost')}:{env['MASTER_PORT']}",
+                             int(env["WORLD_SIZE"]), int(env["RANK"]), device=device.type)
+    return make_pop_mesh(None if str(device) == "cuda" else device)
+
+
+def _leave(mesh) -> None:
+    """Leave the process group ``_mesh`` joined, if it joined one."""
+    import torch.distributed as dist
+
+    if mesh is not None and mesh.size > 1:
+        dist.barrier(group=mesh.group)
+        dist.destroy_process_group()
+
+
 def _train_profiled(train_fn, epochs: int, args) -> None:
     """Run ``train_fn(n)`` across ``epochs``, tracing ``--profile-epochs``
     of them into ``--profile-dir`` (torch.profiler, a Chrome trace).  One
@@ -73,7 +102,6 @@ def _train_profiled(train_fn, epochs: int, args) -> None:
 
 def cmd_train(args) -> int:
     from dfd_tpu_torch.config import TrainConfig
-    from dfd_tpu_torch.runners.vectorized import _not_ported
     from dfd_tpu_torch.utils.metrics import make_reporter
 
     if args.playback_id and args.topology != "sequential":
@@ -90,8 +118,6 @@ def cmd_train(args) -> int:
             file=sys.stderr,
         )
         return 2
-    if args.mesh and args.topology == "vectorized":
-        raise _not_ported("train --mesh", "item 8, multi-device")
     device = _device(args)
     if device is None:
         return 2
@@ -101,6 +127,9 @@ def cmd_train(args) -> int:
         from dfd_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
         from dfd_tpu_torch.utils.factory import get_vectorized_init_data
 
+        mesh = _mesh(device) if args.mesh else None
+        if mesh is not None:
+            device = mesh.device
         env, model, distance_fn = get_vectorized_init_data(args.env, device)
         cfg = TrainConfig(
             env_id=args.env,
@@ -117,8 +146,10 @@ def cmd_train(args) -> int:
             antithetic=args.antithetic,
         )
         trainer = VectorizedTrainer(
-            model, env, distance_fn, cfg, device=device,
-            reporter=make_reporter(args.wandb_project, wandb_group=args.env, quiet=args.quiet),
+            model, env, distance_fn, cfg, mesh=mesh, device=device,
+            # one rank logs
+            reporter=make_reporter(args.wandb_project if mesh is None or mesh.rank == 0 else None,
+                                   wandb_group=args.env, quiet=args.quiet),
         )
         if args.resume:
             load_checkpoint(args.resume, trainer)
@@ -129,8 +160,10 @@ def cmd_train(args) -> int:
             )
         else:
             _train_profiled(trainer.train, args.epochs, args)
-        if args.checkpoint:
+        if args.checkpoint and trainer.mesh.rank == 0:
+            # every rank holds the same state: rank 0 alone writes it
             save_checkpoint(args.checkpoint, trainer)
+        _leave(mesh)
         last = trainer.reporter.history[-1] if trainer.reporter.history else {}
         print({k: last.get(k) for k in ("Epoch", "Policy Reward", "Noisy Reward")})
         return 0
@@ -188,10 +221,6 @@ def cmd_server(args) -> int:
 
 
 def cmd_client(args) -> int:
-    from dfd_tpu_torch.runners.vectorized import _not_ported
-
-    if args.mode == "slice" and args.mesh:
-        raise _not_ported("client --mode slice --mesh", "item 8, multi-device")
     device = _device(args)
     if device is None:
         return 2
@@ -205,10 +234,12 @@ def cmd_client(args) -> int:
     elif args.mode == "slice":
         from dfd_tpu_torch.runners.slice_client import SliceClientRunner
 
+        mesh = _mesh(device) if args.mesh else None
         ok = SliceClientRunner(
-            n_members=args.n_envs, address=args.address, port=args.port,
+            n_members=args.n_envs, address=args.address, port=args.port, mesh=mesh,
             population_chunk=args.population_chunk, device=device,
         ).run(max_windows=args.max_windows)
+        _leave(mesh)
     else:
         from dfd_tpu_torch.runners.client import ClientRunner
 
@@ -281,7 +312,9 @@ def main(argv=None) -> int:
     p.add_argument("--epochs", type=int, default=100)
     p.add_argument("--fast", action="store_true", help="chunked dispatch (no per-epoch host sync)")
     p.add_argument("--sync-every", type=int, default=10)
-    p.add_argument("--mesh", action="store_true", help="shard the population over all devices")
+    p.add_argument("--mesh", action="store_true",
+                   help="shard the population over the ranks of a process group (torchrun's), "
+                        "one process per device")
     p.add_argument("--noise-backend", choices=["jax", "pallas"], default="jax",
                    help="jax: normal_kernel's threefry normals; pallas: the perturb and "
                         "combine kernels' counter-hash noise")
@@ -329,7 +362,8 @@ def main(argv=None) -> int:
     p.add_argument("--max-windows", type=int, default=None,
                    help="stop after N collection windows (default: run forever)")
     p.add_argument("--mesh", action="store_true",
-                   help="slice mode: shard members over all local devices (not ported yet)")
+                   help="slice mode: shard members over the ranks of a process group "
+                        "(torchrun's), one process per device")
     p.add_argument("--population-chunk", type=int, default=None,
                    help="slice mode: evaluate the shard in memory-bounded "
                         "chunks of this many members (production-width models)")

@@ -23,6 +23,16 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def canonical(device) -> torch.device:
+    """``device`` with a CUDA device's index made explicit (the current
+    device where it names none), so ``"cuda"`` and ``"cuda:0"`` compare
+    equal on card 0."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def _matmul_precision() -> str:
     try:
         return torch.get_float32_matmul_precision()

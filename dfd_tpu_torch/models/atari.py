@@ -206,3 +206,21 @@ class AtariCNN(PolicyModel):
             if name in self._bns:
                 state[name] = {k: merged[name][k] for k in ("mean", "var", "n")}
         return params, state
+
+    # -- reference-construction metadata -----------------------------------------
+
+    def reference_module_specs(self):
+        c = self.in_channels
+        A = self.output_shape
+        return [
+            ("conv2d", c, 16, 8, 8),
+            ("conv2d", 16, 32, 4, 4),
+            ("linear", self.flat_features, 256),
+            ("linear", 256, A),
+        ]
+
+    def weighted_layer_names(self):
+        return [n for n, _ in self._weight_shapes]
+
+    def linear_names(self):
+        return ["conv1", "conv2", "fc", "head"]

@@ -158,6 +158,21 @@ class PolicyModel(abc.ABC):
     def _split_full(self, merged: Dict[str, Any]) -> Tuple[Params, State]:
         return merged, {}
 
+    # -- reference-construction metadata (for the torch parity init, parity.py) --
+
+    def reference_linear_dims(self):
+        """(d_in, d_out) of each torch Linear in construction order."""
+        raise NotImplementedError
+
+    def linear_names(self):
+        """Param-tree keys of the Linear layers, in construction order."""
+        raise NotImplementedError
+
+    def weighted_layer_names(self):
+        """Param-tree keys of every weighted layer (incl. BatchNorm), in the
+        reference's normc iteration order."""
+        raise NotImplementedError
+
 
 def sample_action(probs: torch.Tensor, deterministic: torch.Tensor, gumbel: torch.Tensor):
     """(action [M, E], entropy [M, E]) from probs [M, E, A]: the argmax where

@@ -109,6 +109,20 @@ class DiscreteMLP(PolicyModel):
                 x = torch.relu(x)
         return new_state
 
+    # -- reference-construction metadata -----------------------------------------
+
+    def reference_linear_dims(self):
+        return [(d_in, d_out) for _, _, d_in, d_out in self._blocks]
+
+    def linear_names(self):
+        return [ln for _, ln, _, _ in self._blocks]
+
+    def weighted_layer_names(self):
+        names = []
+        for bn, ln, _, _ in self._blocks:
+            names += [bn, ln]
+        return names
+
     # -- full-state (wire) view --------------------------------------------------
 
     def _merge_full(self, params: Params, state: State):

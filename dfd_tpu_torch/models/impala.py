@@ -521,3 +521,33 @@ class ImpalaPolicy(PolicyModel):
             else:
                 params[name] = dict(merged[name])
         return params, state
+
+    # -- reference-construction metadata -----------------------------------------
+
+    def reference_module_specs(self):
+        """torch modules that draw RNG during reference construction, in
+        *construction* order (impala.py:62-111: per channel block the feature
+        conv, then the two residual sub-blocks' convs — interleaved, unlike
+        the registration order used by the flat views)."""
+        specs, names = [], []
+        in_ch = self.input_shape[0]
+        for k, ch in enumerate(self.channels):
+            specs.append(("conv2d", in_ch, ch, 3, 3))
+            names.append(f"feat{k}_conv")
+            for r in (1, 2):
+                specs += [("conv2d", ch, ch, 3, 3), ("conv2d", ch, ch, 3, 3)]
+                names += [f"res{r}_{k}_conv1", f"res{r}_{k}_conv2"]
+            in_ch = ch
+        specs.append(("linear", self.flat_features, self.hidden))
+        names.append("fc")
+        if self.use_lstm:
+            specs.append(("lstm", self.hidden + 1, self.hidden))
+            names.append("lstm")
+        specs.append(("linear", self.hidden, self.output_shape))
+        names.append("policy")
+        self._construction_names = names
+        return specs
+
+    def reference_construction_names(self):
+        self.reference_module_specs()
+        return self._construction_names

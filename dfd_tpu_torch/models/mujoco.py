@@ -70,3 +70,14 @@ class GaussianMLP(PolicyModel):
         """[M, Z, 2 n_actions]: the mean and the std over zeta."""
         mean, std = self.apply(params, state, zeta)
         return torch.cat([mean, std], dim=-1)
+
+    # -- reference-construction metadata -----------------------------------------
+
+    def reference_linear_dims(self):
+        return list(self._layer_dims)
+
+    def linear_names(self):
+        return [f"l{k + 1}" for k in range(len(self._layer_dims))]
+
+    def weighted_layer_names(self):
+        return self.linear_names()

@@ -10,6 +10,9 @@
 //   dfd_perturb:  out[i, j] = theta[j] + sigma * eps[i, j]
 //   dfd_combine:  g[j]      = sum_i coef[i] * eps[i, j]
 //
+// Their `_from` forms take the members first .. first + P - 1 of the stream
+// (a rank's shard of a population on a mesh); the plain entries start at 0.
+//
 // What bounds perturb: the bytes.  At impala_prod_bf16's P = 64,
 // d = 7,872,651 it writes 2.0 GB of population rows (0.61 ms at 3.35 TB/s)
 // against about 36 operations an element (the stream normal's two fmix32
@@ -195,13 +198,14 @@ __device__ __forceinline__ uint32_t window_bits(int i, int d) {
 // j = 4T .. 4T + 3, T = 256 c + t, and its window 4T - 3 .. 4T + 3.
 __global__ void __launch_bounds__(kPerturbThreads)
 perturb_kernel(const float* __restrict__ theta, float* __restrict__ out, int P, int d,
-               float sigma, uint32_t base, int antithetic, int slices, int per) {
+               float sigma, uint32_t base, int antithetic, int slices, int per,
+               uint32_t draw0) {
   __shared__ uint32_t s_key[kMaxPerBlock], s_prev[kMaxPerBlock];
   const int chunk = blockIdx.x / slices, slice = blockIdx.x - chunk * slices;
   const int members = antithetic ? (P + 1) / 2 : P;
   const int m0 = slice * per, count = min(per, members - m0);
   for (int r = threadIdx.x; r < count; r += kPerturbThreads) {
-    const uint32_t key = fmix32(base ^ (uint32_t)(m0 + r) * kMul1);
+    const uint32_t key = fmix32(base ^ ((uint32_t)(m0 + r) + draw0) * kMul1);
     s_key[r] = fmix32(key ^ (uint32_t)chunk * kMul2);
     s_prev[r] = fmix32(key ^ (uint32_t)(chunk - 1) * kMul2);  // read by thread 0 only
   }
@@ -272,7 +276,7 @@ CombinePlan combine_plan(int P, int d, int antithetic) {
 // the draws (members, or pairs under antithetic).
 __global__ void __launch_bounds__(kCombineThreads)
 combine_kernel(const float* __restrict__ coef, float* __restrict__ g, int P, int d,
-               uint32_t base, int antithetic, int lt, int mg) {
+               uint32_t base, int antithetic, int lt, int mg, uint32_t draw0) {
   __shared__ float s_coef[kCombineThreads];
   __shared__ uint32_t s_key[kCombineThreads];
   __shared__ float s_part[4 * kCombineThreads];  // [group][4 lt lanes], then the block's sums
@@ -295,7 +299,7 @@ combine_kernel(const float* __restrict__ coef, float* __restrict__ g, int P, int
       float c = coef[antithetic ? 2 * m : m];
       if (antithetic && 2 * m + 1 < P) c = __fsub_rn(c, coef[2 * m + 1]);
       s_coef[threadIdx.x] = c;
-      s_key[threadIdx.x] = member_key(base, (uint32_t)m, chunk_idx);
+      s_key[threadIdx.x] = member_key(base, (uint32_t)m + draw0, chunk_idx);
     }
     __syncthreads();
     if (j0 < d) {
@@ -337,21 +341,30 @@ uint32_t key_base(uint32_t seed, uint32_t epoch) { return fmix32(seed * kGolden 
 
 }  // namespace
 
-extern "C" int dfd_perturb(const float* theta, float* out, int P, int d, float sigma,
-                           uint32_t seed, uint32_t epoch, int antithetic, void* stream) {
+// first: the stream's draw that row 0 takes (a member, or a pair under
+// antithetic): rows 0 .. P - 1 are the members that start there, so a shard of
+// a population perturbs its own rows alone.
+extern "C" int dfd_perturb_from(const float* theta, float* out, int P, int d, float sigma,
+                                uint32_t seed, uint32_t epoch, int antithetic, uint32_t first,
+                                void* stream) {
   if (P <= 0 || d <= 0) return (int)cudaSuccess;
   if (reinterpret_cast<uintptr_t>(out) % 16 != 0) return (int)cudaErrorMisalignedAddress;
   const PerturbPlan p = perturb_plan(P, d, antithetic);
   perturb_kernel<<<p.chunks * p.slices, kPerturbThreads, 0, (cudaStream_t)stream>>>(
-      theta, out, P, d, sigma, key_base(seed, epoch), antithetic, p.slices, p.per);
+      theta, out, P, d, sigma, key_base(seed, epoch), antithetic, p.slices, p.per, first);
   return (int)cudaGetLastError();
 }
 
+extern "C" int dfd_perturb(const float* theta, float* out, int P, int d, float sigma,
+                           uint32_t seed, uint32_t epoch, int antithetic, void* stream) {
+  return dfd_perturb_from(theta, out, P, d, sigma, seed, epoch, antithetic, 0u, stream);
+}
+
 // lt, mg, cl: the plan of perturb.combine_plan, refused unless it is
-// combine_plan's.
-extern "C" int dfd_combine(const float* coef, float* g, int P, int d, uint32_t seed,
-                           uint32_t epoch, int antithetic, int lt, int mg, int cl,
-                           void* stream) {
+// combine_plan's.  first: the draw that coef[0] weighs, as dfd_perturb_from's.
+extern "C" int dfd_combine_from(const float* coef, float* g, int P, int d, uint32_t seed,
+                                uint32_t epoch, int antithetic, uint32_t first, int lt, int mg,
+                                int cl, void* stream) {
   if (d <= 0) return (int)cudaSuccess;
   const CombinePlan p = combine_plan(P, d, antithetic);
   if (P < 0 || p.lt != lt || p.mg != mg || p.cl != cl) return (int)cudaErrorInvalidValue;
@@ -367,7 +380,13 @@ extern "C" int dfd_combine(const float* coef, float* g, int P, int d, uint32_t s
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(&cfg, combine_kernel, coef, g, P, d,
-                                             key_base(seed, epoch), antithetic, lt, mg);
+                                             key_base(seed, epoch), antithetic, lt, mg, first);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+extern "C" int dfd_combine(const float* coef, float* g, int P, int d, uint32_t seed,
+                           uint32_t epoch, int antithetic, int lt, int mg, int cl,
+                           void* stream) {
+  return dfd_combine_from(coef, g, P, d, seed, epoch, antithetic, 0u, lt, mg, cl, stream);
 }

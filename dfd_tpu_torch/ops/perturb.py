@@ -10,6 +10,10 @@ eps is never stored:
 - :func:`perturb`: theta_i = theta + sigma * eps_i -> [P, d];
 - :func:`combine`: g = sum_i coef_i * eps_i -> [d].
 
+Both take ``first``, the member that row (or coefficient) 0 stands for, so
+a rank of a mesh perturbs and combines its own shard of the population
+alone (members ``first .. first + P - 1``; even under ``antithetic``).
+
 Each wrapper runs its CUDA kernel (``csrc/perturb.cu``) on a CUDA tensor and
 its plain PyTorch version (:func:`perturb_plain`, :func:`combine_plain`) on a
 CPU tensor; any other device raises.  ``launches`` on each wrapper counts
@@ -69,9 +73,10 @@ def _key_base(base_seed: int, epoch: int) -> int:
 
 
 def noise_bits(base_seed: int, epoch: int, P: int, d: int, antithetic: bool = False,
-               device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
-    """The two uint32 hash draws behind eps, as int64 [P, d] tensors."""
-    rows = torch.arange(P, dtype=torch.int64, device=device)
+               device="cpu", first: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two uint32 hash draws behind eps of members first .. first + P -
+    1, as int64 [P, d] tensors."""
+    rows = torch.arange(first, first + P, dtype=torch.int64, device=device)
     members = rows // 2 if antithetic else rows
     j = torch.arange(d, dtype=torch.int64, device=device)
     chunks = torch.arange((d + CHUNK - 1) // CHUNK, dtype=torch.int64, device=device)
@@ -82,10 +87,10 @@ def noise_bits(base_seed: int, epoch: int, P: int, d: int, antithetic: bool = Fa
 
 
 def noise_plain(base_seed: int, epoch: int, P: int, d: int, antithetic: bool = False,
-                device="cpu") -> torch.Tensor:
-    """eps [P, d] float32: Box-Muller over :func:`noise_bits`, in the JAX
-    package's operation order."""
-    b1, b2 = noise_bits(base_seed, epoch, P, d, antithetic, device)
+                device="cpu", first: int = 0) -> torch.Tensor:
+    """eps [P, d] float32 of members first .. first + P - 1: Box-Muller over
+    :func:`noise_bits`, in the JAX package's operation order."""
+    b1, b2 = noise_bits(base_seed, epoch, P, d, antithetic, device, first)
     u1 = (b1 >> 8).to(torch.float32) * (1.0 / (1 << 24)) + 1e-7
     u2 = (b2 >> 8).to(torch.float32) * (1.0 / (1 << 24))
     z = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * math.pi) * u2)
@@ -96,14 +101,14 @@ def noise_plain(base_seed: int, epoch: int, P: int, d: int, antithetic: bool = F
 
 
 def perturb_plain(flat: torch.Tensor, sigma: float, base_seed: int, epoch: int, P: int,
-                  antithetic: bool = False) -> torch.Tensor:
-    eps = noise_plain(base_seed, epoch, P, flat.shape[0], antithetic, flat.device)
+                  antithetic: bool = False, first: int = 0) -> torch.Tensor:
+    eps = noise_plain(base_seed, epoch, P, flat.shape[0], antithetic, flat.device, first)
     return flat[None, :] + sigma * eps
 
 
 def combine_plain(coefs: torch.Tensor, base_seed: int, epoch: int, d: int,
-                  antithetic: bool = False) -> torch.Tensor:
-    eps = noise_plain(base_seed, epoch, coefs.shape[0], d, antithetic, coefs.device)
+                  antithetic: bool = False, first: int = 0) -> torch.Tensor:
+    eps = noise_plain(base_seed, epoch, coefs.shape[0], d, antithetic, coefs.device, first)
     return coefs @ eps
 
 
@@ -147,7 +152,18 @@ def _kernels() -> ctypes.CDLL:
     lib.dfd_perturb.restype = i32
     lib.dfd_combine.argtypes = [vp, vp, i32, i32, u32, u32, i32, i32, i32, i32, vp]
     lib.dfd_combine.restype = i32
+    lib.dfd_perturb_from.argtypes = [vp, vp, i32, i32, ctypes.c_float, u32, u32, i32, u32, vp]
+    lib.dfd_perturb_from.restype = i32
+    lib.dfd_combine_from.argtypes = [vp, vp, i32, i32, u32, u32, i32, u32, i32, i32, i32, vp]
+    lib.dfd_combine_from.restype = i32
     return lib
+
+
+def _first_draw(first: int, antithetic: bool) -> int:
+    """The stream's draw of member ``first``: the member, or its pair."""
+    if first < 0 or (antithetic and first % 2):
+        raise ValueError(f"first must be >= 0 (and even under antithetic), got {first}")
+    return first // 2 if antithetic else first
 
 
 def _on_cpu(name: str, t: torch.Tensor) -> bool:
@@ -164,18 +180,19 @@ def _on_cpu(name: str, t: torch.Tensor) -> bool:
 
 
 def perturb(flat: torch.Tensor, sigma: float, base_seed: int, epoch: int, P: int,
-            antithetic: bool = False) -> torch.Tensor:
-    """theta_i = theta + sigma * eps_i for P members -> [P, d], with eps
-    regenerated in the kernel."""
+            antithetic: bool = False, first: int = 0) -> torch.Tensor:
+    """theta_i = theta + sigma * eps_i for the P members from ``first`` ->
+    [P, d], with eps regenerated in the kernel."""
+    draw = _first_draw(first, antithetic)
     if _on_cpu("flat", flat):
-        return perturb_plain(flat, sigma, base_seed, epoch, P, antithetic)
+        return perturb_plain(flat, sigma, base_seed, epoch, P, antithetic, first)
     d = flat.shape[0]
     out = torch.empty((P, d), dtype=torch.float32, device=flat.device)
     with torch.cuda.device(flat.device):
         stream = torch.cuda.current_stream().cuda_stream
-        build.raise_on(_kernels().dfd_perturb(
+        build.raise_on(_kernels().dfd_perturb_from(
             flat.data_ptr(), out.data_ptr(), P, d, float(sigma),
-            int(base_seed) & _MASK, int(epoch) & _MASK, int(antithetic), stream,
+            int(base_seed) & _MASK, int(epoch) & _MASK, int(antithetic), draw & _MASK, stream,
         ), "perturb")
     perturb.launches += 1
     return out
@@ -192,20 +209,21 @@ def noise_sumsq(perturbed: torch.Tensor, flat: torch.Tensor, sigma: float) -> to
 
 
 def combine(coefs: torch.Tensor, base_seed: int, epoch: int, d: int,
-            antithetic: bool = False) -> torch.Tensor:
-    """g[d] = sum_i coefs[i] * eps(i)[d], regenerating eps in the kernel
-    (one launch a call, summed in a fixed order: two calls on the same
-    inputs give the same bits).
+            antithetic: bool = False, first: int = 0) -> torch.Tensor:
+    """g[d] = sum_i coefs[i] * eps(first + i)[d], regenerating eps in the
+    kernel (one launch a call, summed in a fixed order: two calls on the
+    same inputs give the same bits).
 
     For the FD estimator pass ``coefs = fitness / (sigma * noise_sumsq)``."""
+    draw = _first_draw(first, antithetic)
     if _on_cpu("coefs", coefs):
-        return combine_plain(coefs, base_seed, epoch, d, antithetic)
+        return combine_plain(coefs, base_seed, epoch, d, antithetic, first)
     g = torch.empty((d,), dtype=torch.float32, device=coefs.device)
     with torch.cuda.device(coefs.device):
         stream = torch.cuda.current_stream().cuda_stream
-        build.raise_on(_kernels().dfd_combine(
+        build.raise_on(_kernels().dfd_combine_from(
             coefs.data_ptr(), g.data_ptr(), coefs.shape[0], d,
-            int(base_seed) & _MASK, int(epoch) & _MASK, int(antithetic),
+            int(base_seed) & _MASK, int(epoch) & _MASK, int(antithetic), draw & _MASK,
             *combine_plan(coefs.shape[0], d, bool(antithetic)), stream,
         ), "combine")
     combine.launches += 1

@@ -22,6 +22,14 @@ Requires the server to run with ``noise_kind="counter"`` on a registered
 port env id; the shared base seed ships in the wire cfg (never
 client-minted).
 
+On a mesh (``mesh=``, a :class:`~dfd_tpu_torch.parallel.PopMesh` of one
+process per card) the ranks act as one client: rank 0 alone holds the gRPC
+client; each window it broadcasts what it applied since the last (cfg,
+state) and the window (its draws' sub-key, the member ids), every rank
+evaluates its shard of the members (``pop_sharding``) with its own eval
+member on the window's last draws row, and the members' results are
+gathered to rank 0 (``parallel/collectives.py``), which pushes them.
+
 Randomness: the JAX client keys a window as ``key, sub = split(key)`` from
 ``key(seed)``, member ``id`` under ``fold_in(sub, id)`` and the eval member
 under ``fold_in(sub, 0xE7A1)``.  The port keeps that key chain in numpy
@@ -48,7 +56,9 @@ from dfd_tpu_torch.envs import _levels
 from dfd_tpu_torch.fd import rollout as fd_rollout
 from dfd_tpu_torch.fd.returns import FDReturn
 from dfd_tpu_torch.novelty.handler import novelty_batch
-from dfd_tpu_torch.runners.vectorized import _not_ported, make_draws
+from dfd_tpu_torch.parallel import collectives
+from dfd_tpu_torch.parallel.mesh import PopMesh, pop_sharding
+from dfd_tpu_torch.runners.vectorized import make_draws
 from dfd_tpu_torch.utils.profiling import StageTimer
 
 EVAL_FOLD = 0xE7A1  # the eval member's key: fold_in(window key, EVAL_FOLD)
@@ -91,7 +101,9 @@ class SliceClientRunner:
         ``state_wait_timeout`` s) until the server broadcasts a fresh state
         before collecting the next one; off by default (pure async).
 
-        ``mesh``: a device mesh is not ported (ROADMAP.md, Queue 1: item 8).
+        ``mesh``: a :class:`~dfd_tpu_torch.parallel.PopMesh`; its ranks
+        share the window's members (rank 0 talks to the server; every rank
+        calls ``run``).  Its device is the client's.
 
         ``population_chunk``: evaluate the shard in chunks of this many
         members (only one chunk's perturbed weights and rollout are alive at
@@ -101,12 +113,13 @@ class SliceClientRunner:
         the card).  ``draw_source(sub, member_ids)``: the window's draws for
         the window sub-key words ``sub`` and the members' global ids
         (``None``: the client's generator)."""
-        if mesh is not None:
-            raise _not_ported("client --mode slice --mesh (a device mesh)", "item 8, multi-device")
+        self.device = resolve_device(device if mesh is None else mesh.device)
+        self.mesh = mesh if mesh is not None else PopMesh(self.device)
+        shard = len(pop_sharding(self.mesh, n_members))
         if population_chunk is not None and population_chunk > 0:
-            if n_members % population_chunk != 0:
-                raise ValueError("population_chunk must divide n_members")
-        self.device = resolve_device(device)
+            if shard % population_chunk != 0:
+                raise ValueError("population_chunk must divide n_members"
+                                 + (" / ranks" if self.mesh.size > 1 else ""))
         self.population_chunk = population_chunk
         self.n_members = n_members
         self.address, self.port = address, port
@@ -117,6 +130,7 @@ class SliceClientRunner:
         self.client = FDClient()
         self.windows = 0
         self.epoch = 0
+        self._news: dict = {}  # what rank 0 applied since its last window broadcast
         # per-window wall-clock stages (the worker side's observability):
         # refreshed into last_stages after every submit
         self.timer = StageTimer()
@@ -124,6 +138,16 @@ class SliceClientRunner:
 
     @full_f32()
     def run(self, max_windows: Optional[int] = None, reconnect_attempts: int = 60) -> bool:
+        if self.mesh.size == 1:
+            return self._serve(max_windows, reconnect_attempts)
+        if self.mesh.rank != 0:
+            return self._follow()
+        try:
+            return self._serve(max_windows, reconnect_attempts)
+        finally:
+            self._broadcast(None)  # the other ranks stop with rank 0
+
+    def _serve(self, max_windows, reconnect_attempts) -> bool:
         client = self.client
         client.connect(address=self.address, port=self.port)
 
@@ -183,9 +207,35 @@ class SliceClientRunner:
         client.disconnect()
         return True
 
+    # -- the mesh's other ranks ---------------------------------------------------
+
+    def _broadcast(self, msg):
+        """Rank 0's ``msg`` on every rank (the other ranks pass None)."""
+        box = [msg]
+        torch.distributed.broadcast_object_list(box, src=0, group=self.mesh.group)
+        return box[0]
+
+    def _follow(self) -> bool:
+        """A rank other than 0: each window apply what rank 0 applied,
+        evaluate this rank's members and join the gather, until rank 0
+        stops."""
+        while True:
+            msg = self._broadcast(None)
+            if msg is None:
+                return True
+            if "cfg" in msg:
+                self._configure(msg["cfg"])
+            if "state" in msg:
+                self._apply_state(msg["state"])
+            self.windows = msg["windows"]
+            with self.timer.stage("rollout"):
+                self._shard_window(msg["sub"], msg["ids"])
+
     # -- internals ---------------------------------------------------------------
 
     def _configure(self, cfg: dict) -> None:
+        if self.mesh.size > 1 and self.mesh.rank == 0:
+            self._news = {"cfg": cfg}
         if cfg.get("noise_kind") != "counter":
             raise RuntimeError("slice clients need the server started with noise_kind='counter'")
         from dfd_tpu_torch.utils.factory import get_vectorized_init_data
@@ -217,6 +267,8 @@ class SliceClientRunner:
         self.generator.manual_seed(self._seed)
 
     def _apply_state(self, state) -> None:
+        if self.mesh.size > 1 and self.mesh.rank == 0:
+            self._news["state"] = state
         with self.timer.stage("apply_state"):
             self._apply_state_inner(state)
 
@@ -250,9 +302,10 @@ class SliceClientRunner:
             self.archive[: self.archive_count] = t[: self.archive_count]
 
     def chunks(self) -> int:
-        """The rollouts (and perturb launches) of one window."""
+        """The rollouts (and perturb launches) of one window on this rank."""
+        n = len(pop_sharding(self.mesh, self.n_members))
         C = self.population_chunk
-        return self.n_members // C if C and C < self.n_members else 1
+        return n // C if C and C < n else 1
 
     def _window_draws(self, sub: np.ndarray, member_ids: np.ndarray) -> WindowDraws:
         P, T, dev = self.n_members, self.horizon, self.device
@@ -275,15 +328,52 @@ class SliceClientRunner:
             offset &= ~1  # complete +-eps pairs per shard
         # the offset in Python ints, the ids in int64: exact past int32
         member_ids = offset + np.arange(self.n_members, dtype=np.int64)
-        return self.window_returns(member_ids, self._window_draws(sub, member_ids))
+        if self.mesh.size == 1:
+            return self.window_returns(member_ids, self._window_draws(sub, member_ids))
+        news, self._news = self._news, {}
+        self._broadcast(dict(news, windows=self.windows, sub=sub, ids=member_ids))
+        return self._shard_window(sub, member_ids)
+
+    def _shard_window(self, sub: np.ndarray, member_ids: np.ndarray):
+        """This rank's members of the window and the eval member on the
+        window's draws, the members' results gathered over the ranks; rank 0
+        gets the window's returns, the other ranks None."""
+        P = len(member_ids)
+        draws = self._window_draws(sub, member_ids)
+        mine = pop_sharding(self.mesh, P)
+        rows = torch.cat([torch.arange(mine.start, mine.stop, device=self.device),
+                          torch.full((1,), P, device=self.device)])
+        table, stats, ev = self._evaluate(member_ids[mine.start:mine.stop],
+                                          WindowDraws(*(x[rows] for x in draws)))
+        n = mine.stop - mine.start
+        sampled = self.normalize_obs and self.obs_stats_update_chance > 0
+        full, members = collectives.gather_results(
+            self.mesh, table[:n], welford.WelfordState(*(x[:n] for x in stats)) if sampled
+            else None, P)
+        if self.mesh.rank != 0:
+            return None
+        if members is None:
+            members = welford.init(stats.mean.shape[1:], self.device, batch=(P,))
+        eval_stats = welford.WelfordState(*(x[n:] for x in stats))
+        return self._returns(member_ids, torch.cat([full, table[n:]]),
+                             welford.WelfordState(*(torch.cat(x) for x in
+                                                    zip(members, eval_stats))), ev)
 
     def window_returns(self, member_ids: np.ndarray, draws: WindowDraws):
         """The returns of the consecutive ``member_ids`` (P of them, in
         chunks of ``population_chunk``) and of the eval member, last, on
         ``draws`` (P + 1 rows, the eval member's last), at the applied
         state."""
+        return self._returns(member_ids, *self._evaluate(member_ids, draws))
+
+    def _evaluate(self, member_ids: np.ndarray, draws: WindowDraws):
+        """(table [P + 1, 4]: each member's reward, entropy, steps and
+        novelty, the eval member's last; their sampled statistics, [P + 1]
+        rows; the eval member's first visited states) of the consecutive
+        ``member_ids`` and the eval member on ``draws``."""
         P, dev, model = len(member_ids), self.device, self.model
-        C = P // self.chunks() if P == self.n_members else P
+        C = self.population_chunk
+        C = C if C and C < P and P % C == 0 else P
         Z = self.zeta.shape[0]
         obs_mean = torch.as_tensor(self.fixed_obs_stats.mean, dtype=torch.float32, device=dev)
         obs_std = torch.as_tensor(self.fixed_obs_stats.std, dtype=torch.float32, device=dev)
@@ -293,7 +383,7 @@ class SliceClientRunner:
 
         # chunk 0 carries the eval member as its last row (theta, no noise,
         # deterministic, its first Z states kept); the other chunks run lean
-        parts, stats, ev = [], [], None
+        parts, stats, ev, ev_part = [], [], None, None
         for c0 in range(0, P, C):
             ride = c0 == 0
             flats, _ = self.noise.perturb_block(self.flat, self.sigma, self.epoch,
@@ -315,20 +405,28 @@ class SliceClientRunner:
             )
             novelty = novelty_batch(model, params, self.bn_state, zeta, archive,
                                     self.archive_count, self.distance_fn)
-            parts.append(torch.stack([res.reward[:, 0], res.entropy[:, 0],
-                                      res.steps[:, 0].to(torch.float32), novelty], dim=1))
-            stats.append(welford.WelfordState(*(x[:, 0] for x in res.obs_stats)))
+            part = torch.stack([res.reward[:, 0], res.entropy[:, 0],
+                                res.steps[:, 0].to(torch.float32), novelty], dim=1)
+            st = welford.WelfordState(*(x[:, 0] for x in res.obs_stats))
+            parts.append(part[:C])
+            stats.append(welford.WelfordState(*(x[:C] for x in st)))
             if ride:
-                ev = res.states[C]
+                ev, ev_part = res.states[C], (part[C:], welford.WelfordState(*(x[C:] for x in st)))
             del flats, params, res
+        parts.append(ev_part[0])
+        stats.append(ev_part[1])
+        return (torch.cat(parts), welford.WelfordState(*(torch.cat(x) for x in zip(*stats))), ev)
+
+    def _returns(self, member_ids: np.ndarray, table: torch.Tensor, stats, ev):
+        """FDReturns from ``_evaluate``'s results: one a member and the eval
+        member's, last; the window's merged statistics on the first."""
+        P, Z = len(member_ids), self.zeta.shape[0]
         # one merged Welford delta per window: the members and ONE eval member
-        merged = welford.merge_population(
-            welford.WelfordState(*(torch.cat(x) for x in zip(*stats))))
+        merged = welford.merge_population(stats)
         # the members' and the eval member's scalars cross to the host in one transfer
-        table = torch.cat(parts).cpu().numpy()
-        eval_row = table[C]
-        members = np.concatenate([table[:C], table[C + 1:]])
-        rewards, entropies, steps, novelty = members.T
+        table = table.cpu().numpy()
+        eval_row = table[P]
+        rewards, entropies, steps, novelty = table[:P].T
         returns = [
             FDReturn(
                 epoch=self.epoch,

@@ -28,6 +28,16 @@ steps 1-3 C members at a time, the eval slot riding chunk 0, so only one
 chunk's noise, perturbed weights, rollout and novelty are alive at once; the
 combine regenerates eps chunk by chunk.
 
+On a mesh (``mesh=``, a :class:`~dfd_tpu_torch.parallel.PopMesh`: one
+process per card over ``torch.distributed``) every rank runs this code on
+the same seeds and draws.  A rank runs steps 1-3 over its own members
+``[r P / W, (r + 1) P / W)`` only, in chunks as above, with its own eval
+slot on the draws' row P (every rank's eval episode is the one unsharded
+episode, as JAX repeats its eval key on every slot); the per-member results
+are gathered to every rank (``parallel/collectives.py``), so steps 4, 6 and
+7 run on identical inputs everywhere; the combine covers the rank's members
+and is summed over the ranks.  A mesh of one equals no mesh bit for bit.
+
 The strategy archive's accept/evict logic stays on the host between epochs.
 
 Beside training, ``set_env`` swaps the environment between epochs (the
@@ -56,7 +66,7 @@ import torch
 
 from dfd_tpu_torch.config import TrainConfig
 from dfd_tpu_torch.core import welford
-from dfd_tpu_torch.core.device import full_f32, resolve_device
+from dfd_tpu_torch.core.device import canonical, full_f32, resolve_device
 from dfd_tpu_torch.core.noise import CounterNoise
 from dfd_tpu_torch.envs import _levels
 from dfd_tpu_torch.envs.base import TorchEnv
@@ -67,6 +77,8 @@ from dfd_tpu_torch.fd.omega import OmegaParams, OmegaState, omega_init, omega_st
 from dfd_tpu_torch.models.base import PolicyModel
 from dfd_tpu_torch.novelty.handler import StrategyHandler, novelty_batch
 from dfd_tpu_torch.ops.perturb import combine, noise_sumsq, perturb
+from dfd_tpu_torch.parallel import collectives
+from dfd_tpu_torch.parallel.mesh import PopMesh, pop_sharding
 from dfd_tpu_torch.utils.metrics import EpochReporter
 from dfd_tpu_torch.utils.profiling import StageTimer
 
@@ -137,10 +149,12 @@ class VectorizedTrainer:
         device=None,
         draw_source: Optional[Callable[[int], EpochDraws]] = None,
     ):
-        self.device = resolve_device(device)
-        if mesh is not None:
-            raise _not_ported("a device mesh", "multi-device")
-        if model.device != self.device or env.device != self.device:
+        self.device = resolve_device(device if device is not None or mesh is None
+                                     else mesh.device)
+        if mesh is not None and not self._here(mesh.device):
+            raise ValueError(f"the mesh's rank lives on {mesh.device}, not {self.device}")
+        self.mesh = mesh if mesh is not None else PopMesh(self.device)
+        if not (self._here(model.device) and self._here(env.device)):
             raise ValueError(
                 f"model ({model.device}) and env ({env.device}) must live on {self.device}"
             )
@@ -151,6 +165,8 @@ class VectorizedTrainer:
         self.reporter = reporter or EpochReporter(quiet=True)
 
         self.P = cfg.batch_size
+        # this rank's members: all P without a mesh
+        self.members = pop_sharding(self.mesh, self.P)
         self.E = cfg.envs_per_perturbation
         self.horizon = cfg.episode_length or env.max_episode_steps
         if cfg.antithetic and self.P % 2 != 0:
@@ -160,16 +176,22 @@ class VectorizedTrainer:
         if self.E < 1:
             raise ValueError(f"envs_per_perturbation must be >= 1, got {self.E}")
         # JAX reads e_lowering where E > 1, unchunked, with a zeta; the port
-        # refuses there what it refuses (every valid choice is one rollout here)
+        # refuses there what it refuses (every valid choice is one rollout
+        # here, as "auto" resolves to flat under a process group there)
         chunked = bool(cfg.population_chunk) and cfg.population_chunk < self.P
         if self.E > 1 and not chunked and cfg.zeta_size > 0 and \
                 cfg.e_lowering not in ("flat", "nested", "auto"):
             raise ValueError(f"e_lowering must be flat|nested|auto, got {cfg.e_lowering!r}")
         # chunk: members whose perturb, rollout and novelty are alive at once
-        self.chunk = self.P
+        shard = len(self.members)
+        self.chunk = shard
+        if cfg.antithetic and self.mesh.size > 1 and shard % 2 != 0:
+            raise ValueError(f"antithetic pairs must not straddle ranks: {self.P} members over "
+                             f"{self.mesh.size} ranks leave {shard} a rank")
         if cfg.population_chunk and cfg.population_chunk < self.P:
-            if self.P % cfg.population_chunk != 0:
-                raise ValueError(f"population_chunk must divide batch_size: {self.P} % "
+            if shard % cfg.population_chunk != 0:
+                raise ValueError(f"population_chunk must divide batch_size"
+                                 f"{' / ranks' if self.mesh.size > 1 else ''}: {shard} % "
                                  f"{cfg.population_chunk} != 0")
             if cfg.noise_backend == "pallas":
                 raise ValueError("population_chunk needs noise_backend='jax': the pallas "
@@ -221,6 +243,10 @@ class VectorizedTrainer:
         self._last_archived = None
         self.timer = StageTimer()
 
+    def _here(self, device) -> bool:
+        """Whether ``device`` is the trainer's (``"cuda"`` is the current card)."""
+        return canonical(device) == canonical(self.device)
+
     # -- public ------------------------------------------------------------------
 
     def set_env(self, env: TorchEnv) -> None:
@@ -233,7 +259,7 @@ class VectorizedTrainer:
             raise ValueError(f"obs_shape mismatch: {env.obs_shape} vs {self.env.obs_shape}")
         if env.discrete != self.env.discrete or env.action_width != self.env.action_width:
             raise ValueError("action space mismatch between old and new env")
-        if env.device != self.device:
+        if not self._here(env.device):
             raise ValueError(f"env ({env.device}) must live on {self.device}")
         self.env = env
         self.horizon = self.cfg.episode_length or env.max_episode_steps
@@ -380,23 +406,24 @@ class VectorizedTrainer:
                 collect_limit=collect_limit,
             )
 
-        # 1-3. perturb, roll out and score the population a chunk at a time
-        # (one chunk of all P members unless population_chunk); the
-        # deterministic eval episode rides chunk 0 as its last member (zero
-        # noise) when zeta_size > 0
+        # 1-3. perturb, roll out and score this rank's members (all P
+        # without a mesh) a chunk at a time (one chunk unless
+        # population_chunk); the deterministic eval episode rides the first
+        # chunk as its last member (zero noise) when zeta_size > 0
+        lo, hi = self.members.start, self.members.stop
         if cfg.noise_backend == "jax":
-            self.noise.prepare(state.epoch, P)  # the epoch's keys, one transfer
+            self.noise.prepare(state.epoch, hi)  # the epoch's keys, one transfer
         members, novelties = [], []
         eps = noise_ssq = fused = None
-        for c0 in range(0, P, C):
-            ride = fused_eval and c0 == 0
+        for c0 in range(lo, hi, C):
+            ride = fused_eval and c0 == lo
             flats, eps, noise_ssq = self._perturbed(state, c0, ride)
             params = model.set_flat(flats)
             det = torch.zeros(flats.shape[0], dtype=torch.bool, device=self.device)
             det[C:] = True
             rows = slice(c0, c0 + C + int(ride))
-            if ride and C < P:  # chunk 0 and the eval slot, row P of the draws
-                rows = torch.cat([torch.arange(C, device=self.device),
+            if ride and c0 + C < P:  # the first chunk and the eval slot, row P of the draws
+                rows = torch.cat([torch.arange(c0, c0 + C, device=self.device),
                                   torch.full((1,), P, device=self.device)])
             res = rollout(params, det, rows, Z if ride else 0)
             novelty = self._batch_novelty(params, state, archive, archive_count)
@@ -410,6 +437,8 @@ class VectorizedTrainer:
             del flats, params, res
         result = _cat_results(members)
         novelty = torch.cat(novelties)
+        if self.mesh.group is not None:  # every rank gets the whole population's
+            result, novelty = self._gather(result, novelty)
         rewards = result.reward
 
         # 4. eval episode (member P, episode 0); contributes only on eval epochs
@@ -441,17 +470,20 @@ class VectorizedTrainer:
             omega = omega_step(state.omega, noisy_mean, self.omega_hp)
 
         # 7. fitness -> combine -> DSGD
+        # (the rank's members' share of it, summed over the ranks)
         fitness = fd_combine.fitness_from_rewards(rewards, policy_reward, draws.tie_signs)
-        if C < P:
+        mine = fitness[lo:hi]
+        if C < hi - lo:
             gradient = fd_combine.combine_gradient_chunked(
-                self.noise, state.epoch, range(P), fitness, cfg.noise_std, C)
+                self.noise, state.epoch, self.members, mine, cfg.noise_std, C)
         elif cfg.noise_backend == "pallas":
-            coefs = fitness / (cfg.noise_std * torch.clamp_min(noise_ssq, 1e-30))
+            coefs = mine / (cfg.noise_std * torch.clamp_min(noise_ssq, 1e-30))
             gradient = combine(coefs, cfg.random_seed, state.epoch, model.num_params,
-                               antithetic=cfg.antithetic)
+                               antithetic=cfg.antithetic, first=lo)
         else:
-            gradient = fd_combine.combine_gradient(eps, fitness, cfg.noise_std)
+            gradient = fd_combine.combine_gradient(eps, mine, cfg.noise_std)
         del eps
+        gradient = collectives.all_sum(self.mesh, gradient)
         if cfg.optimizer == "dsgd":
             lr_scale = lr_scale_from_omega(
                 omega.omega, cfg.omega.min_value, cfg.omega.max_value,
@@ -502,21 +534,35 @@ class VectorizedTrainer:
 
     def _perturbed(self, state: TrainState, c0: int, theta_row: bool):
         """(perturbed flats of members c0 .. c0 + chunk - 1 [chunk (+1), d],
-        theta as the last row where ``theta_row``; eps [P, d] on the
-        unchunked jax path, else None; ||eps_i||^2 [P] on the pallas path,
-        else None)."""
+        theta as the last row where ``theta_row``; eps [chunk, d] on the
+        unchunked jax path, else None; ||eps_i||^2 [chunk] on the pallas
+        path, else None).  Unchunked, the chunk is the rank's members."""
         cfg = self.cfg
         if cfg.noise_backend == "pallas":
-            pop = perturb(state.flat, cfg.noise_std, cfg.random_seed, state.epoch, self.P,
-                          antithetic=cfg.antithetic)
+            pop = perturb(state.flat, cfg.noise_std, cfg.random_seed, state.epoch, self.chunk,
+                          antithetic=cfg.antithetic, first=c0)
             noise_ssq = noise_sumsq(pop, state.flat, cfg.noise_std)
             if theta_row:
                 pop = torch.cat([pop, state.flat[None]], dim=0)
             return pop, None, noise_ssq
         flats, eps = self.noise.perturb_block(
             state.flat, cfg.noise_std, state.epoch, range(c0, c0 + self.chunk),
-            with_eps=self.chunk == self.P, theta_row=theta_row)
+            with_eps=self.chunk == len(self.members), theta_row=theta_row)
         return flats, eps, None
+
+    def _gather(self, result: fd_rollout.RolloutResult, novelty: torch.Tensor):
+        """The whole population's per-member results and novelty [P] on
+        every rank, from this rank's: one float32 ``[P, k]`` buffer summed
+        over the ranks (the sampled statistics only with normalize_obs, the
+        only reader)."""
+        table = torch.stack([result.reward, result.entropy, result.steps.to(torch.float32),
+                             novelty], dim=1)
+        table, obs_stats = collectives.gather_results(
+            self.mesh, table, result.obs_stats if self.cfg.normalize_obs else None, self.P)
+        if obs_stats is None:
+            obs_stats = welford.init(self.env.obs_shape, self.device, batch=(self.P,))
+        return fd_rollout.RolloutResult(table[:, 0], table[:, 1], table[:, 2].to(torch.int64),
+                                        obs_stats, None), table[:, 3]
 
     # -- pieces ------------------------------------------------------------------
 

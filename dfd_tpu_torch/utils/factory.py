@@ -6,13 +6,20 @@ Maps an env id to (env, policy model, strategy distance fn), every piece on
 native ids and pixel ids, with the same classes and widths.  The host
 topology gets the env inside a :class:`~dfd_tpu_torch.runners.HostEnv`
 (and an :class:`~dfd_tpu_torch.envs.wrappers.ImpalaObsWrapper` for a pixel
-id); the vectorized trainer gets it raw.  The gymnasium, procgen and Atari
-ids need adapters that are not ported yet and raise ``NotImplementedError``.
+id); the vectorized trainer gets it raw.  Any other id goes to the host
+adapters (``envs/gym_adapter.py``), as in the JAX package: a procgen id
+through the gym-era adapter and the IMPALA policy, a ``NoFrameskip`` or
+``ALE/`` id through the deepmind-style pipeline (``envs/atari_wrappers.py``)
+and ``AtariCNN``, another gymnasium id through an MLP on its flattened
+observation; each raises JAX's ``RuntimeError`` where its package is
+missing.  The env stays on the host; only the model goes on ``device``.
 """
 
 from __future__ import annotations
 
 from typing import Tuple
+
+import numpy as np
 
 from dfd_tpu_torch.core.device import resolve_device
 from dfd_tpu_torch.envs.cartpole import CartPoleEnv
@@ -22,6 +29,7 @@ from dfd_tpu_torch.envs.procmaze import ProcMazeEnv
 from dfd_tpu_torch.envs.swimmer import SwimmerEnv
 from dfd_tpu_torch.envs.trap import TrapEnv
 from dfd_tpu_torch.models import DiscreteMLP, GaussianMLP
+from dfd_tpu_torch.models.atari import AtariCNN
 from dfd_tpu_torch.models.impala import ImpalaPolicy
 from dfd_tpu_torch.ops import distances
 
@@ -77,14 +85,52 @@ def get_init_data(env_id: str, random_seed: int, device=None) -> Tuple[object, o
     """(host-surface env, policy model, strategy distance fn) for ``env_id``."""
     from dfd_tpu_torch.envs.wrappers import ImpalaObsWrapper
     from dfd_tpu_torch.runners.host_env import HostEnv
-    from dfd_tpu_torch.runners.vectorized import _not_ported
 
     device = resolve_device(device)
-    if env_id not in JAX_PIXEL_ENVS and env_id not in JAX_ENVS:
-        raise _not_ported(f"env {env_id!r} (the gymnasium, procgen and Atari adapters)",
-                          "item 9.5, envs/gym_adapter.py and envs/atari_wrappers.py")
-    env = make_jax_env(env_id, device)
-    host = HostEnv(env, seed=random_seed)
-    if env_id in JAX_PIXEL_ENVS:
-        host = ImpalaObsWrapper(host)
-    return (host, *_model(env, env_id, device))
+    if env_id in JAX_PIXEL_ENVS or env_id in JAX_ENVS:
+        env = make_jax_env(env_id, device)
+        host = HostEnv(env, seed=random_seed)
+        if env_id in JAX_PIXEL_ENVS:
+            host = ImpalaObsWrapper(host)
+        return (host, *_model(env, env_id, device))
+
+    # through the module at call time, so a test can stand a fake env in
+    from dfd_tpu_torch.envs import gym_adapter
+
+    if "procgen" in env_id:
+        # procgen is gym-era (registers against gym, not gymnasium); built
+        # through the legacy adapter and wrapped as the reference does
+        # (reference utils/init_helper.py:9-12 + utils/impala_env_wrapper.py)
+        if not gym_adapter.procgen_available():
+            raise RuntimeError(
+                f"env {env_id!r} needs the gym-era 'procgen' and 'gym' packages, "
+                "which are not installed in this image"
+            )
+        raw = gym_adapter.GymEnv(env_id, seed=random_seed, distribution_mode="easy",
+                                 num_levels=500)
+        h, w, c = raw.obs_shape
+        model = ImpalaPolicy((c, h, w), raw.n_actions, device=device)
+        return ImpalaObsWrapper(raw), model, distances.categorical_tvd
+
+    if not gym_adapter.gymnasium_available():
+        raise RuntimeError(f"gymnasium not available for env {env_id!r}")
+
+    if "NoFrameskip" in env_id or "ALE/" in env_id:
+        # deepmind preprocessing, as the reference composes from baselines
+        # (reference utils/init_helper.py:13-18): noop reset, max+skip-4,
+        # episodic life, fire reset, 84x84 grayscale, /255, 4-stack
+        from dfd_tpu_torch.envs.atari_wrappers import wrap_deepmind_style
+
+        env = wrap_deepmind_style(gym_adapter.GymnasiumEnv(env_id, seed=random_seed),
+                                  seed=random_seed)
+        shape = env.obs_shape  # (84, 84, 4) channels-last stacks
+        model = AtariCNN((shape[0], shape[1]), env.n_actions, in_channels=shape[2],
+                         device=device)
+        return env, model, distances.categorical_tvd
+
+    env = gym_adapter.GymnasiumEnv(env_id, seed=random_seed)
+    n_in = int(np.prod(env.obs_shape))
+    if env.n_actions is not None:
+        return env, DiscreteMLP(n_in, env.n_actions, device=device), distances.categorical_tvd
+    return (env, GaussianMLP(n_in, int(np.prod(env.action_space.shape)), device=device),
+            distances.gaussian_wasserstein_from_strategies)

@@ -10,6 +10,7 @@ for the same seed: its action streams are the same
 (``tests/test_torch_sequential.py``).
 """
 
+import importlib
 import os
 import subprocess
 import sys
@@ -136,12 +137,38 @@ def test_cli_default_device_fails_without_a_card(monkeypatch, capsys):
 
 @pytest.mark.parametrize("argv, item", [
     (["bench"], "item 9.7"),
-    (["train", "--mesh", "--epochs", "1", *CPU], "item 8"),
-    (["client", "--mode", "slice", "--mesh", *CPU], "item 8"),
 ])
 def test_cli_unported_entry_points_name_their_roadmap_items(argv, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue 1: {item}"):
         main(argv)
+
+
+@pytest.mark.parametrize("backend", ["jax", "pallas"])
+def test_cli_train_mesh_without_torchrun_is_a_mesh_of_one(backend, tmp_path, capsys,
+                                                          monkeypatch):
+    """``train --mesh`` outside torchrun (no WORLD_SIZE): a mesh of one,
+    the same report as without ``--mesh``, and the checkpoint written.  Two
+    ranks under a torchrun-style launch: ``tests/test_torch_parallel.py``."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    argv = ["train", "--env", "SimpleTrapEnv-v0", "--epochs", "2", "--noise-backend", backend,
+            *SMALL, *CPU]
+    reports = []
+    for extra in ([], ["--mesh", "--checkpoint", str(tmp_path / "c.npz")]):
+        assert main(argv + extra) == 0
+        reports.append(capsys.readouterr().out.strip().splitlines()[-1])
+    assert reports[0] == reports[1] and "'Epoch': 2" in reports[0]
+    assert os.path.exists(tmp_path / "c.npz")
+
+
+def test_cli_client_slice_mesh_hands_a_mesh_of_one(monkeypatch):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.setattr(importlib.import_module("dfd_tpu_torch.runners.slice_client"),
+                        "SliceClientRunner", _Recorder)
+    _Recorder.calls = []
+    assert main(["client", "--mode", "slice", "--mesh", "--n-envs", "6", *CPU]) == 0
+    (_, kw), (what, _) = _Recorder.calls
+    mesh = kw["mesh"]
+    assert (mesh.rank, mesh.size, str(mesh.device), what) == (0, 1, "cpu", "run")
 
 
 def _flags(entry, cmd, capsys):
@@ -198,7 +225,7 @@ def test_cli_server_hands_its_flags_to_the_runner(monkeypatch):
     ("fat", "fat_client", "FatClientRunner",
      dict(n_envs=12, address="h", port=7, pipeline_lanes=2, env_backend="thread")),
     ("slice", "slice_client", "SliceClientRunner",
-     dict(n_members=12, address="h", port=7, population_chunk=4)),
+     dict(n_members=12, address="h", port=7, population_chunk=4, mesh=None)),
 ])
 def test_cli_client_hands_its_flags_to_the_runner(mode, module, cls, want, monkeypatch):
     import importlib
@@ -222,8 +249,16 @@ def test_cli_server_and_client_refuse_without_a_card(monkeypatch, capsys):
         assert "no CUDA device is available" in capsys.readouterr().err
 
 
-def test_factory_refuses_the_gym_ids_naming_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 9.5"):
+def test_factory_takes_the_gym_ids_through_the_adapters():
+    """An id outside the native ones goes to the gymnasium adapter (an
+    unknown one fails where gymnasium does); the gymnasium, procgen and
+    Atari branches are held to JAX's in ``tests/test_torch_gym_adapter.py``
+    and ``tests/test_torch_atari_wrappers.py``."""
+    from dfd_tpu_torch.envs.gym_adapter import GymnasiumEnv
+
+    env, model, _ = factory.get_init_data("CartPole-v0", 1, "cpu")
+    assert isinstance(env, GymnasiumEnv) and model.input_shape == 4 and model.output_shape == 2
+    with pytest.raises(Exception, match="CartPole-v0-gym-only"):
         factory.get_init_data("CartPole-v0-gym-only", 1, "cpu")
 
 

@@ -402,7 +402,14 @@ def test_bench_gaussian_swimmer_config_trains_on_the_cpu():
     row = tr.reporter.history[-1]
     assert tr.cumulative_timesteps == 513 * 100 and row["Update Magnitude"] > 0
     assert np.isfinite(row["Noisy Reward"]) and float(tr.state.obs_stats.count) > 0
-    with pytest.raises(NotImplementedError, match="Queue 1: multi-device"):
-        VectorizedTrainer(GaussianMLP(16, 6, device=CPU), SwimmerEnv(device=CPU),
-                          pdist.gaussian_wasserstein_from_strategies, cfg, mesh=object(),
-                          device=CPU)
+    # on a mesh of one (no process group) the continuous path runs as without one
+    from dfd_tpu_torch.parallel import make_pop_mesh
+
+    small = cfg.replace(batch_size=16, episode_length=10)
+    runs = [VectorizedTrainer(GaussianMLP(16, 6, device=CPU), SwimmerEnv(max_steps=10, device=CPU),
+                              pdist.gaussian_wasserstein_from_strategies, small, mesh=mesh,
+                              device=CPU) for mesh in (None, make_pop_mesh(CPU))]
+    for r in runs:
+        r.train(2)
+    assert torch.equal(runs[0].state.flat, runs[1].state.flat)
+    assert all(torch.equal(a, b) for a, b in zip(runs[0].state.obs_stats, runs[1].state.obs_stats))

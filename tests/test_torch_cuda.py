@@ -1618,3 +1618,94 @@ def test_thin_client_on_card_trains_against_card_server(cuda):
     assert not st.is_alive() and not ct.is_alive()
     assert server.learner.discarded_returns == 0 and len(server.reporter.history) == 2
     assert all(np.isfinite(row["Noisy Reward"]) for row in server.reporter.history)
+
+
+@pytest.mark.parametrize("P, d, anti, first", [(7, 1023, False, 5), (8, 1025, True, 6),
+                                               (1024, 5197, False, 1024),
+                                               (64, 1_156_139, False, 64)])
+def test_perturb_and_combine_from_a_first_member(cuda, P, d, anti, first):
+    """A rank's shard: the kernels from member ``first`` against the plain
+    versions from there, and against the whole population's rows."""
+    flat = torch.randn(d, device=cuda)
+    got = pk.perturb(flat, 0.05, 9, 4, P, antithetic=anti, first=first)
+    want = pk.perturb_plain(flat, 0.05, 9, 4, P, antithetic=anti, first=first)
+    whole = pk.perturb(flat, 0.05, 9, 4, first + P, antithetic=anti)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 0.05 * 1e-5
+    assert torch.equal(got, whole[first:])
+    coefs = torch.randn(P, device=cuda)
+    g = pk.combine(coefs, 9, 4, d, antithetic=anti, first=first)
+    gw = pk.combine_plain(coefs, 9, 4, d, antithetic=anti, first=first)
+    assert ((g - gw).norm() / gw.norm()).item() <= 1e-5
+
+
+def test_atari_pipeline_through_host_policy_on_card_matches_cpu(cuda):
+    """The deepmind-style pipeline's (84, 84, 4) channels-last frames
+    through ``HostPolicy`` with ``AtariCNN((84, 84), 6)`` on the card and on
+    the CPU: probabilities within rtol 1e-5, the same greedy actions, and
+    the strategy over a zeta of such frames."""
+    import numpy as np
+
+    from dfd_tpu_torch.envs.atari_wrappers import wrap_deepmind_style
+    from dfd_tpu_torch.models import AtariCNN
+    from dfd_tpu_torch.runners import HostPolicy
+
+    class Synthetic:
+        def __init__(self):
+            self.rng, self.lives = np.random.default_rng(0), 3
+
+        def get_action_meanings(self):
+            return ["NOOP", "FIRE", "UP", "DOWN", "LEFT", "RIGHT"]
+
+        def reset(self):
+            return self.rng.integers(0, 256, (210, 160, 3), dtype=np.uint8)
+
+        def step(self, a):
+            return self.reset(), 1.0, False, {"lives": self.lives}
+
+    env = wrap_deepmind_style(Synthetic(), seed=0)
+    frames = [env.reset()] + [env.step(a)[0] for a in (1, 2, 3, 4, 5)]
+    policies = [HostPolicy(AtariCNN((84, 84), 6, device=d), seed=3) for d in (cuda, "cpu")]
+    for f in frames:
+        g, c = (p.forward(f)[0, 0].cpu().numpy() for p in policies)
+        np.testing.assert_allclose(g, c, rtol=1e-5, atol=1e-7)
+        assert policies[0].get_action(f, True) == policies[1].get_action(f, True)
+    zeta = np.stack(frames)
+    np.testing.assert_allclose(policies[0].get_strategy(zeta), policies[1].get_strategy(zeta),
+                               rtol=1e-5, atol=1e-7)
+
+
+def test_mesh_of_one_over_nccl_equals_no_mesh(cuda):
+    """A one-rank NCCL group on the card: the trainer on its mesh equals the
+    trainer without one, bit for bit (every collective a one-rank sum)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from dfd_tpu_torch.config import TrainConfig
+    from dfd_tpu_torch.envs import TrapEnv
+    from dfd_tpu_torch.models import DiscreteMLP
+    from dfd_tpu_torch.ops import distances
+    from dfd_tpu_torch.parallel import make_pop_mesh
+    from dfd_tpu_torch.runners import VectorizedTrainer
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    try:
+        mesh = make_pop_mesh()
+        assert (mesh.size, mesh.group is not None) == (1, True)
+        cfg = TrainConfig(batch_size=64, learning_rate=0.05, noise_std=0.05, zeta_size=8,
+                          max_strategy_history_size=4, random_seed=7, normalize_obs=True,
+                          obs_stats_update_chance=0.1)
+        runs = []
+        for m in (None, mesh):
+            tr = VectorizedTrainer(DiscreteMLP(2, 9), TrapEnv(), distances.categorical_tvd, cfg,
+                                   mesh=m)
+            tr.train(3)
+            runs.append(tr)
+        assert torch.equal(runs[0].state.flat, runs[1].state.flat)
+    finally:
+        dist.destroy_process_group()

@@ -465,13 +465,28 @@ def test_slice_chunked_window_equals_dense():
         _same_window(other, dense, rtol=1e-6)
 
 
-def test_slice_client_refuses_a_mesh_naming_its_item():
+def test_slice_client_on_a_mesh_of_one_equals_no_mesh():
+    """``mesh=`` a mesh of one: the client lives on the mesh's device and
+    its window equals the meshless client's, return for return; a chunk
+    that does not divide the shard is refused either way.  Two ranks:
+    ``tests/test_torch_parallel.py``."""
+    from dfd_tpu.models import DiscreteMLP as JDiscreteMLP
+    from dfd_tpu_torch.parallel import make_pop_mesh
     from dfd_tpu_torch.runners.slice_client import SliceClientRunner
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1: item 8"):
-        SliceClientRunner(n_members=4, mesh=object(), device=CPU)
-    with pytest.raises(ValueError):
-        SliceClientRunner(n_members=8, population_chunk=3, device=CPU)
+    state = _broadcast(JDiscreteMLP(2, 9), (2,), 9)
+    out = []
+    for mesh in (None, make_pop_mesh(CPU)):
+        r = SliceClientRunner(n_members=8, population_chunk=4, mesh=mesh, device=CPU)
+        assert str(r.device) == CPU and r.chunks() == 2
+        r._configure(dict(SLICE_CFG, env_id="SimpleTrapEnv-v0"))
+        r._apply_state(state)
+        r.windows = 1
+        out.append(r._collect_window())
+    _same_window(out[1], out[0], rtol=0)
+    for mesh in (None, make_pop_mesh(CPU)):
+        with pytest.raises(ValueError):
+            SliceClientRunner(n_members=8, population_chunk=3, mesh=mesh, device=CPU)
 
 
 def test_stale_shard_drift_correction_oracle():

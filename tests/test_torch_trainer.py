@@ -196,19 +196,19 @@ def test_chunked_port_matches_unchunked_port():
                                atol=1e-6)
 
 
-@pytest.mark.parametrize(
-    "case, item",
-    [
-        (lambda: dict(mesh=object()), "Queue 1: multi-device"),
-    ],
-)
-def test_unported_paths_raise(case, item):
-    kw = case()
-    cfg = TrainConfig(**dict(BASE, **kw.pop("cfg", {})))
-    env = kw.pop("env", TrapEnv(device=CPU))
-    with pytest.raises(NotImplementedError, match=item):
-        VectorizedTrainer(DiscreteMLP(2, 9, device=CPU), env, distances.categorical_tvd, cfg,
-                          device=CPU, **kw)
+def test_trainer_on_a_mesh_of_one_matches_jax(monkeypatch):
+    """``mesh=`` a mesh of one (no process group): the trainer holds all P
+    members and runs as without a mesh, epoch by epoch against JAX's."""
+    from dfd_tpu_torch.parallel import make_pop_mesh
+
+    jtr, _, draws = _pair(BASE)
+    ptr = VectorizedTrainer(DiscreteMLP(2, 9, device=CPU), TrapEnv(device=CPU),
+                            distances.categorical_tvd, TrainConfig(**BASE),
+                            mesh=make_pop_mesh(CPU), device=CPU,
+                            draw_source=lambda epoch: draws[epoch])
+    ptr.state = train_state_from_numpy(jax_state_numpy(jtr.state), CPU)
+    assert ptr.members == range(16) and ptr.mesh.size == 1
+    run_and_compare(jtr, ptr, draws, 2, monkeypatch)
 
 
 @pytest.mark.parametrize(
