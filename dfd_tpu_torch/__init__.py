@@ -23,9 +23,16 @@ passes ``device="cpu"``.  Its layout mirrors the JAX package's:
                  a time through ``HostPolicy`` and ``HostEnv``).
 - ``utils``    — metrics, profiling, checkpoint and resume, level curricula,
                  the env/model factory and the sweep.
-- ``__main__`` — the command line, ``python -m dfd_tpu_torch train|sweep``.
+- ``parallel`` — the population mesh over ``torch.distributed``.
+- ``distributed`` — the elastic gRPC control plane (server and clients).
+- ``__main__`` — the command line, ``python -m dfd_tpu_torch
+                 train|server|client|sweep|bench`` (the ``dfd-tpu-torch``
+                 script of an installed port).
+- ``bench``    — the throughput benchmark and its mesh harness.
 - ``convert``  — carrying weights, trainer state and the VBN buffer across
                  from ``dfd_tpu``.
 """
 
-__version__ = "0.1.0"
+from dfd_tpu_torch.version import __version__
+
+__all__ = ["__version__"]

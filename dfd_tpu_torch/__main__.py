@@ -5,6 +5,7 @@
     python -m dfd_tpu_torch server --env SimpleTrapEnv-v0 --port 1025
     python -m dfd_tpu_torch client --address learner-host --port 1025 [--mode thin|fat|slice]
     python -m dfd_tpu_torch sweep --env SimpleTrapEnv-v0 --trials 10 --epochs 30
+    python -m dfd_tpu_torch bench
     torchrun --nproc-per-node 4 -m dfd_tpu_torch train --mesh --env SimpleTrapEnv-v0
 
 The subcommands and flags are the JAX package's, plus ``--device``: the
@@ -18,8 +19,9 @@ the population over the ranks of a ``torch.distributed`` process group,
 one process per card, which it joins from torchrun's variables (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``) where they
 are set, else runs as a mesh of one; NCCL joins the cards, gloo the CPU
-(``--device cpu``).  ``bench`` is not ported yet and raises
-``NotImplementedError`` naming its ROADMAP item.
+(``--device cpu``).  ``bench`` runs the throughput benchmark's six cells
+(``dfd_tpu_torch/bench.py``; its weak-scaling mesh harness is ``python -m
+dfd_tpu_torch.bench --mesh N``).
 """
 
 from __future__ import annotations
@@ -296,10 +298,14 @@ def cmd_sweep(args) -> int:
     return 0
 
 
-def cmd_bench(_args) -> int:
-    from dfd_tpu_torch.runners.vectorized import _not_ported
+def cmd_bench(args) -> int:
+    from dfd_tpu_torch import bench
 
-    raise _not_ported("the bench subcommand", "item 9.7, bench_torch.py")
+    device = _device(args)
+    if device is None:
+        return 2
+    bench.main(device=device)
+    return 0
 
 
 def main(argv=None) -> int:
@@ -389,7 +395,9 @@ def main(argv=None) -> int:
                    help="join an existing wandb sweep instead of creating one")
     p.set_defaults(fn=cmd_sweep)
 
-    p = sub.add_parser("bench", help="throughput benchmark (not ported yet)")
+    p = sub.add_parser("bench", help="throughput benchmark: bench.py's six cells")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (cuda, or cpu); no fallback to the CPU")
     p.set_defaults(fn=cmd_bench)
 
     args = parser.parse_args(argv)

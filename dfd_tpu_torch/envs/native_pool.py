@@ -5,10 +5,12 @@ The library steps N ``simple_trap_env`` instances per call across a
 port builds it at first use with ``g++`` (the flags of
 ``runtime/build.sh``) into its own build directory,
 ``build/dfd_tpu_torch/libdfd_envpool-<digest>.so``, named by a digest of the
-source and the flags, so an edited source is rebuilt.  It never loads the
-JAX package's copies (``runtime/libdfd_envpool.so``,
-``dfd_tpu/_native/``).  ``DFD_ENVPOOL_LIB`` names a library to load
-instead.  A failed build raises.
+source and the flags, so an edited source is rebuilt.  An installed port,
+which has no ``runtime/``, loads the copy its wheel build put in
+``dfd_tpu_torch/_native/`` (setup.py).  It never loads the JAX package's
+copies (``runtime/libdfd_envpool.so``, ``dfd_tpu/_native/``).
+``DFD_ENVPOOL_LIB`` names a library to load instead.  A failed build
+raises, and so does finding no library.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from dfd_tpu_torch.envs.trap import load_walkable_grid
 from dfd_tpu_torch.ops.build import BUILD_DIR
 
 SOURCE = Path(__file__).resolve().parents[2] / "runtime" / "envpool.cc"
+NATIVE_DIR = Path(__file__).resolve().parents[1] / "_native"  # an installed port's copy
 GXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 
@@ -51,12 +54,20 @@ def build() -> Path:
 
 
 def _find_lib() -> str:
-    """Search order: ``DFD_ENVPOOL_LIB`` when it names a file, else the
-    port's build (compiled here if missing)."""
+    """Search order: ``DFD_ENVPOOL_LIB`` when it names a file; the port's
+    build where the checkout's source exists (compiled here if missing); the
+    installed copy, ``dfd_tpu_torch/_native/libdfd_envpool.so``."""
     explicit = os.environ.get("DFD_ENVPOOL_LIB")
     if explicit and os.path.exists(explicit):
         return explicit
-    return str(build())
+    if SOURCE.exists():
+        return str(build())
+    installed = NATIVE_DIR / "libdfd_envpool.so"
+    if installed.exists():
+        return str(installed)
+    raise FileNotFoundError(
+        f"no native env pool library: DFD_ENVPOOL_LIB names no file ({explicit!r}), no source "
+        f"at {SOURCE} to build, no installed copy at {installed}")
 
 
 _lib = None
@@ -88,7 +99,8 @@ def _load():
 
 
 def native_pool_available() -> bool:
-    """True once the library loads (building it first); a failed build raises."""
+    """True once the library loads (building it first); a failed build, or
+    no library to load, raises."""
     return _load() is not None
 
 

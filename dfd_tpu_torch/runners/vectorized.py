@@ -132,10 +132,6 @@ def make_draws(generator: torch.Generator, P: int, T: int, Z: int, env: TorchEnv
     return EpochDraws(noise, stats_uniform, tie_signs, zeta_perm, reset_level)
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, Queue 1: {item})")
-
-
 class VectorizedTrainer:
     def __init__(
         self,

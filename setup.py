@@ -1,7 +1,8 @@
 """Build hook: compile the native C++ env pool into the wheel.
 
 The pool (runtime/envpool.cc) is a plain C-ABI shared library loaded via
-ctypes (dfd_tpu/envs/native_pool.py), not a Python extension module, so the
+ctypes (dfd_tpu/envs/native_pool.py, and the port's
+dfd_tpu_torch/envs/native_pool.py), not a Python extension module, so the
 build step is a direct g++ invocation rather than setuptools.Extension.
 The build is best-effort: without a C++ toolchain the wheel still works —
 the pool is availability-gated and the pure-Python vector env is used.
@@ -31,9 +32,10 @@ class build_py_with_native(build_py):
             print(f"warning: native env pool not built ({exc}); "
                   "the pure-Python vector env will be used")
             return
-        dest = os.path.join(self.build_lib, "dfd_tpu", "_native")
-        os.makedirs(dest, exist_ok=True)
-        shutil.copy2(lib, dest)
+        for package in ("dfd_tpu", "dfd_tpu_torch"):  # each package loads its own copy
+            dest = os.path.join(self.build_lib, package, "_native")
+            os.makedirs(dest, exist_ok=True)
+            shutil.copy2(lib, dest)
 
 
 setup(cmdclass={"build_py": build_py_with_native})

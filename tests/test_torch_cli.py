@@ -1,9 +1,9 @@
 """The port's command line (``python -m dfd_tpu_torch``) on the CPU
 (``--device cpu``), the cases of ``tests/test_cli.py`` that this port
-covers, plus its factory against the JAX package's, the entry points that
-are not ported yet, the ``server`` and ``client`` subcommands' flags (JAX's
-plus ``--device``) and what they hand their runners, and the default
-device's refusal without a card.
+covers, plus its factory against the JAX package's, the ``server`` and
+``client`` subcommands' flags (JAX's plus ``--device``) and what they hand
+their runners, the default device's refusal without a card, and the
+installed port's console script.
 
 The sequential topology's playback files are byte-equal to the JAX CLI's
 for the same seed: its action streams are the same
@@ -130,17 +130,31 @@ def test_cli_default_device_fails_without_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for argv in (["train", "--epochs", "1", *SMALL],
                  ["train", "--topology", "sequential", "--epochs", "1", *SMALL],
-                 ["sweep", "--trials", "1", "--epochs", "1"]):
+                 ["sweep", "--trials", "1", "--epochs", "1"],
+                 ["bench"]):
         assert main(argv) == 2
         assert "no CUDA device is available" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("argv, item", [
-    (["bench"], "item 9.7"),
-])
-def test_cli_unported_entry_points_name_their_roadmap_items(argv, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue 1: {item}"):
-        main(argv)
+def test_installed_script_resolves_to_the_port_main():
+    """``pyproject.toml``'s ``dfd-tpu-torch`` console script is the port's
+    ``main``, beside JAX's ``dfd-tpu``; the port's ``_native`` copy of the
+    env pool is package data; the version is ``version.py``'s."""
+    import tomllib
+
+    import dfd_tpu_torch
+    from dfd_tpu_torch import version
+
+    with open(os.path.join(ROOT, "pyproject.toml"), "rb") as f:
+        project = tomllib.load(f)
+    scripts = project["project"]["scripts"]
+    assert scripts["dfd-tpu"] == "dfd_tpu.__main__:main"
+    module, attr = scripts["dfd-tpu-torch"].split(":")
+    assert getattr(importlib.import_module(module), attr) is main
+    data = project["tool"]["setuptools"]["package-data"]
+    assert data["dfd_tpu_torch._native"] == ["*.so"]
+    assert importlib.import_module("dfd_tpu_torch._native").__file__
+    assert dfd_tpu_torch.__version__ == version.__version__
 
 
 @pytest.mark.parametrize("backend", ["jax", "pallas"])

@@ -128,3 +128,37 @@ def test_pool_reads_a_text_map(tmp_path):
         outs = [p.step(a) for p in pools]
         for x, y in zip(*outs):
             np.testing.assert_array_equal(x, y)
+
+
+def test_an_installed_port_loads_its_native_copy(tmp_path, monkeypatch):
+    """Outside a checkout (no ``runtime/envpool.cc``) the loader takes the
+    wheel's copy in ``dfd_tpu_torch/_native``, and that pool steps as JAX's
+    does; with no copy there either it raises, naming all three places."""
+    import subprocess
+
+    native = tmp_path / "_native"
+    native.mkdir()
+    lib = native / "libdfd_envpool.so"
+    subprocess.run(["g++", *native_pool.GXX_FLAGS, "-o", str(lib),
+                    str(ROOT / "runtime" / "envpool.cc")], check=True)
+    monkeypatch.delenv("DFD_ENVPOOL_LIB", raising=False)
+    monkeypatch.setattr(native_pool, "SOURCE", tmp_path / "runtime" / "envpool.cc")
+    monkeypatch.setattr(native_pool, "NATIVE_DIR", native)
+    monkeypatch.setattr(native_pool, "_lib", None)
+    assert native_pool._find_lib() == str(lib)
+
+    pools = [NativeTrapPool(2), JNativeTrapPool(2)]
+    assert native_pool._lib._name == str(lib)
+    np.testing.assert_array_equal(pools[0].reset_all(), pools[1].reset_all())
+    rng = np.random.RandomState(3)
+    for _ in range(205):
+        a = rng.randint(0, 9, size=2)
+        outs = [p.step(a, auto_reset=True) for p in pools]
+        for x, y in zip(*outs):
+            np.testing.assert_array_equal(x, y)
+
+    lib.unlink()
+    with pytest.raises(FileNotFoundError) as err:
+        native_pool._find_lib()
+    for place in ("DFD_ENVPOOL_LIB", str(tmp_path / "runtime" / "envpool.cc"), str(lib)):
+        assert place in str(err.value)
