@@ -11,7 +11,8 @@ on the card, its plain PyTorch version on the CPU.  ``dynamics="autodiff"``
 is the JAX package's test oracle: the mass matrix, drag and Coriolis terms
 by ``torch.func.jacfwd``, ``jvp`` and ``grad`` of the kinematics, each
 episode's under ``torch.func.vmap``, through the plain step on any device.
-Only 3, 5 and 7 links are taken (the kernel's forms), on every device.
+Any link count from 1 to ``ops.swimmer.MAX_LINKS`` (64) is taken, on every
+device; a single link has no joint and an empty action.
 
 A reset draws ``2 * ndof - 2`` float32 uniforms in [-0.1, 0.1]: the joint
 angles ``q[2:]`` then the velocities ``qdot`` (``reset_shape``); the JAX env

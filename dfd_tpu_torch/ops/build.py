@@ -3,9 +3,10 @@
 A ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with a
 plain C interface, loaded with ``ctypes``.  Libraries are built at first use
 into ``build/dfd_tpu_torch/`` at the root of the checkout, named by a hash of
-the source and the flags, so an edited source is rebuilt and an unchanged
-one is not.  Only the sources in this package are compiled.  ``ptxas``
-reports each kernel's registers, shared memory and spills (``-Xptxas -v``);
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header is rebuilt and an unchanged one is not.  Only the sources
+in this package are compiled.  ``ptxas`` reports each kernel's registers,
+shared memory and spills (``-Xptxas -v``);
 the compiler's output is kept beside its library (:func:`compiler_log`).
 """
 
@@ -51,8 +52,12 @@ def sass(name: str) -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Where the library ``name`` is built: named by a hash of its source,
+    every shared header (``csrc/*.cuh``, which a source may include) and the
+    flags, so an edit to any of them rebuilds it."""
+    parts = [(CSRC / f"{name}.cu").read_bytes()]
+    parts += [p.read_bytes() for p in sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

@@ -66,12 +66,15 @@
 // flight, and runs its phases (staging, rounding, barriers, epilogue) one
 // after another; the products themselves are a small share.
 //
-// Any C, H and W: K is padded with zero channels to a multiple of 16, output
-// channels beyond C are masked, bands may be ragged (a block may even own no
-// rows), positions past a chunk's end read a valid address and are dropped.
-// The launch fails (cudaErrorInvalidValue) when a band and a weight tap do
-// not fit in a block's 227 KB of shared memory even at clusters of 8 (the
-// res stage's f32 tap alone outgrows it near 180 channels).
+// The cluster kernels take any C, H and W whose band fits a block: K is
+// padded with zero channels to a multiple of 16, output channels beyond C are
+// masked, bands may be ragged (a block may even own no rows), positions past
+// a chunk's end read a valid address and are dropped.  Their launch fails
+// (cudaErrorInvalidValue) when a band and a weight tap do not fit in a
+// block's 227 KB of shared memory even at clusters of 8 (the res stage's f32
+// tap alone outgrows it near 180 channels); fused_resblock.py's plans send
+// those shapes to the tiled forms at the end of this file
+// (conv_tiled_mma_kernel), which take any C, H and W.
 //
 // Arithmetic follows the TPU kernel: the affine as two rounded operations
 // (__fmul_rn, __fadd_rn, never contracted), then ReLU in the res stage; both
@@ -85,6 +88,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "conv_tiled.cuh"
+#include "ptx.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -101,10 +107,6 @@ constexpr int kMaxSmem = 232448;    // an H100 block's shared memory, bytes
 
 __host__ __device__ __forceinline__ int pad16(int n) { return (n + 15) / 16 * 16; }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -118,20 +120,6 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 __device__ __forceinline__ float affine(float v, float s, float t) {
@@ -537,6 +525,254 @@ feat_pool_mma_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+// -- the tiled forms ---------------------------------------------------------------
+//
+// Where no cluster of at most 8 blocks holds a frame's band with all its
+// channels beside a weight tap, each conv runs on its own as an implicit
+// GEMM over tiles (conv_tiled_mma_kernel): a block takes th x tw conv
+// outputs (whole image rows, or part of one where W is wider than the 256
+// positions of its warps) x a group of up to kTiledGroup output channels, and
+// streams K = 9 ci in chunks of all nine taps x kTiledKc input channels.  A
+// chunk lands by cp.async in f32 (the operand tile with its halo from device
+// memory, the group's weights), is rounded into bf16 buffers (the operand as
+// bf16(relu(x * s + t)), zero off the frame and past ci: the prologue the
+// cluster kernels apply as they stage), and the next chunk's copies start
+// before the tensor cores take this one.  The arithmetic is the cluster
+// kernels' up to the order of the K chunks: each conv output is summed in
+// f32 and stored in f32, and the next conv rounds relu(v * s + t) to bf16 as
+// the cluster kernel's epilogue does.
+//
+// The res stage is four such launches (dfd_res_stage_tiled_mma, the passes
+// of conv_tiled.cuh's res_stage_passes), the feature pool one
+// (dfd_feat_pool_tiled_mma): a block's tile is ph x pw pooled outputs, whose
+// (2 ph + 1) x (2 pw + 1) dense outputs it computes, -inf off the frame, into
+// shared memory over its buffers, then takes their 3x3 maxima.
+
+constexpr int kTiledKc = 16;                 // input channels of a chunk: one k16 step a tap
+constexpr int kTiledRaw = kTiledKc + 4;      // f32 landing: floats a position
+constexpr int kTiledRawW = 9 * kTiledKc + 4; //   and a weight row
+constexpr int kTiledCs = kTiledKc + 8;       // bf16 operand: values a position (ldmatrix rows
+constexpr int kTiledCsw = 9 * kTiledKc + 8;  //   on distinct banks), and a weight row
+constexpr int kTiledCap = kWarps * kWarpN;   // positions a block's warps take at once
+
+__host__ __device__ __forceinline__ int tiled_rows(int co) {
+  return pad16(co) < kTiledGroup ? pad16(co) : kTiledGroup;
+}
+
+// Shared bytes of a tiled block: the f32 landing buffers and the bf16 ones,
+// or the dense map that overlays them in the feature pool, whichever is larger.
+size_t tiled_smem(int co, int th, int tw, bool pool) {
+  const size_t npt = (size_t)(th + 2) * (tw + 2), rows = tiled_rows(co);
+  const size_t conv =
+      npt * (4 * kTiledRaw + 2 * kTiledCs) + rows * (4 * kTiledRawW + 2 * kTiledCsw);
+  const size_t dense = pool ? 4 * rows * th * tw : 0;
+  return conv > dense ? conv : dense;
+}
+
+// The res stage's tile: as many whole rows as the warps' positions cover
+// (part of a row where W is wider), fewer rows, then narrower, while the
+// buffers do not fit; then spread evenly over the frame.
+void tiled_res_plan(int C, int H, int W, int* th, int* tw) {
+  int w = min(W, kTiledCap), h = max(1, min(H, kTiledCap / w));
+  while (tiled_smem(C, h, w, false) > (size_t)kMaxSmem) {
+    if (h > 1) --h;
+    else w = max(1, w / 2);
+  }
+  const int ntr = (H + h - 1) / h, ntc = (W + w - 1) / w;
+  *th = (H + ntr - 1) / ntr;
+  *tw = (W + ntc - 1) / ntc;
+}
+
+// The feature pool's tile of ph x pw pooled outputs: the widest run of
+// pooled columns whose dense columns, three dense rows of them, the warps
+// cover, then as many pooled rows as they take; fewer while the buffers do
+// not fit; then spread evenly.
+void tiled_feat_plan(int co, int H, int W, int* ph, int* pw) {
+  const int Ho = (H + 1) / 2, Wo = (W + 1) / 2;
+  int c = min(Wo, max(1, (kTiledCap / 3 - 1) / 2));
+  int r = min(Ho, max(1, (kTiledCap / (2 * c + 1) - 1) / 2));
+  while (tiled_smem(co, 2 * r + 1, 2 * c + 1, true) > (size_t)kMaxSmem) {
+    if (r > 1) --r;
+    else c = max(1, c / 2);
+  }
+  const int ntr = (Ho + r - 1) / r, ntc = (Wo + c - 1) / c;
+  *ph = (Ho + ntr - 1) / ntr;
+  *pw = (Wo + ntc - 1) / ntc;
+}
+
+// The landed chunk in bf16: the operand as bf16(x * s + t, then ReLU if
+// relu) on the frame, zero off it and past ci; the weights rounded.
+__device__ void round_tiled(const TiledArgs& a, const float* tile, const float* wb, bf16* op,
+                            bf16* sw, int m, int oy, int ox, int c0, int rows) {
+  const int tile_w = a.tw + 2, npt = (a.th + 2) * tile_w;
+  float sv[kTiledKc], tv[kTiledKc];
+#pragma unroll
+  for (int c = 0; c < kTiledKc; ++c) {
+    const int ch = min(c0 + c, a.ci - 1);
+    sv[c] = a.s[(size_t)m * a.st_ms + ch];
+    tv[c] = a.t[(size_t)m * a.st_ms + ch];
+  }
+  for (int p = threadIdx.x; p < npt; p += kThreads) {
+    const int r = p / tile_w, x = ox - 1 + (p - r * tile_w), y = oy - 1 + r;
+    const bool inside = y >= 0 && y < a.H && x >= 0 && x < a.W;
+    const float* d = tile + p * kTiledRaw;
+    float v[kTiledKc];
+#pragma unroll
+    for (int c = 0; c < kTiledKc; ++c) {
+      v[c] = 0.f;
+      if (inside && c0 + c < a.ci) {
+        v[c] = affine(d[c], sv[c], tv[c]);
+        if (a.relu) v[c] = fmaxf(v[c], 0.f);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kTiledKc; c += 2)
+      *reinterpret_cast<__nv_bfloat162*>(op + p * kTiledCs + c) =
+          __floats2bfloat162_rn(v[c], v[c + 1]);
+  }
+  for (int i = threadIdx.x; i < rows * 9 * kTiledKc / 2; i += kThreads) {
+    const int r = i / (9 * kTiledKc / 2), c = (i - r * (9 * kTiledKc / 2)) * 2;
+    *reinterpret_cast<__nv_bfloat162*>(sw + r * kTiledCsw + c) =
+        __floats2bfloat162_rn(wb[r * kTiledRawW + c], wb[r * kTiledRawW + c + 1]);
+  }
+}
+
+// blockIdx.x = (member * B + frame) * ntiles + tile, blockIdx.y = group of
+// kTiledGroup output channels.  One conv of a res stage (bias, then the
+// residual where res is set), or the feature pool's conv and pool (POOL).
+template <bool POOL>
+__global__ void __launch_bounds__(kThreads, 2)
+conv_tiled_mma_kernel(const __grid_constant__ TiledArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ti = int(blockIdx.x % (unsigned)a.ntiles);
+  const size_t mb = blockIdx.x / (unsigned)a.ntiles;
+  const int m = int(mb / a.B), tr = ti / a.ntc, tc = ti - tr * a.ntc;
+  const int oy = POOL ? 2 * tr * a.ph - 1 : tr * a.th;  // the tile's first conv output
+  const int ox = POOL ? 2 * tc * a.pw - 1 : tc * a.tw;
+  const int co0 = blockIdx.y * kTiledGroup, rows = tiled_rows(a.co);
+  const int tile_w = a.tw + 2, npos = a.th * a.tw;
+  const size_t npt = (size_t)(a.th + 2) * tile_w;
+  float* const tile = reinterpret_cast<float*>(smem);
+  float* const wb = tile + npt * kTiledRaw;
+  bf16* const op = reinterpret_cast<bf16*>(wb + (size_t)rows * kTiledRawW);
+  bf16* const sw = op + npt * kTiledCs;
+
+  const WarpGrid g = warp_grid(rows);  // one warp row: the 256 positions cover the tile
+  const int lane = threadIdx.x & 31, gr = lane >> 2, gc = lane & 3;
+  int boff[2];
+  b_offsets(boff, 0, g.wn, npos, a.tw, tile_w, kTiledCs);
+  float acc[4][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  const int nk = (a.ci + kTiledKc - 1) / kTiledKc;
+  issue_tiled<kTiledKc, kThreads>(a, tile, wb, mb, m, oy, ox, co0, 0, rows);
+  for (int k = 0; k < nk; ++k) {
+    cp_async_wait_all();
+    __syncthreads();  // chunk k has landed; every warp is done with chunk k - 1
+    round_tiled(a, tile, wb, op, sw, m, oy, ox, k * kTiledKc, rows);
+    __syncthreads();  // the bf16 buffers are written; the landing ones are free
+    if (k + 1 < nk)
+      issue_tiled<kTiledKc, kThreads>(a, tile, wb, mb, m, oy, ox, co0, (k + 1) * kTiledKc, rows);
+    if (g.mtiles > 0) {
+      const bf16* ap = sw + (lane & 15) * kTiledCsw + (lane >> 4) * 8;
+      for (int tap = 0; tap < 9; ++tap) {
+        const int shift = ((tap % 3) * tile_w + tap / 3) * kTiledCs;  // tap = kw * 3 + kh
+        uint32_t af[4][4], bfr[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+          if (mt < g.mtiles) ldsm_x4(af[mt], ap + mt * 16 * kTiledCsw + tap * kTiledKc);
+        ldsm_x4(bfr[0], op + boff[0] + shift);
+        ldsm_x4(bfr[1], op + boff[1] + shift);
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          if (mt < g.mtiles) {
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt)
+              mma_bf16(acc[mt][nt], af[mt], bfr[nt >> 1][(nt & 1) * 2],
+                       bfr[nt >> 1][(nt & 1) * 2 + 1]);
+          }
+        }
+      }
+    }
+  }
+  const float* bm = a.b + (size_t)m * a.b_ms + co0;
+  const int valid = min(kTiledGroup, a.co - co0);
+  // this thread's 8 positions (n8 tile q >> 1, column q & 1): the frame
+  // offset, -1 past the tile or off the frame
+  int goff[8];
+  bool inside[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const int p = g.wn * kWarpN + (q >> 1) * 8 + 2 * gc + (q & 1);
+    const int ly = p / a.tw, y = oy + ly, x = ox + p - ly * a.tw;
+    inside[q] = p < npos && y >= 0 && y < a.H && x >= 0 && x < a.W;
+    goff[q] = p < npos ? (inside[q] ? y * a.W + x : -2) : -1;
+  }
+  if (POOL) {
+    __syncthreads();  // the dense map overwrites the buffers
+    float* const sd = reinterpret_cast<float*>(smem);
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+      if (mt >= g.mtiles) continue;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int k = mt * 16 + gr + (e >> 1) * 8, q = nt * 2 + (e & 1);
+          if (k >= rows || goff[q] == -1) continue;
+          const int p = g.wn * kWarpN + (q >> 1) * 8 + 2 * gc + (q & 1);
+          sd[k * npos + p] = inside[q] ? __fadd_rn(acc[mt][nt][e], bm[min(k, valid - 1)])
+                                       : -CUDART_INF_F;
+        }
+    }
+    __syncthreads();
+    const int per = a.ph * a.pw;
+    for (int i = threadIdx.x; i < valid * per; i += kThreads) {
+      const int k = i / per, rem = i - k * per, ly = rem / a.pw, lx = rem - ly * a.pw;
+      const int py = tr * a.ph + ly, px = tc * a.pw + lx;
+      if (py >= a.Ho || px >= a.Wo) continue;
+      const float* d = sd + k * npos + 2 * ly * a.tw + 2 * lx;
+      float v = -CUDART_INF_F;
+      for (int dy = 0; dy < 3; ++dy)
+        for (int dx = 0; dx < 3; ++dx) v = fmaxf(v, d[dy * a.tw + dx]);
+      a.out[((mb * a.co + co0 + k) * a.Ho + py) * a.Wo + px] = v;
+    }
+    return;
+  }
+  // an m16 tile at a time, every residual load of it issued before the first
+  // is used (res may be out: each value is read, then written, by this
+  // thread alone)
+  const size_t plane = (size_t)a.H * a.W;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+    if (mt >= g.mtiles) continue;
+    float rv[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = mt * 16 + gr + (e >> 1) * 8, q = nt * 2 + (e & 1);
+        const bool in = a.res != nullptr && k < valid && inside[q];
+        rv[nt][e] = in ? a.res[(mb * a.co + co0 + k) * plane + goff[q]] : 0.f;
+      }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = mt * 16 + gr + (e >> 1) * 8, q = nt * 2 + (e & 1);
+        if (k >= valid || !inside[q]) continue;
+        float v = __fadd_rn(acc[mt][nt][e], bm[k]);
+        if (a.res != nullptr) v = __fadd_rn(rv[nt][e], v);
+        a.out[(mb * a.co + co0 + k) * plane + goff[q]] = v;
+      }
+  }
+}
+
 cudaError_t allow_smem(const void* kernel, bool* done) {
   if (*done) return cudaSuccess;
   cudaError_t err =
@@ -592,4 +828,65 @@ extern "C" int dfd_feat_pool_mma(const float* x, const float* w, const float* b,
   feat_pool_mma_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(x, w, b, s, t, out, B, ci,
                                                                       co, H, W, Ho, Wo, pb);
   return (int)cudaGetLastError();
+}
+
+namespace {
+
+template <bool POOL>
+cudaError_t launch_tiled(const TiledArgs& a, int M, cudaStream_t stream) {
+  static bool smem_set = false;
+  cudaError_t err = allow_smem((const void*)&conv_tiled_mma_kernel<POOL>, &smem_set);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)M * a.B * a.ntiles;
+  const long long groups = (a.co + kTiledGroup - 1) / kTiledGroup;
+  if (blocks > 0x7fffffffLL || groups > 65535) return cudaErrorInvalidValue;
+  conv_tiled_mma_kernel<POOL><<<dim3(unsigned(blocks), unsigned(groups)), kThreads,
+                                tiled_smem(a.co, a.th, a.tw, POOL), stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The res stage where no cluster holds a band: four tiled launches of
+// th x tw outputs a block, the plan of fused_resblock.res_stage_mma_plan's
+// tiled form, refused unless it is tiled_res_plan's.  scratch is a
+// [M, B, C, H, W] buffer of the caller's.
+extern "C" int dfd_res_stage_tiled_mma(const float* x, const float* w, const float* b,
+                                       const float* s, const float* t, float* scratch, float* out,
+                                       int M, int B, int C, int H, int W, int th, int tw,
+                                       void* stream) {
+  if (M <= 0 || B <= 0 || C <= 0 || H <= 0 || W <= 0) return (int)cudaSuccess;
+  int pth = 0, ptw = 0;
+  tiled_res_plan(C, H, W, &pth, &ptw);
+  if (pth != th || ptw != tw) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  return (int)res_stage_passes(tiled_args(B, C, C, H, W, th, tw, 0, 0), x, w, b, s, t, scratch,
+                               out, C, [&](const TiledArgs& a) {
+                                 return launch_tiled<false>(a, M, st);
+                               });
+}
+
+// The feature pool where no band of pooled rows fits a block: one tiled
+// launch of ph x pw pooled outputs a block, refused unless the plan is
+// tiled_feat_plan's.
+extern "C" int dfd_feat_pool_tiled_mma(const float* x, const float* w, const float* b,
+                                       const float* s, const float* t, float* out, int M, int B,
+                                       int ci, int co, int H, int W, int ph, int pw,
+                                       void* stream) {
+  if (M <= 0 || B <= 0 || ci <= 0 || co <= 0 || H <= 0 || W <= 0) return (int)cudaSuccess;
+  int pph = 0, ppw = 0;
+  tiled_feat_plan(co, H, W, &pph, &ppw);
+  if (pph != ph || ppw != pw) return (int)cudaErrorInvalidValue;
+  TiledArgs a = tiled_args(B, ci, co, H, W, 2 * ph + 1, 2 * pw + 1, ph, pw);
+  a.in = x;
+  a.w = w;
+  a.b = b;
+  a.s = s;
+  a.t = t;
+  a.out = out;
+  a.w_ms = (long long)co * 9 * ci;
+  a.b_ms = co;
+  a.st_ms = ci;
+  a.vec = ci % 4 == 0 && aligned16(w);
+  return (int)launch_tiled<true>(a, M, (cudaStream_t)stream);
 }

@@ -18,12 +18,13 @@
 // reorder_conv_weight: w[co][kw * 3 * ci + kh * ci + c] holds the OIHW weight
 // w[co, c, kh, kw].
 //
-// Products in f32 accuracy on TF32 tensor cores.  Each f32 operand a is split
-// as a = hi + lo, hi = tf32(a) and lo = tf32(a - hi) (cvt.rna.tf32.f32; a - hi
-// is exact in f32), and a * b is taken as lo_a * hi_b + hi_a * lo_b +
-// hi_a * hi_b: three mma.sync.m16n8k8 TF32 products into the same f32 sums,
-// lo * lo dropped.  That keeps about 22 of f32's 24 bits a product, at a
-// third of the TF32 rate (495 / 3 = 165 TFLOP/s against the CUDA cores' 67).
+// Products in f32 accuracy on TF32 tensor cores (ptx.cuh).  Each f32 operand
+// a is split as a = hi + lo, hi = tf32(a) and lo = tf32(a - hi)
+// (cvt.rna.tf32.f32; a - hi is exact in f32), and a * b is taken as
+// lo_a * hi_b + hi_a * lo_b + hi_a * hi_b: three mma.sync.m16n8k8 TF32
+// products into the same f32 sums, lo * lo dropped.  That keeps about 22 of
+// f32's 24 bits a product, at a third of the TF32 rate (495 / 3 = 165 TFLOP/s
+// against the CUDA cores' 67).
 // The arithmetic is explicit here; no library flag (allow_tf32) is involved.
 //
 // What bounds them on an H100: operations.  At impala_procmaze's rollout
@@ -66,12 +67,15 @@
 //    band, takes the 3x3 maximum and writes only the pooled outputs.  Two
 //    blocks share an SM.
 //
-// Any C, H and W up to 256 output channels: K is padded with zero channels,
-// output channels past C are masked, bands may be ragged (a block may own no
-// rows), positions past a chunk's end read a valid address and are dropped.
-// The launch plan (cluster, band and tap group of the res stage; pooled rows
-// a block and tap group of the feature pool) is computed by res_plan and
-// feat_plan here and by fused_resblock.py's *_tf32_plan; an entry point
+// The cluster kernels take any C, H and W up to 256 output channels whose
+// band fits a block: K is padded with zero channels, output channels past C
+// are masked, bands may be ragged (a block may own no rows), positions past a
+// chunk's end read a valid address and are dropped.  Every other shape goes
+// to the tiled forms at the end of this file (conv_tiled_tf32_kernel), which
+// take any C, H and W.  The launch plan (cluster, band and tap group of the
+// res stage; pooled rows a block and tap group of the feature pool; the
+// tiled forms' tile) is computed by res_plan, feat_plan, tiled_res_plan and
+// tiled_feat_plan here and by fused_resblock.py's *_tf32_plan; an entry point
 // refuses a plan that differs from its own (cudaErrorInvalidValue).
 //
 // Arithmetic follows the TPU kernel: the affine as two rounded operations
@@ -89,6 +93,9 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "conv_tiled.cuh"
+#include "ptx.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -108,43 +115,6 @@ __host__ __device__ __forceinline__ int warps_m(int co) { return a_rows(co) / (1
 // positions one chunk of the block's warps covers at most
 __host__ __device__ __forceinline__ int chunk_cap(int co) {
   return kWarps / warps_m(co) * 8 * (16 / m_tiles(co));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t to_tf32(float a) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(a));
-  return r;
-}
-
-// a = hi + lo in two TF32 values; a - hi is exact in f32.
-__device__ __forceinline__ void split(float a, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(a) & 0xffffe000u;  // the low 13 bits of a TF32 value are zero
-  lo = to_tf32(__fsub_rn(a, __uint_as_float(hi)));
-}
-
-__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 __device__ __forceinline__ float affine(float v, float s, float t) {
@@ -641,6 +611,243 @@ feat_pool_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+// -- the tiled forms ---------------------------------------------------------------
+//
+// Where no cluster of at most 8 blocks holds a frame's band with all its
+// channels, or a conv has more than kMaxRows output channels, each conv runs
+// on its own as an implicit GEMM over tiles (conv_tiled_tf32_kernel): a block
+// takes th x tw conv outputs (whole image rows, or part of one where W is
+// wider than a chunk of positions) x a group of up to kTiledGroup output channels,
+// and streams K = 9 ci through shared memory in chunks of all nine taps x
+// kTiledKc input channels, two chunks in flight (cp.async double buffers).
+// The operand tile's halo rows and columns come from device memory.  A
+// chunk's operand lands raw and is then transformed in place, x * s + t (and
+// ReLU in the res stage), zero off the frame and past ci: the prologue the
+// cluster kernels apply as they stage.  The products are group_products',
+// 3xTF32 with a fresh sum every k8 step, so the arithmetic is the cluster
+// kernels' up to the order of the K chunks.
+//
+// The res stage is four such launches (dfd_res_stage_tiled_tf32, the passes
+// of conv_tiled.cuh's res_stage_passes), the feature pool one
+// (dfd_feat_pool_tiled_tf32): a block's tile is ph x pw pooled outputs, whose
+// (2 ph + 1) x (2 pw + 1) dense conv outputs it computes, -inf off the frame,
+// into shared memory over its buffers, then takes their 3x3 maxima; no block
+// needs another's.
+
+constexpr int kTiledKc = 8;   // input channels of a chunk: one k8 step a tap
+constexpr int kTiledCs = kTiledKc + 4;       // operand floats a position (4 mod 8: no conflicts)
+constexpr int kTiledCsw = 9 * kTiledKc + 4;  // weight floats a row
+
+// Shared bytes of a tiled block: two operand and two weight buffers, or the
+// dense map that overlays them in the feature pool, whichever is larger.
+size_t tiled_smem(int co, int th, int tw, bool pool) {
+  const int rows = a_rows(min(co, kTiledGroup));
+  const size_t conv =
+      4 * (2 * (size_t)(th + 2) * (tw + 2) * kTiledCs + 2 * (size_t)rows * kTiledCsw);
+  const size_t dense = pool ? 4 * (size_t)rows * th * tw : 0;
+  return conv > dense ? conv : dense;
+}
+
+// The res stage's tile: as many whole rows as one chunk of positions covers
+// (part of a row where W is wider), fewer rows, then narrower, while the
+// buffers do not fit; then spread evenly over the frame.
+void tiled_res_plan(int C, int H, int W, int* th, int* tw) {
+  const int cap = chunk_cap(min(C, kTiledGroup));
+  int w = min(W, cap), h = max(1, min(H, cap / w));
+  while (tiled_smem(C, h, w, false) > (size_t)kMaxSmem) {
+    if (h > 1) --h;
+    else w = max(1, w / 2);
+  }
+  const int ntr = (H + h - 1) / h, ntc = (W + w - 1) / w;
+  *th = (H + ntr - 1) / ntr;
+  *tw = (W + ntc - 1) / ntc;
+}
+
+// The feature pool's tile of ph x pw pooled outputs: the widest run of
+// pooled columns whose dense columns, three dense rows of them, one chunk
+// covers, then as many pooled rows as the chunk takes; fewer while the
+// buffers do not fit; then spread evenly.
+void tiled_feat_plan(int co, int H, int W, int* ph, int* pw) {
+  const int cap = chunk_cap(min(co, kTiledGroup)), Ho = (H + 1) / 2, Wo = (W + 1) / 2;
+  int c = min(Wo, max(1, (cap / 3 - 1) / 2));
+  int r = min(Ho, max(1, (cap / (2 * c + 1) - 1) / 2));
+  while (tiled_smem(co, 2 * r + 1, 2 * c + 1, true) > (size_t)kMaxSmem) {
+    if (r > 1) --r;
+    else c = max(1, c / 2);
+  }
+  const int ntr = (Ho + r - 1) / r, ntc = (Wo + c - 1) / c;
+  *ph = (Ho + ntr - 1) / ntr;
+  *pw = (Wo + ntc - 1) / ntc;
+}
+
+// The landed operand chunk as the conv's operand, in place: x * s + t (then
+// ReLU if relu) on the frame, zero off it and past ci.
+__device__ void transform_tiled(const TiledArgs& a, float* tile, int m, int oy, int ox, int c0) {
+  const int tile_w = a.tw + 2, npt = (a.th + 2) * tile_w;
+  float sv[kTiledKc], tv[kTiledKc];
+#pragma unroll
+  for (int c = 0; c < kTiledKc; ++c) {
+    const int ch = min(c0 + c, a.ci - 1);
+    sv[c] = a.s[(size_t)m * a.st_ms + ch];
+    tv[c] = a.t[(size_t)m * a.st_ms + ch];
+  }
+  for (int p = threadIdx.x; p < npt; p += kThreads) {
+    const int r = p / tile_w, x = ox - 1 + (p - r * tile_w), y = oy - 1 + r;
+    const bool inside = y >= 0 && y < a.H && x >= 0 && x < a.W;
+    float* d = tile + p * kTiledCs;
+#pragma unroll
+    for (int c = 0; c < kTiledKc; ++c) {
+      float v = 0.f;
+      if (inside && c0 + c < a.ci) {
+        v = affine(d[c], sv[c], tv[c]);
+        if (a.relu) v = fmaxf(v, 0.f);
+      }
+      d[c] = v;
+    }
+  }
+}
+
+// blockIdx.x = (member * B + frame) * ntiles + tile, blockIdx.y = group of
+// kTiledGroup output channels.  One conv of a res stage (bias, then the residual
+// where res is set), or the feature pool's conv and pool (POOL).
+template <int MT, bool POOL>
+__global__ void __launch_bounds__(kThreads, 2)
+conv_tiled_tf32_kernel(const __grid_constant__ TiledArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kNt = 16 / MT, kE = 4 / MT;
+  const int ti = int(blockIdx.x % (unsigned)a.ntiles);
+  const size_t mb = blockIdx.x / (unsigned)a.ntiles;
+  const int m = int(mb / a.B), tr = ti / a.ntc, tc = ti - tr * a.ntc;
+  const int oy = POOL ? 2 * tr * a.ph - 1 : tr * a.th;  // the tile's first conv output
+  const int ox = POOL ? 2 * tc * a.pw - 1 : tc * a.tw;
+  const int co0 = blockIdx.y * kTiledGroup, cog = min(a.co, kTiledGroup), rows = a_rows(cog);
+  const int tile_w = a.tw + 2, npos = a.th * a.tw;
+  const size_t tile_elems = (size_t)(a.th + 2) * tile_w * kTiledCs;
+  float* const tile0 = reinterpret_cast<float*>(smem);
+  float* const tile1 = tile0 + tile_elems;
+  float* const wb0 = tile1 + tile_elems;
+  float* const wb1 = wb0 + (size_t)rows * kTiledCsw;
+
+  const Warp wp = warp_place<MT>(cog, npos);  // one chunk of positions covers the tile
+  const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
+  const int row0 = wp.wm * MT * 16 + g;
+  int boff[kNt];
+  b_offsets<MT>(boff, wp, 0, npos, a.tw, tile_w, kTiledCs);
+  float acc[MT][kNt][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int n = 0; n < kNt; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][n][e] = 0.f;
+
+  const int nk = (a.ci + kTiledKc - 1) / kTiledKc;
+  issue_tiled<kTiledKc, kThreads>(a, tile0, wb0, mb, m, oy, ox, co0, 0, rows);
+  for (int k = 0; k < nk; ++k) {
+    float* const tl = k & 1 ? tile1 : tile0;
+    cp_async_wait_all();
+    __syncthreads();  // chunk k has landed; every warp is done with chunk k - 1
+    transform_tiled(a, tl, m, oy, ox, k * kTiledKc);
+    __syncthreads();
+    if (k + 1 < nk)
+      issue_tiled<kTiledKc, kThreads>(a, k & 1 ? tile0 : tile1, k & 1 ? wb0 : wb1, mb, m, oy,
+                                      ox, co0, (k + 1) * kTiledKc, rows);
+    if (wp.active)
+      group_products<MT>(acc, tl, boff, wp.nt, (k & 1 ? wb1 : wb0) + row0 * kTiledCsw + tig,
+                         kTiledCsw, kTiledKc, 9, 0, tile_w, kTiledCs);
+  }
+  float bv[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      bv[mt][h] = a.b[(size_t)m * a.b_ms + min(co0 + row0 + mt * 16 + h * 8, a.co - 1)];
+
+  if (POOL) {
+    __syncthreads();  // the dense map overwrites the buffers
+    float* const sd = reinterpret_cast<float*>(smem);
+    if (wp.active) {
+#pragma unroll
+      for (int n = 0; n < kNt; ++n) {
+        if (n >= wp.nt) continue;
+#pragma unroll
+        for (int c2 = 0; c2 < 2; ++c2) {
+          const int p = (wp.wn * wp.nt + n) * 8 + 2 * tig + c2;
+          if (p >= npos) continue;
+          const int ly = p / a.tw, y = oy + ly, x = ox + p - ly * a.tw;
+          const bool inside = y >= 0 && y < a.H && x >= 0 && x < a.W;
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int k = row0 + mt * 16 + h * 8;
+              if (k < rows)
+                sd[k * npos + p] =
+                    inside ? __fadd_rn(acc[mt][n][h * 2 + c2], bv[mt][h]) : -CUDART_INF_F;
+            }
+        }
+      }
+    }
+    __syncthreads();
+    const int valid = min(kTiledGroup, a.co - co0), per = a.ph * a.pw;
+    for (int i = threadIdx.x; i < valid * per; i += kThreads) {
+      const int k = i / per, rem = i - k * per, ly = rem / a.pw, lx = rem - ly * a.pw;
+      const int py = tr * a.ph + ly, px = tc * a.pw + lx;
+      if (py >= a.Ho || px >= a.Wo) continue;
+      const float* d = sd + k * npos + 2 * ly * a.tw + 2 * lx;
+      float v = -CUDART_INF_F;
+      for (int dy = 0; dy < 3; ++dy)
+        for (int dx = 0; dx < 3; ++dx) v = fmaxf(v, d[dy * a.tw + dx]);
+      a.out[((mb * a.co + co0 + k) * a.Ho + py) * a.Wo + px] = v;
+    }
+    return;
+  }
+  if (!wp.active) return;
+  // the epilogue: kE n8 tiles at a time, every residual load issued before
+  // the first is used (res may be out: each value is read, then written, by
+  // this thread alone)
+  const size_t plane = (size_t)a.H * a.W;
+#pragma unroll
+  for (int n0 = 0; n0 < kNt; n0 += kE) {
+    if (n0 >= wp.nt) break;
+    int goff[kE][2];
+    float rv[kE][2][MT][2];
+#pragma unroll
+    for (int u = 0; u < kE; ++u)
+#pragma unroll
+      for (int c2 = 0; c2 < 2; ++c2) {
+        const int p = (wp.wn * wp.nt + n0 + u) * 8 + 2 * tig + c2;
+        const int ly = p / a.tw, y = oy + ly, x = ox + p - ly * a.tw;
+        goff[u][c2] = p < npos && y < a.H && x < a.W ? y * a.W + x : -1;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int co = co0 + row0 + mt * 16 + h * 8;
+            rv[u][c2][mt][h] = a.res != nullptr && goff[u][c2] >= 0 && co < a.co
+                                   ? a.res[(mb * a.co + co) * plane + goff[u][c2]]
+                                   : 0.f;
+          }
+      }
+#pragma unroll
+    for (int u = 0; u < kE; ++u)
+#pragma unroll
+      for (int c2 = 0; c2 < 2; ++c2) {
+        if (goff[u][c2] < 0) continue;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int co = co0 + row0 + mt * 16 + h * 8;
+            if (co >= a.co) continue;
+            float v = __fadd_rn(acc[mt][n0 + u][h * 2 + c2], bv[mt][h]);
+            if (a.res != nullptr) v = __fadd_rn(rv[u][c2][mt][h], v);
+            a.out[(mb * a.co + co) * plane + goff[u][c2]] = v;
+          }
+      }
+  }
+}
+
 cudaError_t allow_smem(const void* kernel, bool* done) {
   if (*done) return cudaSuccess;
   cudaError_t err =
@@ -706,4 +913,68 @@ extern "C" int dfd_feat_pool_tf32(const float* x, const float* w, const float* b
   kernel<<<grid, kThreads, feat_smem(ci, co, W, pb, wt), (cudaStream_t)stream>>>(
       x, w, b, s, t, out, B, ci, co, H, W, Ho, Wo, pb, wt);
   return (int)cudaGetLastError();
+}
+
+namespace {
+
+template <bool POOL>
+cudaError_t launch_tiled(const TiledArgs& a, int M, cudaStream_t stream) {
+  const bool one = m_tiles(min(a.co, kTiledGroup)) == 1;
+  void (*kernel)(const TiledArgs) =
+      one ? &conv_tiled_tf32_kernel<1, POOL> : &conv_tiled_tf32_kernel<2, POOL>;
+  static bool smem_set[2] = {false, false};
+  cudaError_t err = allow_smem((const void*)kernel, &smem_set[one ? 0 : 1]);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)M * a.B * a.ntiles;
+  const long long groups = (a.co + kTiledGroup - 1) / kTiledGroup;
+  if (blocks > 0x7fffffffLL || groups > 65535) return cudaErrorInvalidValue;
+  kernel<<<dim3(unsigned(blocks), unsigned(groups)), kThreads,
+           tiled_smem(a.co, a.th, a.tw, POOL), stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The res stage where no cluster holds a band (or C > 256): four tiled
+// launches of th x tw outputs a block, the plan of
+// fused_resblock.res_stage_tf32_plan's tiled form, refused unless it is
+// tiled_res_plan's.  scratch is a [M, B, C, H, W] buffer of the caller's.
+extern "C" int dfd_res_stage_tiled_tf32(const float* x, const float* w, const float* b,
+                                        const float* s, const float* t, float* scratch, float* out,
+                                        int M, int B, int C, int H, int W, int th, int tw,
+                                        void* stream) {
+  if (M <= 0 || B <= 0 || C <= 0 || H <= 0 || W <= 0) return (int)cudaSuccess;
+  int pth = 0, ptw = 0;
+  tiled_res_plan(C, H, W, &pth, &ptw);
+  if (pth != th || ptw != tw) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  return (int)res_stage_passes(tiled_args(B, C, C, H, W, th, tw, 0, 0), x, w, b, s, t, scratch,
+                               out, C, [&](const TiledArgs& a) {
+                                 return launch_tiled<false>(a, M, st);
+                               });
+}
+
+// The feature pool where no band of pooled rows fits a block (or co > 256):
+// one tiled launch of ph x pw pooled outputs a block, refused unless the
+// plan is tiled_feat_plan's.
+extern "C" int dfd_feat_pool_tiled_tf32(const float* x, const float* w, const float* b,
+                                        const float* s, const float* t, float* out, int M, int B,
+                                        int ci, int co, int H, int W, int ph, int pw,
+                                        void* stream) {
+  if (M <= 0 || B <= 0 || ci <= 0 || co <= 0 || H <= 0 || W <= 0) return (int)cudaSuccess;
+  int pph = 0, ppw = 0;
+  tiled_feat_plan(co, H, W, &pph, &ppw);
+  if (pph != ph || ppw != pw) return (int)cudaErrorInvalidValue;
+  TiledArgs a = tiled_args(B, ci, co, H, W, 2 * ph + 1, 2 * pw + 1, ph, pw);
+  a.in = x;
+  a.w = w;
+  a.b = b;
+  a.s = s;
+  a.t = t;
+  a.out = out;
+  a.w_ms = (long long)co * 9 * ci;
+  a.b_ms = co;
+  a.st_ms = ci;
+  a.vec = ci % 4 == 0 && aligned16(w);
+  return (int)launch_tiled<true>(a, M, (cudaStream_t)stream);
 }

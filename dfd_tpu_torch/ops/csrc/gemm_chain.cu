@@ -70,6 +70,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "ptx.cuh"
+
 namespace {
 
 namespace cg = cooperative_groups;
@@ -139,25 +141,6 @@ bool plan_gemm(int M, int K, int N, bool ordered, bool resident, Plan* best) {
     }
   }
   return found;
-}
-
-__device__ __forceinline__ uint32_t to_tf32(float a) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(a));
-  return r;
-}
-
-// a = hi + lo in two TF32 values; a - hi is exact in f32.
-__device__ __forceinline__ uint2 split(float a) {
-  const uint32_t hi = to_tf32(a) & 0xffffe000u;  // the low 13 bits of a TF32 value are zero
-  return make_uint2(hi, to_tf32(__fsub_rn(a, __uint_as_float(hi))));
-}
-
-__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // The panels in fragment order.  A [bm, ks] as hi and lo planes of [bm / 16][ks / 8][32][4]: the

@@ -25,8 +25,10 @@
 // 0.58 of that bound (H100 80GB HBM3, 700 W).  The design is the simple one:
 //
 // 1. A thread owns 4 consecutive lanes of one draw; a block of 256 threads
-//    1024 lanes; the grid is (lane blocks, draws).  The draw's key is one
-//    broadcast load a thread.
+//    1024 lanes; the grid is (lane blocks, min(draws, 65,535)), and a block
+//    takes the draws blockIdx.y, blockIdx.y + gridDim.y, ... in turn, so one
+//    launch takes any number of draws.  The draw's key is one broadcast load
+//    a thread.
 // 2. Row r begins s = (r * d) mod 4 floats past a 16-byte boundary, so a
 //    thread takes the lanes 4 * t - s .. 4 * t - s + 3 and stores them as
 //    one aligned float4 (eps and pert rows start at the same offsets); the
@@ -46,7 +48,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxDraws = 65535;
+constexpr int kMaxGridY = 65535;  // blockIdx.y's bound: more draws loop over it
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) { return (x << r) | (x >> (32 - r)); }
 
@@ -96,6 +98,7 @@ struct NormalArgs {
   float* pert;           // [rows (+1), d], or null
   long long d;
   int rows;
+  int draws;
   int antithetic;
   int odd0;              // antithetic: row 0 is the odd member of its pair
   float sigma;
@@ -131,8 +134,8 @@ __device__ __forceinline__ void store_rows(const NormalArgs& a, long long r, flo
   }
 }
 
-__global__ void __launch_bounds__(kThreads) normal_kernel(const __grid_constant__ NormalArgs a) {
-  const int draw = blockIdx.y;
+// One draw's lanes of this thread.
+__device__ __forceinline__ void draw_lanes(const NormalArgs& a, int draw) {
   // the draw's rows: one, or an antithetic pair (row -1 / rows: absent)
   long long r0 = draw, r1 = -1;
   float s0 = 1.0f;
@@ -145,7 +148,7 @@ __global__ void __launch_bounds__(kThreads) normal_kernel(const __grid_constant_
   const int shift = int((r0 * a.d) & 3);
   const long long j0 = 4LL * (blockIdx.x * (long long)kThreads + threadIdx.x) - shift;
   if (j0 >= a.d) return;
-  const uint32_t k1 = a.keys[2 * draw], k2 = a.keys[2 * draw + 1];
+  const uint32_t k1 = a.keys[2LL * draw], k2 = a.keys[2LL * draw + 1];
   float e[4], th[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -159,6 +162,10 @@ __global__ void __launch_bounds__(kThreads) normal_kernel(const __grid_constant_
   if (r1 >= 0) store_rows(a, r1, -1.0f, j0, inside && (a.d & 3) == 0, e, th);
 }
 
+__global__ void __launch_bounds__(kThreads) normal_kernel(const __grid_constant__ NormalArgs a) {
+  for (int draw = blockIdx.y; draw < a.draws; draw += gridDim.y) draw_lanes(a, draw);
+}
+
 }  // namespace
 
 // The rows' noise and perturbed rows; returns cudaGetLastError() after the
@@ -168,7 +175,7 @@ extern "C" int dfd_normal(const uint32_t* keys, const float* theta, float* eps, 
                           long long d, int rows, int draws, int antithetic, int odd0, float sigma,
                           cudaStream_t stream) {
   const int want = antithetic ? (rows + odd0 + 1) / 2 : rows;
-  if (d < 1 || rows < 1 || draws != want || draws > kMaxDraws || (odd0 && !antithetic) ||
+  if (d < 1 || rows < 1 || draws != want || (odd0 && !antithetic) ||
       (eps == nullptr && pert == nullptr) || (pert != nullptr && theta == nullptr) ||
       (reinterpret_cast<uintptr_t>(eps) | reinterpret_cast<uintptr_t>(pert)) % 16 != 0) {
     return cudaErrorInvalidValue;
@@ -176,7 +183,8 @@ extern "C" int dfd_normal(const uint32_t* keys, const float* theta, float* eps, 
   const long long groups = (d + 3) / 4 + 1;  // one more for a row's shift
   const long long blocks = (groups + kThreads - 1) / kThreads;
   if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
-  const NormalArgs args{keys, theta, eps, pert, d, rows, antithetic, odd0, sigma};
-  normal_kernel<<<dim3(unsigned(blocks), unsigned(draws)), kThreads, 0, stream>>>(args);
+  const NormalArgs args{keys, theta, eps, pert, d, rows, draws, antithetic, odd0, sigma};
+  const unsigned grid_y = unsigned(draws < kMaxGridY ? draws : kMaxGridY);
+  normal_kernel<<<dim3(unsigned(blocks), grid_y), kThreads, 0, stream>>>(args);
   return cudaGetLastError();
 }

@@ -99,6 +99,8 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "ptx.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -313,20 +315,6 @@ int run_rows(const float* x, float* out, const RowsPlan& p, int width, int vec_l
 __global__ void empty_kernel() {}
 
 // -- cp.async ------------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
 
 // Wait for every group of this thread's cp.async but the last committed.
 __device__ __forceinline__ void cp_async_wait_prior() {

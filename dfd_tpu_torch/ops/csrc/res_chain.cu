@@ -76,6 +76,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "ptx.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -156,43 +158,6 @@ bool res_chain_plan(int P, int C, int H, int W, bool minor, bool bf16, Plan* out
     }
   }
   return found;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t to_tf32(float a) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(a));
-  return r;
-}
-
-// a = hi + lo in two TF32 values; a - hi is exact in f32.
-__device__ __forceinline__ void split(float a, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(a) & 0xffffe000u;
-  lo = to_tf32(__fsub_rn(a, __uint_as_float(hi)));
-}
-
-__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // d = a * b + 0: the first of a k8 step's three products starts its fresh sum.

@@ -33,20 +33,31 @@ following ``compute_dtype``:
 
 A failed build or launch raises; nothing falls back to another route.
 
-Both keep the taps out of memory altogether.  Unlike the TPU kernels they
-take any C, H and W, up to the shared memory a block holds (the launch
-plans :func:`res_stage_tf32_plan`, :func:`feat_pool_tf32_plan`,
-:func:`res_stage_mma_plan`, :func:`feat_pool_mma_plan`);
+Both keep the taps out of memory altogether.  Each route has two forms,
+chosen by its launch plan (:func:`res_stage_tf32_plan`,
+:func:`feat_pool_tf32_plan`, :func:`res_stage_mma_plan`,
+:func:`feat_pool_mma_plan`) from the shapes alone:
+
+- the cluster form, where a cluster of at most 8 blocks holds a frame's band
+  of rows with every channel in shared memory (and, in f32, at most 256
+  output channels): the whole stage or feature block in one launch;
+- the tiled form everywhere else (a :class:`TiledPlan`): each conv an
+  implicit GEMM over tiles of outputs x 64 output channels with the input
+  channels streamed through shared memory, so any C, H and W runs.  The res
+  stage is then four launches, its convs' outputs in device memory (one
+  scratch buffer beside ``out``); the feature pool one.  Counted in
+  ``tiled_launches`` (f32) and ``tiled_mma_launches`` (bf16), one a call.
+
 :func:`fused_supported` (the TPU's lane rule ``H * W % 128 == 0``) is kept
 only as the IMPALA model's gate, so the port runs the same layers through
-the kernels as the JAX package.
+the kernels as the JAX package, at every shape it admits.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -192,12 +203,31 @@ def _on_cpu(x, *operands, compute_dtype) -> bool:
     return x.device.type == "cpu"
 
 
-# The kernels' launch plans.  The bf16 entry points recompute the shared
-# memory from the same parameters and refuse a plan that does not fit; the
-# f32 ones compute the plan themselves and refuse one that differs.
+# The kernels' launch plans.  The bf16 cluster entry points recompute the
+# shared memory from the same parameters and refuse a plan that does not fit;
+# the f32 ones and every tiled one compute the plan themselves and refuse one
+# that differs.
 SMEM_MAX = 232_448  # bytes of shared memory an H100 block can use
-FEAT_GROUP = 64     # output channels of one bf16 feature-pool block
-TF32_MAX_ROWS = 256  # output channels an f32 block takes: 8 warps of 32
+FEAT_GROUP = 64     # output channels of one bf16 feature-pool block, and of a tiled block
+TF32_MAX_ROWS = 256  # output channels an f32 cluster block takes: 8 warps of 32
+
+
+class TiledPlan(NamedTuple):
+    """The tiled form's launch plan.  A block computes ``rows x cols``
+    outputs (the res stage's conv outputs; the feature pool's pooled
+    outputs, from (2 rows + 1) x (2 cols + 1) dense ones) of ``group``
+    output channels, ``tiles`` tiles a frame, streaming the input channels
+    ``kc`` at a time through ``smem`` bytes of shared memory."""
+
+    rows: int
+    cols: int
+    tiles: int
+    group: int
+    kc: int
+    smem: int
+
+
+TILED_KC = {"tf32": 8, "mma": 16}  # input channels of a chunk: one k8 / k16 step a tap
 
 
 def _pad16(n: int) -> int:
@@ -214,15 +244,15 @@ def _tf32_tiles(co: int) -> Tuple[int, int]:
     return rows, 8 // (rows // (16 * mt)) * 8 * (16 // mt)
 
 
-@functools.lru_cache(maxsize=None)
-def res_stage_tf32_plan(C: int, H: int, W: int) -> Tuple[int, int, int, int]:
+def _res_stage_tf32_cluster(C: int, H: int, W: int):
     """(cluster, band, tap group, shared bytes) of ``res_stage_tf32_kernel``:
     the fewest blocks a frame (1, 2, 4 or 8) whose bands of ``band`` image
     rows, two halo-padded f32 buffers of every channel, fit beside two
-    buffers of weights in groups of 9, 3 or 1 taps (the largest that fits)."""
+    buffers of weights in groups of 9, 3 or 1 taps (the largest that fits);
+    None where no cluster fits or C is past ``TF32_MAX_ROWS``."""
     rows, _ = _tf32_tiles(C)
-    _expect(rows <= TF32_MAX_ROWS, f"the f32 res stage takes at most {TF32_MAX_ROWS} channels, "
-                                   f"got C={C}")
+    if rows > TF32_MAX_ROWS:
+        return None
     kp = -(-C // 8) * 8
     for cluster in (1, 2, 4, 8):
         band = -(-H // cluster)
@@ -230,20 +260,19 @@ def res_stage_tf32_plan(C: int, H: int, W: int) -> Tuple[int, int, int, int]:
             smem = 4 * (2 * (band + 2) * (W + 2) * (kp + 4) + 2 * rows * (wt * kp + 4))
             if smem <= SMEM_MAX:
                 return cluster, band, wt, smem
-    raise ValueError(f"the f32 res stage's band of C={C} x W={W} does not fit in "
-                     f"{SMEM_MAX} bytes of shared memory")
+    return None
 
 
-@functools.lru_cache(maxsize=None)
-def feat_pool_tf32_plan(ci: int, co: int, H: int, W: int) -> Tuple[int, int, int, int]:
+def _feat_pool_tf32_cluster(ci: int, co: int, H: int, W: int):
     """(pooled rows a block, bands, tap group, shared bytes) of
     ``feat_pool_tf32_kernel``: the most pooled rows, spread evenly over the
     bands, whose dense rows one chunk of the block's warps covers (the dense
     map then overlays the conv's buffers), and the largest tap group that
-    fits; fewer rows while nothing fits."""
+    fits; fewer rows while nothing fits; None where nothing fits or co is
+    past ``TF32_MAX_ROWS``."""
     rows, cap = _tf32_tiles(co)
-    _expect(rows <= TF32_MAX_ROWS, f"the f32 feature pool takes at most {TF32_MAX_ROWS} output "
-                                   f"channels, got co={co}")
+    if rows > TF32_MAX_ROWS:
+        return None
     kp, Ho = -(-ci // 8) * 8, (H + 1) // 2
     pb = min(Ho, max(1, (cap // W - 1) // 2))
     while True:
@@ -256,32 +285,30 @@ def feat_pool_tf32_plan(ci: int, co: int, H: int, W: int) -> Tuple[int, int, int
             smem = max(conv, dense) if dr * W <= cap else conv + dense
             if smem <= SMEM_MAX:
                 return pb, bands, wt, smem
-        _expect(pb > 1, f"the f32 feature pool's rows of ci={ci} x W={W} do not fit in "
-                        f"{SMEM_MAX} bytes of shared memory")
+        if pb == 1:
+            return None
         pb -= 1
 
 
-@functools.lru_cache(maxsize=None)
-def res_stage_mma_plan(C: int, H: int, W: int) -> Tuple[int, int, int]:
+def _res_stage_mma_cluster(C: int, H: int, W: int):
     """(cluster, band, shared bytes) of ``res_stage_mma_kernel``: the fewest
     blocks a frame (2, 4 or 8) whose bands of ``band`` image rows, two
-    halo-padded bf16 buffers of every channel, fit beside a weight tap."""
+    halo-padded bf16 buffers of every channel, fit beside a weight tap; None
+    where none fits."""
     kp = _pad16(C)
     for cluster in (2, 4, 8):
         band = -(-H // cluster)
         smem = 4 * (band + 2) * (W + 2) * (kp + 8) + 2 * kp * (kp + 8) + 4 * kp * C
         if smem <= SMEM_MAX:
             return cluster, band, smem
-    raise ValueError(f"the bf16 res stage's band of C={C} x W={W} does not fit in "
-                     f"{SMEM_MAX} bytes of shared memory")
+    return None
 
 
-@functools.lru_cache(maxsize=None)
-def feat_pool_mma_plan(ci: int, co: int, H: int, W: int) -> Tuple[int, int, int]:
+def _feat_pool_mma_cluster(ci: int, co: int, H: int, W: int):
     """(pooled rows a block, bands, shared bytes) of ``feat_pool_mma_kernel``:
     at most 256 dense positions a block (one chunk of its 8 warps, so the
     dense map overlays the conv's buffers), the pooled rows spread evenly
-    over the bands."""
+    over the bands; None where even one pooled row does not fit."""
     kp, mp, Ho = _pad16(ci), min(FEAT_GROUP, _pad16(co)), (H + 1) // 2
     pb = min(Ho, max(1, (256 // W - 1) // 2))
     while True:
@@ -293,9 +320,126 @@ def feat_pool_mma_plan(ci: int, co: int, H: int, W: int) -> Tuple[int, int, int]
         smem = max(conv, dense) if dr * W <= 256 else conv + dense
         if smem <= SMEM_MAX:
             return pb, bands, smem
-        _expect(pb > 1, f"the bf16 feature pool's rows of ci={ci} x W={W} do not fit in "
-                        f"{SMEM_MAX} bytes of shared memory")
+        if pb == 1:
+            return None
         pb -= 1
+
+
+# -- the tiled forms' plans ------------------------------------------------------------
+
+
+def _tiled_geometry(route: str, co: int) -> Tuple[int, int]:
+    """(weight rows a block's warps read, positions they take at once) of a
+    tiled block of ``route`` ("tf32" or "mma") over ``co`` output channels."""
+    if route == "tf32":
+        return _tf32_tiles(min(co, FEAT_GROUP))
+    return min(FEAT_GROUP, _pad16(co)), 256
+
+
+def _tiled_smem(route: str, co: int, th: int, tw: int, pool: bool) -> int:
+    """Shared bytes of a tiled block of th x tw conv outputs: the operand
+    tile with its halo and a chunk of weights (two of each in f32; in bf16
+    one f32 landing buffer of each and their bf16 copies), or the feature
+    pool's dense map over them, whichever is larger."""
+    rows, _ = _tiled_geometry(route, co)
+    npt, kc = (th + 2) * (tw + 2), TILED_KC[route]
+    if route == "tf32":
+        conv = 4 * (2 * npt * (kc + 4) + 2 * rows * (9 * kc + 4))
+    else:
+        conv = npt * (4 * (kc + 4) + 2 * (kc + 8)) + rows * (4 * (9 * kc + 4) + 2 * (9 * kc + 8))
+    return max(conv, 4 * rows * th * tw if pool else 0)
+
+
+def _spread(n: int, per: int) -> Tuple[int, int]:
+    """(per tile, tiles): n items in tiles of at most ``per``, spread evenly."""
+    tiles = -(-n // per)
+    return -(-n // tiles), tiles
+
+
+@functools.lru_cache(maxsize=None)
+def res_stage_tiled_plan(C: int, H: int, W: int, route: str) -> TiledPlan:
+    """The tiled res stage's tile: as many whole image rows as the block's
+    warps cover at once (part of a row where W is wider), fewer rows, then
+    narrower, while the buffers do not fit; then spread evenly over the
+    frame.  The C entry computes the same (``tiled_res_plan``)."""
+    rows, cap = _tiled_geometry(route, C)
+    w = min(W, cap)
+    h = max(1, min(H, cap // w))
+    while _tiled_smem(route, C, h, w, False) > SMEM_MAX:
+        if h > 1:
+            h -= 1
+        else:
+            w = max(1, w // 2)
+    th, ntr = _spread(H, h)
+    tw, ntc = _spread(W, w)
+    return TiledPlan(th, tw, ntr * ntc, rows, TILED_KC[route], _tiled_smem(route, C, th, tw, False))
+
+
+@functools.lru_cache(maxsize=None)
+def feat_pool_tiled_plan(ci: int, co: int, H: int, W: int, route: str) -> TiledPlan:
+    """The tiled feature pool's tile of pooled outputs: the widest run of
+    pooled columns whose dense columns, three dense rows of them, the warps
+    cover at once, then as many pooled rows as they take; fewer while the
+    buffers do not fit; then spread evenly.  The C entry computes the same
+    (``tiled_feat_plan``)."""
+    rows, cap = _tiled_geometry(route, co)
+    Ho, Wo = (H + 1) // 2, (W + 1) // 2
+    c = min(Wo, max(1, (cap // 3 - 1) // 2))
+    r = min(Ho, max(1, (cap // (2 * c + 1) - 1) // 2))
+    while _tiled_smem(route, co, 2 * r + 1, 2 * c + 1, True) > SMEM_MAX:
+        if r > 1:
+            r -= 1
+        else:
+            c = max(1, c // 2)
+    ph, ntr = _spread(Ho, r)
+    pw, ntc = _spread(Wo, c)
+    return TiledPlan(ph, pw, ntr * ntc, rows, TILED_KC[route],
+                     _tiled_smem(route, co, 2 * ph + 1, 2 * pw + 1, True))
+
+
+# -- each route's plan: the cluster form where it fits, else the tiled form -------------
+
+
+@functools.lru_cache(maxsize=None)
+def res_stage_tf32_plan(C: int, H: int, W: int) -> Union[Tuple[int, int, int, int], TiledPlan]:
+    """The f32 res stage's plan: ``(cluster, band, tap group, shared bytes)``
+    of ``res_stage_tf32_kernel`` where a cluster fits, else the tiled form's
+    :class:`TiledPlan`."""
+    return _res_stage_tf32_cluster(C, H, W) or res_stage_tiled_plan(C, H, W, "tf32")
+
+
+@functools.lru_cache(maxsize=None)
+def feat_pool_tf32_plan(ci: int, co: int, H: int,
+                        W: int) -> Union[Tuple[int, int, int, int], TiledPlan]:
+    """The f32 feature pool's plan: ``(pooled rows a block, bands, tap group,
+    shared bytes)`` of ``feat_pool_tf32_kernel`` where a band fits, else the
+    tiled form's :class:`TiledPlan`."""
+    return _feat_pool_tf32_cluster(ci, co, H, W) or feat_pool_tiled_plan(ci, co, H, W, "tf32")
+
+
+@functools.lru_cache(maxsize=None)
+def res_stage_mma_plan(C: int, H: int, W: int) -> Union[Tuple[int, int, int], TiledPlan]:
+    """The bf16 res stage's plan: ``(cluster, band, shared bytes)`` of
+    ``res_stage_mma_kernel`` where a cluster fits, else the tiled form's
+    :class:`TiledPlan`."""
+    return _res_stage_mma_cluster(C, H, W) or res_stage_tiled_plan(C, H, W, "mma")
+
+
+@functools.lru_cache(maxsize=None)
+def feat_pool_mma_plan(ci: int, co: int, H: int, W: int) -> Union[Tuple[int, int, int], TiledPlan]:
+    """The bf16 feature pool's plan: ``(pooled rows a block, bands, shared
+    bytes)`` of ``feat_pool_mma_kernel`` where a band fits, else the tiled
+    form's :class:`TiledPlan`."""
+    return _feat_pool_mma_cluster(ci, co, H, W) or feat_pool_tiled_plan(ci, co, H, W, "mma")
+
+
+def _bind_tiled(lib: ctypes.CDLL, route: str) -> None:
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    res = getattr(lib, f"dfd_res_stage_tiled_{route}")
+    feat = getattr(lib, f"dfd_feat_pool_tiled_{route}")
+    res.argtypes = [vp] * 7 + [i32] * 7 + [vp]
+    feat.argtypes = [vp] * 6 + [i32] * 8 + [vp]
+    res.restype = feat.restype = i32
 
 
 @functools.lru_cache(maxsize=None)
@@ -306,6 +450,7 @@ def _tf32_kernels() -> ctypes.CDLL:
     lib.dfd_res_stage_tf32.restype = i32
     lib.dfd_feat_pool_tf32.argtypes = [vp] * 6 + [i32] * 8 + [vp]
     lib.dfd_feat_pool_tf32.restype = i32
+    _bind_tiled(lib, "tf32")
     return lib
 
 
@@ -317,6 +462,7 @@ def _mma_kernels() -> ctypes.CDLL:
     lib.dfd_res_stage_mma.restype = i32
     lib.dfd_feat_pool_mma.argtypes = [vp] * 6 + [i32] * 7 + [vp]
     lib.dfd_feat_pool_mma.restype = i32
+    _bind_tiled(lib, "mma")
     return lib
 
 
@@ -334,25 +480,38 @@ def fused_res_stage(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, s: torch.
     if on_cpu:
         return fused_res_stage_plain(x, w, b, s, t, compute_dtype)
     out = torch.empty_like(x)
+    f32 = compute_dtype is None
+    lib = _tf32_kernels() if f32 else _mma_kernels()
+    what = "fused_res_stage" + ("" if f32 else " (bf16)")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        ptrs = (x.data_ptr(), w.data_ptr(), b.data_ptr(), s.data_ptr(), t.data_ptr(),
-                out.data_ptr())
-        if compute_dtype is None:
+        ptrs = (x.data_ptr(), w.data_ptr(), b.data_ptr(), s.data_ptr(), t.data_ptr())
+        if isinstance(plan, TiledPlan):
+            scratch = torch.empty_like(x)  # the odd convs' outputs
+            entry = lib.dfd_res_stage_tiled_tf32 if f32 else lib.dfd_res_stage_tiled_mma
+            build.raise_on(entry(*ptrs, scratch.data_ptr(), out.data_ptr(), M, B, C, H, W,
+                                 plan.rows, plan.cols, stream), what + " (tiled)")
+            if f32:
+                fused_res_stage.tiled_launches += 1
+            else:
+                fused_res_stage.tiled_mma_launches += 1
+        elif f32:
             cluster, band, wt, _ = plan
-            build.raise_on(_tf32_kernels().dfd_res_stage_tf32(*ptrs, M, B, C, H, W, cluster, band,
-                                                              wt, stream), "fused_res_stage")
+            build.raise_on(lib.dfd_res_stage_tf32(*ptrs, out.data_ptr(), M, B, C, H, W, cluster,
+                                                  band, wt, stream), what)
             fused_res_stage.launches += 1
         else:
             cluster, band, _ = plan
-            build.raise_on(_mma_kernels().dfd_res_stage_mma(*ptrs, M, B, C, H, W, cluster, band,
-                                                            stream), "fused_res_stage (bf16)")
+            build.raise_on(lib.dfd_res_stage_mma(*ptrs, out.data_ptr(), M, B, C, H, W, cluster,
+                                                 band, stream), what)
             fused_res_stage.mma_launches += 1
     return out
 
 
 fused_res_stage.launches = 0
 fused_res_stage.mma_launches = 0
+fused_res_stage.tiled_launches = 0
+fused_res_stage.tiled_mma_launches = 0
 
 
 def fused_feat_pool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, s: torch.Tensor,
@@ -372,22 +531,33 @@ def fused_feat_pool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, s: torch.
         return fused_feat_pool_plain(x, w, b, s, t, compute_dtype)
     out = torch.empty((M, B, co, (H + 1) // 2, (W + 1) // 2), dtype=torch.float32,
                       device=x.device)
+    f32 = compute_dtype is None
+    lib = _tf32_kernels() if f32 else _mma_kernels()
+    what = "fused_feat_pool" + ("" if f32 else " (bf16)")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         ptrs = (x.data_ptr(), w.data_ptr(), b.data_ptr(), s.data_ptr(), t.data_ptr(),
                 out.data_ptr())
-        if compute_dtype is None:
+        if isinstance(plan, TiledPlan):
+            entry = lib.dfd_feat_pool_tiled_tf32 if f32 else lib.dfd_feat_pool_tiled_mma
+            build.raise_on(entry(*ptrs, M, B, ci, co, H, W, plan.rows, plan.cols, stream),
+                           what + " (tiled)")
+            if f32:
+                fused_feat_pool.tiled_launches += 1
+            else:
+                fused_feat_pool.tiled_mma_launches += 1
+        elif f32:
             pb, _, wt, _ = plan
-            build.raise_on(_tf32_kernels().dfd_feat_pool_tf32(*ptrs, M, B, ci, co, H, W, pb, wt,
-                                                              stream), "fused_feat_pool")
+            build.raise_on(lib.dfd_feat_pool_tf32(*ptrs, M, B, ci, co, H, W, pb, wt, stream), what)
             fused_feat_pool.launches += 1
         else:
             pb, _, _ = plan
-            build.raise_on(_mma_kernels().dfd_feat_pool_mma(*ptrs, M, B, ci, co, H, W, pb,
-                                                            stream), "fused_feat_pool (bf16)")
+            build.raise_on(lib.dfd_feat_pool_mma(*ptrs, M, B, ci, co, H, W, pb, stream), what)
             fused_feat_pool.mma_launches += 1
     return out
 
 
 fused_feat_pool.launches = 0
 fused_feat_pool.mma_launches = 0
+fused_feat_pool.tiled_launches = 0
+fused_feat_pool.tiled_mma_launches = 0

@@ -159,9 +159,6 @@ def _kernels() -> ctypes.CDLL:
     return lib
 
 
-MAX_DRAWS = 65535  # the kernel's grid takes a draw a blockIdx.y
-
-
 def _check(keys, rows, d, antithetic, odd_first, theta, eps) -> bool:
     """Checks what the kernel needs on any device, so that the CPU refuses
     what the card does; then whether the operands lie on the CPU."""
@@ -169,9 +166,8 @@ def _check(keys, rows, d, antithetic, odd_first, theta, eps) -> bool:
     if keys.dtype != torch.int32 or tuple(keys.shape) != (draws, 2) or not keys.is_contiguous():
         raise ValueError(f"keys must be a contiguous int32 [{draws}, 2] tensor for {rows} rows, "
                          f"got {keys.dtype} {tuple(keys.shape)}")
-    if rows < 0 or d < 0 or draws > MAX_DRAWS:
-        raise ValueError(f"rows and d must be >= 0 and draws <= {MAX_DRAWS}, got rows={rows}, "
-                         f"d={d}, draws={draws}")
+    if rows < 0 or d < 0:
+        raise ValueError(f"rows and d must be >= 0, got rows={rows}, d={d}")
     if odd_first and not antithetic:
         raise ValueError("odd_first pairs rows: it needs antithetic")
     if theta is None and not eps:

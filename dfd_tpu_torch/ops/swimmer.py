@@ -8,15 +8,24 @@ centre-of-mass reward, the control cost and the step counter).  The JAX
 package counts on XLA to fuse the ~330 elementwise ops of a substep; written
 as eager PyTorch, a step of the default 7-link swimmer is ~1,300 launches.
 The kernel (``csrc/swimmer.cu``) runs every episode's step in one launch,
-a warp an episode and four episodes a block (513 episodes are 129 blocks,
-one on each of 129 SMs), a template on the link count (3, 5 and 7 links;
-any other count is refused on every device: each form is compiled for its
-size).  The warp's lanes split each substep's work (a link's angles and
-Jacobian a lane, the entries of M and of the system over the lanes, the
-Cholesky factor's rows a lane, column by column) and exchange through the
-episode's scratch in shared memory between phases; every lane keeps the
-state and the forward substitution in registers and runs the back
-substitution itself.
+a warp an episode.  It has two kinds of form, chosen by the link count:
+
+- a template form for each count from 1 to ``FORM_LINKS``
+  (``swimmer_step_kernel<NL>``, counted in ``swimmer_step.launches``): four
+  episodes a block (513 episodes are 129 blocks, one on each of 129 SMs).
+  The warp's lanes split each substep's work (a link's angles and Jacobian
+  a lane, the entries of M and of the system over the lanes, the Cholesky
+  factor's rows a lane, column by column) and exchange through the
+  episode's scratch in shared memory between phases; every lane keeps the
+  state and the forward substitution in registers and runs the back
+  substitution itself;
+- past that, up to ``MAX_LINKS``, one form with the link count at run time
+  (``swimmer_step_dyn_kernel``, counted in ``swimmer_step.dyn_launches``):
+  the same arithmetic in the same order, with what the template forms keep
+  in registers in the episode's shared scratch, sized at launch, and as many
+  episodes a block as the scratch allows.
+
+More than ``MAX_LINKS`` links are refused on every device.
 
 :func:`swimmer_step` runs the kernel on CUDA tensors and
 :func:`swimmer_step_plain` on CPU ones, after the same checks on both;
@@ -44,8 +53,8 @@ import torch
 from dfd_tpu_torch.ops import build
 from dfd_tpu_torch.ops.smallsolve import spd_solve_unrolled
 
-LINKS = (3, 5, 7)  # the kernel's template forms
-MAX_DOF = 9
+FORM_LINKS = 11  # link counts 1 .. FORM_LINKS have a template form each (csrc kFormLinks)
+MAX_LINKS = 64   # the run-time form's bound (csrc kMaxLinks)
 
 
 class _Args(ctypes.Structure):
@@ -56,7 +65,7 @@ class _Args(ctypes.Structure):
         ("n", ctypes.c_longlong), ("max_steps", ctypes.c_longlong), ("frame_skip", ctypes.c_int)] + [
         (name, ctypes.c_float) for name in (
             "L", "m", "dt", "torque_scale", "stiffness", "c_t", "c_n", "ctrl_cost", "step_time")] + [
-        ("m0", ctypes.c_float * (MAX_DOF * MAX_DOF)), ("d0", ctypes.c_float * (MAX_DOF * MAX_DOF))]
+        ("m0", ctypes.c_void_p), ("d0", ctypes.c_void_p)]
 
 
 class SwimmerConstants(NamedTuple):
@@ -82,8 +91,8 @@ class SwimmerConstants(NamedTuple):
     Aphi: torch.Tensor  # [n, 1 + J] d phi_k / d (theta0, alpha_1..alpha_J)
     M0: torch.Tensor    # [ndof, ndof] the constant blocks of M and D
     D0: torch.Tensor
-    args: _Args         # the kernel's argument struct with every constant set (the scalars,
-                        # M0 and D0) and no tensor: kernel_args copies it for each step
+    args: _Args         # the kernel's argument struct with every scalar set and no pointer:
+                        # kernel_args copies it for each step and points it at the tensors
 
     @property
     def ndof(self) -> int:
@@ -111,13 +120,10 @@ class SwimmerConstants(NamedTuple):
         D0[2:, 2:] = float(drag_rot) * AtA
         D0 += np.diag(np.concatenate([np.zeros(3), np.full(J, float(joint_damping))]))
         t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
-        mat = lambda a: (ctypes.c_float * (MAX_DOF * MAX_DOF))(*np.pad(
-            a.astype(np.float32).reshape(-1), (0, MAX_DOF * MAX_DOF - ndof * ndof)).tolist())
         args = _Args(max_steps=int(max_steps), frame_skip=int(frame_skip), L=L, m=m, dt=float(dt),
                      torque_scale=float(torque_scale), stiffness=float(joint_stiffness),
                      c_t=float(drag_tangent), c_n=float(drag_normal), ctrl_cost=float(ctrl_cost),
-                     step_time=float(np.float32(float(dt) * int(frame_skip))), m0=mat(M0),
-                     d0=mat(D0))
+                     step_time=float(np.float32(float(dt) * int(frame_skip))))
         return cls(n, L, m, inertia, float(dt), int(frame_skip), float(torque_scale),
                    float(joint_damping), float(joint_stiffness), float(drag_tangent),
                    float(drag_normal), float(drag_rot), float(ctrl_cost), int(max_steps),
@@ -197,10 +203,12 @@ def swimmer_step_plain(c: SwimmerConstants, q: torch.Tensor, qdot: torch.Tensor,
 def kernel_args(c: SwimmerConstants, inputs, outputs) -> _Args:
     """The kernel's argument struct for ``inputs`` (q, qdot, t, action) and
     ``outputs`` (q, qdot, t, obs, reward, done), any device's tensors: a copy
-    of ``c.args`` with the pointers and the episode count set."""
+    of ``c.args`` with the pointers (the env's own M0 and D0 among them) and
+    the episode count set."""
     args = _Args.from_buffer_copy(c.args)
     for (name, _), x in zip(_Args._fields_, (*inputs, *outputs)):
         setattr(args, name, x.data_ptr())
+    args.m0, args.d0 = c.M0.data_ptr(), c.D0.data_ptr()
     args.n = inputs[0].shape[0]
     return args
 
@@ -210,13 +218,18 @@ def _kernels() -> ctypes.CDLL:
     lib = build.load("swimmer")
     lib.dfd_swimmer_step.argtypes = [ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_void_p]
     lib.dfd_swimmer_step.restype = ctypes.c_int
+    lib.dfd_swimmer_launch_shape.argtypes = [
+        ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    lib.dfd_swimmer_form_links.restype = lib.dfd_swimmer_max_links.restype = ctypes.c_int
     return lib
 
 
 def check_links(n_links: int) -> None:
-    if n_links not in LINKS:
-        raise ValueError(f"n_links must be one of {LINKS} (the swimmer kernel's template forms, "
-                         f"each compiled for its size), got {n_links}")
+    if not 1 <= n_links <= MAX_LINKS:
+        raise ValueError(f"n_links must be 1 to {MAX_LINKS} (the swimmer kernel's run-time form "
+                         f"holds an episode of at most {MAX_LINKS} links in shared memory), got "
+                         f"{n_links}")
 
 
 def _check(c: SwimmerConstants, q, qdot, t, action) -> bool:
@@ -246,7 +259,8 @@ def swimmer_step(c: SwimmerConstants, q: torch.Tensor, qdot: torch.Tensor, t: to
     """(q, qdot, t, obs [N, 2 ndof - 2], reward [N], done [N] bool) after one
     step of each of N episodes: q, qdot [N, ndof] float32, t [N] int64,
     action [N, n_links - 1] float32, all contiguous.  One launch a call on
-    the card (none for N = 0)."""
+    the card (none for N = 0): the template form up to ``FORM_LINKS``
+    links, the run-time form past them."""
     if _check(c, q, qdot, t, action):
         return swimmer_step_plain(c, q, qdot, t, action)
     N, nd = q.shape[0], c.ndof
@@ -260,8 +274,12 @@ def swimmer_step(c: SwimmerConstants, q: torch.Tensor, qdot: torch.Tensor, t: to
         stream = torch.cuda.current_stream().cuda_stream
         build.raise_on(_kernels().dfd_swimmer_step(ctypes.byref(args), c.n_links, stream),
                        "swimmer_step")
-    swimmer_step.launches += 1
+    if c.n_links <= FORM_LINKS:
+        swimmer_step.launches += 1
+    else:
+        swimmer_step.dyn_launches += 1
     return outs
 
 
 swimmer_step.launches = 0
+swimmer_step.dyn_launches = 0

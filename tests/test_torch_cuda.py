@@ -262,9 +262,14 @@ def test_fused_routes_follow_compute_dtype(cuda, monkeypatch):
     fr.fused_feat_pool(*feat)
     assert counts() == (before[0] + 1, before[1] + 1, before[2] + 1, before[3] + 1)
     assert calls[2:] == ["tf32.dfd_res_stage_tf32", "tf32.dfd_feat_pool_tf32"]
-    for cd in (torch.bfloat16, None):
-        with pytest.raises(ValueError, match="shared memory"):
-            fr.fused_res_stage(*_fused_args("res", 1, 1, 16, 16, 8, 2000, cuda), compute_dtype=cd)
+    # a band no cluster holds goes to the route's tiled form, counted apart
+    tiled = lambda: (fr.fused_res_stage.tiled_launches, fr.fused_res_stage.tiled_mma_launches)
+    tiled0 = tiled()
+    for cd, entry in ((torch.bfloat16, "mma.dfd_res_stage_tiled_mma"),
+                      (None, "tf32.dfd_res_stage_tiled_tf32")):
+        fr.fused_res_stage(*_fused_args("res", 1, 1, 16, 16, 8, 2000, cuda), compute_dtype=cd)
+        assert calls[-1] == entry
+    assert tiled() == (tiled0[0] + 1, tiled0[1] + 1)
     assert counts() == (before[0] + 1, before[1] + 1, before[2] + 1, before[3] + 1)
     # the f32 entry points refuse a plan other than their own
     cluster, band, wt, _ = fr.res_stage_tf32_plan(8, 16, 16)
@@ -277,6 +282,17 @@ def test_fused_routes_follow_compute_dtype(cuda, monkeypatch):
     x, w, b, s, t = feat
     ptrs = [v.data_ptr() for v in (x, w, b, s, t, out)]
     assert tf32().dfd_feat_pool_tf32(*ptrs, 2, 1, 8, 16, 16, 16, pb + 1, wt, stream) != 0
+    # and so do the tiled entry points, in both routes
+    plan = fr.res_stage_tiled_plan(8, 16, 16, "tf32")
+    x, w, b, s, t = res
+    ptrs = [v.data_ptr() for v in (x, w, b, s, t, torch.empty_like(x), out)]
+    assert tf32().dfd_res_stage_tiled_tf32(*ptrs, 2, 1, 8, 16, 16, plan.rows + 1, plan.cols,
+                                          stream) != 0
+    plan = fr.feat_pool_tiled_plan(8, 16, 16, 16, "mma")
+    x, w, b, s, t = feat
+    ptrs = [v.data_ptr() for v in (x, w, b, s, t, out)]
+    assert mma().dfd_feat_pool_tiled_mma(*ptrs, 2, 1, 8, 16, 16, 16, plan.rows, plan.cols + 1,
+                                         stream) != 0
 
 
 def test_fused_wrappers_count_launches_and_check_inputs(cuda):
@@ -861,8 +877,9 @@ def test_wrappers_refuse_on_the_card_what_the_cpu_refuses(cuda):
         (lambda: pk.combine(r(8)[::2], 3, 1, 40), "contiguous 1-D float32"),
         (lambda: fr.fused_res_stage(*(v.double() for v in stage(4))), "contiguous float32"),
         (lambda: fr.fused_res_stage(*stage(4), compute_dtype=torch.float16), "compute_dtype"),
-        (lambda: fr.fused_res_stage(*stage(264)), "at most 256 channels"),
-        (lambda: fr.fused_feat_pool(*feat(300)), "at most 256 output channels"),
+        (lambda: fr.fused_res_stage(stage(4)[0], r(1, 4, 4, 35), *stage(4)[2:]),
+         "w must be"),
+        (lambda: fr.fused_feat_pool(*feat(8)[:2], r(1, 9), *feat(8)[3:]), "b must be 1-D"),
         (lambda: rc.res_chain(r(1, 4, 32)[..., ::2], r(1, 1, 4, 36), r(1, 1, 4), 4, 4),
          "contiguous float32"),
         (lambda: rc.res_chain(r(1, 512, 4096), r(1, 1, 512, 4608), r(1, 1, 512), 64, 64),
@@ -1280,8 +1297,8 @@ def test_swimmer_wrapper_refuses_on_the_card_what_the_cpu_refuses(cuda):
                        ((state.q, state.qdot, state.t, a.cpu()), "must lie on q's device")]:
         with pytest.raises(ValueError, match=what):
             sw.swimmer_step(c, *args)
-    with pytest.raises(ValueError, match="n_links must be one of"):
-        sw.swimmer_step(c._replace(n_links=4), state.q, state.qdot, state.t, a)
+    with pytest.raises(ValueError, match="n_links must be 1 to 64"):
+        sw.swimmer_step(c._replace(n_links=65), state.q, state.qdot, state.t, a)
     out = sw.swimmer_step(c, state.q[:0], state.qdot[:0], state.t[:0], a[:0])
     assert sw.swimmer_step.launches == before and out[3].shape == (0, 8)
 
@@ -1709,3 +1726,135 @@ def test_mesh_of_one_over_nccl_equals_no_mesh(cuda):
         assert torch.equal(runs[0].state.flat, runs[1].state.flat)
     finally:
         dist.destroy_process_group()
+
+
+# -- every shape the JAX package runs ----------------------------------------------------
+
+# (M, B, ci, co, H, W, bf16) that no cluster plan takes: the 128-pixel f32 flagship's three,
+# 192-pixel frames' bf16 res stages, a bf16 feature pool at 192 x 192, more than 256 f32
+# channels, and ragged ones (odd H and W, C not a multiple of 4, tiles that do not divide
+# the frame)
+TILED_RES_SHAPES = [(16, 1, 64, 64, 64, 64, False), (16, 1, 128, 128, 32, 32, False),
+                    (2, 1, 64, 64, 96, 96, True), (2, 1, 128, 128, 48, 48, True),
+                    (2, 1, 264, 264, 16, 16, False), (2, 2, 6, 6, 200, 150, False),
+                    (2, 2, 6, 6, 200, 150, True), (1, 1, 16, 16, 128, 128, False)]
+TILED_FEAT_SHAPES = [(16, 1, 64, 128, 64, 64, False), (2, 1, 64, 128, 192, 192, True),
+                     (2, 1, 16, 300, 16, 16, False), (2, 2, 6, 20, 61, 1001, False),
+                     (2, 2, 6, 20, 61, 1001, True)]
+
+
+@pytest.mark.parametrize("kind, shape", [("res", s) for s in TILED_RES_SHAPES]
+                         + [("feat", s) for s in TILED_FEAT_SHAPES])
+def test_tiled_forms_match_plain(cuda, kind, shape):
+    """Shapes whose plan is the tiled form's: one launch of it a call
+    (counted in ``tiled_launches`` or ``tiled_mma_launches``), within the
+    fused kernels' limits of their plain versions."""
+    M, B, ci, co, H, W, bf16 = shape
+    kernel = fr.fused_res_stage if kind == "res" else fr.fused_feat_pool
+    plan = ((fr.res_stage_mma_plan if bf16 else fr.res_stage_tf32_plan)(ci, H, W) if kind == "res"
+            else (fr.feat_pool_mma_plan if bf16 else fr.feat_pool_tf32_plan)(ci, co, H, W))
+    assert isinstance(plan, fr.TiledPlan)
+    attr = "tiled_mma_launches" if bf16 else "tiled_launches"
+    before = getattr(kernel, attr)
+    _check_fused(kind, shape, cuda)
+    assert getattr(kernel, attr) == before + 1
+
+
+@pytest.mark.parametrize("n_links", [1, 2, 4, 6, 8, 11, 12, 15, 32, 64])
+@pytest.mark.parametrize("N", [1, 513])
+def test_swimmer_forms_match_plain(cuda, n_links, N):
+    """Every link count: the template form up to ``FORM_LINKS``, the run-time
+    form past it, one launch of the one its count selects; one step from
+    states near the reset's (angles and rates in [-0.1, 0.1]) within twice
+    float32's conditioning bound, t and done exact."""
+    from dfd_tpu_torch.envs import SwimmerEnv
+    from dfd_tpu_torch.ops import swimmer as sw
+
+    c = SwimmerEnv(n_links=n_links, device=cuda).consts
+    g = torch.Generator(cuda).manual_seed(n_links)
+    unif = lambda *shape, lim: (torch.rand(*shape, generator=g, device=cuda) * 2 - 1) * lim
+    q, qd, a = unif(N, c.ndof, lim=0.1), unif(N, c.ndof, lim=0.1), unif(N, n_links - 1, lim=1.5)
+    t = torch.randint(0, 100, (N,), generator=g, device=cuda)
+    c64 = c._replace(T=c.T.double(), Aphi=c.Aphi.double(), M0=c.M0.double(), D0=c.D0.double())
+    M, D, _ = sw.terms_closed(c64, q.double(), qd.double())
+    tol = 2 * torch.linalg.cond(M + c.dt * D).max().item() * 2.0 ** -24
+    before = (sw.swimmer_step.launches, sw.swimmer_step.dyn_launches)
+    got, want = sw.swimmer_step(c, q, qd, t, a), sw.swimmer_step_plain(c, q, qd, t, a)
+    dyn = n_links > sw.FORM_LINKS
+    assert (sw.swimmer_step.launches - before[0],
+            sw.swimmer_step.dyn_launches - before[1]) == ((0, 1) if dyn else (1, 0))
+    for k in (0, 1, 3, 4):
+        assert _rel(got[k], want[k]) <= tol, k
+    assert torch.equal(got[2], want[2]) and torch.equal(got[5], want[5])
+
+
+@pytest.mark.parametrize("n_links", [15, 64])
+def test_swimmer_runtime_form_episode_ignores_its_neighbours(cuda, n_links):
+    """The run-time form (several episodes a block at 15 links, one at 64):
+    each of 9 episodes stepped alone gives its outputs among the 9, bit for
+    bit, and 20 more launches give the first one's."""
+    from dfd_tpu_torch.envs import SwimmerEnv
+    from dfd_tpu_torch.ops import swimmer as sw
+
+    c = SwimmerEnv(n_links=n_links, device=cuda).consts
+    g = torch.Generator(cuda).manual_seed(200 + n_links)
+    unif = lambda *shape, lim: (torch.rand(*shape, generator=g, device=cuda) * 2 - 1) * lim
+    N = 9
+    ins = (unif(N, c.ndof, lim=0.1), unif(N, c.ndof, lim=0.1),
+           torch.randint(0, 100, (N,), generator=g, device=cuda), unif(N, n_links - 1, lim=1.5))
+    together = sw.swimmer_step(c, *ins)
+    alone = [sw.swimmer_step(c, *(x[e:e + 1].contiguous() for x in ins)) for e in range(N)]
+    for k, out in enumerate(together):
+        assert torch.equal(torch.cat([a[k] for a in alone]), out), k
+    for _ in range(20):
+        assert all(torch.equal(x, y) for x, y in zip(sw.swimmer_step(c, *ins), together))
+
+
+@pytest.mark.parametrize("anti", [False, True])
+def test_normal_kernel_past_65535_draws_is_exact(cuda, anti):
+    """65,537 draws (131,074 rows when antithetic) in one launch, past the
+    65,535 of blockIdx.y: bit for bit its plain version."""
+    from dfd_tpu_torch.ops import noise as nz
+
+    rows = 131_074 if anti else 65_537
+    keys = _normal_keys(rows, anti, False, cuda)
+    assert keys.shape[0] == 65_537
+    before = nz.normal.launches
+    eps, _ = nz.normal(keys, rows, 64, antithetic=anti)
+    assert nz.normal.launches == before + 1
+    assert torch.equal(eps, nz.normal_plain(keys, rows, 64, anti))
+
+
+@pytest.mark.parametrize("n_links", [15, 64])
+def test_swimmer_runtime_form_reruns_a_substep_its_fast_path_cannot_take(cuda, n_links):
+    """The run-time form's ``Range`` check and ``Exact`` rerun, as
+    ``test_swimmer_kernel_reruns_a_substep_its_fast_path_cannot_take`` holds
+    the template forms': an episode at rest with straight joints and torques
+    of 1e-25 among 9 near the reset's; its velocities and observations within
+    the conditioning bound of the plain step's, t and done exact, its
+    neighbours' outputs those of the batch without it, bit for bit."""
+    from dfd_tpu_torch.envs import SwimmerEnv
+    from dfd_tpu_torch.ops import swimmer as sw
+
+    c = SwimmerEnv(n_links=n_links, device=cuda).consts
+    g = torch.Generator(cuda).manual_seed(300 + n_links)
+    unif = lambda *shape, lim: (torch.rand(*shape, generator=g, device=cuda) * 2 - 1) * lim
+    N = 9
+    ins = [unif(N, c.ndof, lim=0.1), unif(N, c.ndof, lim=0.1),
+           torch.randint(0, 100, (N,), generator=g, device=cuda), unif(N, n_links - 1, lim=1.5)]
+    before = sw.swimmer_step.dyn_launches
+    calm = sw.swimmer_step(c, *ins)
+    assert sw.swimmer_step.dyn_launches == before + 1
+    ins = [x.clone() for x in ins]
+    ins[0][4, 3:], ins[1][4], ins[3][4] = 0.0, 0.0, ins[3][4] * 1e-25
+    got, want = sw.swimmer_step(c, *ins), sw.swimmer_step_plain(c, *ins)
+    c64 = c._replace(T=c.T.double(), Aphi=c.Aphi.double(), M0=c.M0.double(), D0=c.D0.double())
+    M, D, _ = sw.terms_closed(c64, ins[0][4:5].double(), ins[1][4:5].double())
+    tol = 2 * torch.linalg.cond(M + c.dt * D).max().item() * 2.0 ** -24
+    assert 0 < want[1][4].abs().max().item() < 2.0 ** -60
+    rel = lambda x, y: ((x.double() - y.double()).abs().max() / y.double().abs().max()).item()
+    v0 = c.ndof - 2  # where the velocities start in the observation
+    assert rel(got[1][4], want[1][4]) <= tol and rel(got[3][4, v0:], want[3][4, v0:]) <= tol
+    assert torch.equal(got[2], want[2]) and torch.equal(got[5], want[5])
+    rest = [e for e in range(N) if e != 4]
+    assert all(torch.equal(x[rest], y[rest]) for x, y in zip(got, calm))

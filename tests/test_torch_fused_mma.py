@@ -55,13 +55,28 @@ def test_production_plans_fill_the_card():
         assert 2 * fr.feat_pool_mma_plan(ci, co, H, W)[2] <= 228 * 1024 - 2 * 1024
 
 
+def _tiles_cover(plan, H, W, feat):
+    """The tiled plan's tiles cover the (pooled) frame, none of them empty,
+    and its shared memory fits a block."""
+    assert isinstance(plan, fr.TiledPlan) and plan.smem <= fr.SMEM_MAX
+    Ho, Wo = ((H + 1) // 2, (W + 1) // 2) if feat else (H, W)
+    ntr, ntc = -(-Ho // plan.rows), -(-Wo // plan.cols)
+    assert ntr * ntc == plan.tiles
+    assert (ntr - 1) * plan.rows < Ho and (ntc - 1) * plan.cols < Wo
+
+
 def test_mma_plans_refuse_what_does_not_fit():
-    with pytest.raises(ValueError, match="shared memory"):
-        fr.res_stage_mma_plan(16, 8, 2000)
-    with pytest.raises(ValueError, match="shared memory"):
-        fr.res_stage_mma_plan(256, 16, 16)
-    with pytest.raises(ValueError, match="shared memory"):
-        fr.feat_pool_mma_plan(512, 64, 16, 512)
+    """What no cluster of bf16 blocks holds (a band of 2000 columns, 256
+    channels beside a tap, a feature pool of 512 input channels at W = 512)
+    is refused by the cluster form and goes to the tiled form: tiles that
+    cover the frame in a block's shared memory."""
+    for C, H, W in ((16, 8, 2000), (256, 16, 16)):
+        plan = fr.res_stage_mma_plan(C, H, W)
+        _tiles_cover(plan, H, W, feat=False)
+        assert plan.group == min(64, -(-C // 16) * 16) and plan.kc == 16
+    plan = fr.feat_pool_mma_plan(512, 64, 16, 512)
+    _tiles_cover(plan, 16, 512, feat=True)
+    assert (2 * plan.rows + 1) * (2 * plan.cols + 1) <= 256  # the warps' positions
 
 
 # (C, H, W) of the f32 res stage: impala_procmaze's, the reference check's,
@@ -119,14 +134,18 @@ def test_flagship_f32_plans_fill_the_card():
 
 
 def test_tf32_plans_refuse_what_does_not_fit():
-    with pytest.raises(ValueError, match="shared memory"):
-        fr.res_stage_tf32_plan(16, 8, 4000)
-    with pytest.raises(ValueError, match="at most 256"):
-        fr.res_stage_tf32_plan(257, 16, 16)
-    with pytest.raises(ValueError, match="shared memory"):
-        fr.feat_pool_tf32_plan(512, 64, 16, 512)
-    with pytest.raises(ValueError, match="at most 256"):
-        fr.feat_pool_tf32_plan(16, 300, 16, 16)
+    """What no cluster of f32 blocks holds (a band of 4000 columns, more than
+    256 channels, a feature pool of 512 input channels at W = 512) goes to
+    the tiled form: tiles that cover the frame, whose dense positions one
+    chunk of the warps takes, in a block's shared memory."""
+    for C, H, W in ((16, 8, 4000), (257, 16, 16)):
+        plan = fr.res_stage_tf32_plan(C, H, W)
+        _tiles_cover(plan, H, W, feat=False)
+        assert plan.rows * plan.cols <= fr._tf32_tiles(min(C, 64))[1] and plan.kc == 8
+    for ci, co, H, W in ((512, 64, 16, 512), (16, 300, 16, 16)):
+        plan = fr.feat_pool_tf32_plan(ci, co, H, W)
+        _tiles_cover(plan, H, W, feat=True)
+        assert (2 * plan.rows + 1) * (2 * plan.cols + 1) <= fr._tf32_tiles(min(co, 64))[1]
 
 
 @pytest.mark.parametrize("compute_dtype", [None, torch.bfloat16], ids=["f32", "bf16"])

@@ -191,7 +191,8 @@ def _chain(C=4, H=4, W=4):
 
 
 # wrapper: (call, plain version, valid operands, [(operands a card refuses, error), ...]);
-# float64 and strided operands, a compute_dtype and shapes no launch plan fits
+# float64 and strided operands, a compute_dtype, operands of the wrong shape (the fused
+# torso's plain versions cannot take them either) and shapes no launch plan fits
 REFUSALS = {
     "perturb": (lambda f: pk.perturb(f, 0.1, 3, 1, 2), lambda f: pk.perturb_plain(f, 0.1, 3, 1, 2),
                 (_r(40),), [((_r(40).double(),), "contiguous 1-D float32"),
@@ -203,12 +204,12 @@ REFUSALS = {
         fr.fused_res_stage, fr.fused_res_stage_plain, _stage(),
         [(tuple(v.double() for v in _stage()), "contiguous float32"),
          ((_r(1, 1, 4, 4, 8)[..., ::2],) + _stage()[1:], "contiguous float32"),
-         (_stage(264, 2, 2), "at most 256 channels")]),
+         ((_stage()[0], _r(1, 4, 4, 35)) + _stage()[2:], "w must be \\[M, 4, C, 9C\\]")]),
     "fused_feat_pool": (
         fr.fused_feat_pool, fr.fused_feat_pool_plain, _feat(),
         [(tuple(v.double() for v in _feat()), "contiguous float32"),
          ((_r(1, 1, 4, 4, 8)[..., ::2],) + _feat()[1:], "contiguous float32"),
-         (_feat(8, 300, 2, 2), "at most 256 output channels")]),
+         (_feat()[:2] + (_r(1, 8, 1),) + _feat()[3:], "b must be 1-D per member")]),
     "res_chain": (
         lambda x, w, b: rc.res_chain(x, w, b, 4, 4),
         lambda x, w, b: rc.res_chain_plain(x, w, b, 4, 4),
@@ -233,7 +234,7 @@ def test_cpu_wrappers_refuse_what_the_card_refuses(name):
     for args, what in bad:
         with pytest.raises(ValueError, match=what):
             fn(*args)
-        if "fit" not in what and "at most" not in what and name != "combine":
+        if "fit" not in what and not what.startswith(("w must", "b must")) and name != "combine":
             assert plain(*args).dtype == args[0].dtype  # combine_plain's eps is float32
     if name.startswith("fused"):
         with pytest.raises(ValueError, match="compute_dtype must be None or torch.bfloat16"):

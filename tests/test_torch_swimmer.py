@@ -209,10 +209,11 @@ def test_swimmer_wave_gait_episode_matches_jax():
 
 
 def test_swimmer_refuses_what_the_kernel_refuses():
-    """Only the kernel's 3, 5 and 7 links, on every device; and the wrapper
-    checks dtype, shape and contiguity before it branches on the device."""
-    for n in (2, 4, 9):
-        with pytest.raises(ValueError, match="n_links must be one of"):
+    """1 to 64 links (the run-time form's bound), on every device; and the
+    wrapper checks dtype, shape and contiguity before it branches on the
+    device."""
+    for n in (0, 65, 100):
+        with pytest.raises(ValueError, match="n_links must be 1 to 64"):
             SwimmerEnv(n_links=n, device=CPU)
     env = SwimmerEnv(n_links=3, device=CPU)
     state, _ = env.reset(4, torch.zeros(4, 8))
@@ -227,8 +228,8 @@ def test_swimmer_refuses_what_the_kernel_refuses():
     for args, what in cases:
         with pytest.raises(ValueError, match=what):
             sw.swimmer_step(c, *args)
-    with pytest.raises(ValueError, match="n_links must be one of"):
-        sw.swimmer_step(c._replace(n_links=4), state.q, state.qdot, state.t, a)
+    with pytest.raises(ValueError, match="n_links must be 1 to 64"):
+        sw.swimmer_step(c._replace(n_links=65), state.q, state.qdot, state.t, a)
     with pytest.raises(ValueError, match="reset_level must have shape"):
         env.reset(4, torch.zeros(4, 7))
 

@@ -2,7 +2,8 @@
 
     python3 tools/torch_epoch_profile.py [--config {mlp_trap,impala_procmaze,impala_prod_bf16,
                                                     impala_procmaze_vbn,cnn_pixelgrid,
-                                                    gaussian_swimmer}]
+                                                    gaussian_swimmer,impala_128px,
+                                                    gaussian_swimmer_15}]
                                          [--out chiprun_out/torch_epoch_profile]
 
 Runs ``dfd_tpu_torch``'s ``VectorizedTrainer`` on one configuration, each
@@ -25,7 +26,12 @@ eps from ``normal_kernel``, the dense combine):
 - ``gaussian_swimmer`` (``bench.py:173-181``): ``GaussianMLP(16, 6)`` on
   ``SwimmerEnv(max_steps=100)`` (7 links, one ``swimmer_step_kernel``
   launch a step), the Wasserstein distance, P = 512, T = 100,
-  ``normalize_obs=True``.
+  ``normalize_obs=True``;
+- ``impala_128px``: ``impala_prod_bf16``'s model and ``TrainConfig`` in f32
+  at 128 x 128 frames (``ProcMazeEnv(grid=16, scale=8)``), in chunks of 16
+  members: three of its five fused torso calls a step on the tiled forms;
+- ``gaussian_swimmer_15``: ``gaussian_swimmer`` at 15 links
+  (``GaussianMLP(32, 14)``, the swimmer kernel's run-time form).
 
 It warms two epochs, times ten epochs of ``train`` without the profiler,
 then traces one more with ``torch.profiler``, its stages (perturb, rollout,
@@ -64,7 +70,8 @@ STAGES = ("perturb", "rollout", "novelty", "combine", "vbn")
 LAYERS = ("linear", "lstm", "patches", "env")  # the model's and env's ranges inside the stages
 PORTED = ("normal_kernel", "perturb_kernel", "combine_kernel", "res_stage_mma_kernel",
           "feat_pool_mma_kernel", "res_stage_tf32_kernel", "feat_pool_tf32_kernel",
-          "swimmer_step_kernel")
+          "conv_tiled_tf32_kernel", "conv_tiled_mma_kernel", "swimmer_step_kernel",
+          "swimmer_step_dyn_kernel")
 
 
 def _device_us(evt, total: bool = False) -> float:
@@ -107,7 +114,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config", choices=("mlp_trap", "impala_procmaze", "impala_prod_bf16",
                                          "impala_procmaze_vbn", "cnn_pixelgrid",
-                                         "gaussian_swimmer"),
+                                         "gaussian_swimmer", "impala_128px",
+                                         "gaussian_swimmer_15"),
                     default="mlp_trap")
     ap.add_argument("--out", default="chiprun_out/torch_epoch_profile")
     args = ap.parse_args()
@@ -140,11 +148,20 @@ def main() -> int:
                           episode_length=40, random_seed=0)
         model = AtariCNN((64, 64), env.n_actions, in_channels=3, compute_dtype=torch.bfloat16)
         tr = VectorizedTrainer(model, env, distances.categorical_tvd, cfg)
-    elif args.config == "gaussian_swimmer":
+    elif args.config in ("gaussian_swimmer", "gaussian_swimmer_15"):
         cfg = TrainConfig(batch_size=512, zeta_size=16, max_strategy_history_size=8,
                           episode_length=100, random_seed=0, normalize_obs=True)
-        tr = VectorizedTrainer(GaussianMLP(16, 6), SwimmerEnv(max_steps=100),
+        links = 15 if args.config == "gaussian_swimmer_15" else 7
+        model = GaussianMLP(2 * links + 2, links - 1)
+        tr = VectorizedTrainer(model, SwimmerEnv(n_links=links, max_steps=100),
                                distances.gaussian_wasserstein_from_strategies, cfg)
+    elif args.config == "impala_128px":
+        env = ProcMazeEnv(grid=16, scale=8, max_steps=40, num_levels=200)
+        cfg = TrainConfig(batch_size=64, zeta_size=8, max_strategy_history_size=4,
+                          episode_length=40, random_seed=0, population_chunk=16)
+        model = ImpalaPolicy(env.obs_shape, env.n_actions, conv_impl="fused_feat",
+                             channels=(64, 128, 128), hidden=512)
+        tr = VectorizedTrainer(model, env, distances.categorical_tvd, cfg)
     else:
         env = ProcMazeEnv(grid=8, scale=8, max_steps=40, num_levels=200)
         prod = args.config == "impala_prod_bf16"
