@@ -1,9 +1,11 @@
-// What the tiled torso forms of fused_resblock_tf32.cu (3xTF32) and
-// fused_resblock_mma.cu (bf16) share: a conv's arguments, the copy of one
-// chunk of K (all nine taps x KC input channels) into shared memory by
-// cp.async, and the res stage's four passes.  Each file keeps its own
-// kernel (the products and their epilogue), its launch plan and its entry
-// points.  ops/build.py hashes this header into both libraries' names.
+// The tiled torso forms' conv arguments (TiledArgs, tiled_args), which
+// fused_resblock_tf32.cu (3xTF32) and fused_resblock_mma.cu (bf16) share,
+// and what only the bf16 forms take: the copy of one chunk of K (all nine
+// taps x KC input channels) into shared memory by cp.async, and the res
+// stage's four passes.  (The f32 forms stream a split weight image and their
+// own ring; tiled_tf32_plan.cuh.)  Each file keeps its own kernel, its
+// launch plan and its entry points.  ops/build.py hashes this header into
+// both libraries' names.
 
 #pragma once
 
@@ -18,7 +20,7 @@ constexpr int kTiledGroup = 64;  // output channels of a tiled block
 
 struct TiledArgs {
   const float* in;     // [M * B, ci, H, W]
-  const float* w;      // member m's [co, 9 ci] at w + m * w_ms, in tap order
+  const float* w;      // member m's [co, 9 ci] at w + m * w_ms, in tap order (f32: its image)
   const float* b;      // member m's [co] at b + m * b_ms
   const float* s;      // member m's [ci] at s + m * st_ms and t + m * st_ms
   const float* t;
@@ -30,7 +32,8 @@ struct TiledArgs {
   int th, tw;          // the conv outputs a block computes: th rows x tw columns
   int ntc, ntiles;     // column tiles, and tiles a frame
   int relu;            // ReLU after the affine (the res stage's convs)
-  int vec;             // weights copied in 16-byte pieces (ci % 4 == 0, w aligned)
+  int vec;             // bf16: weights copied in 16-byte pieces (ci % 4 == 0, w aligned);
+                       // f32: the operand rows (W % 4 == 0, in aligned)
   int ph, pw, Ho, Wo;  // the feature pool: pooled rows x columns a block, the pooled frame
 };
 

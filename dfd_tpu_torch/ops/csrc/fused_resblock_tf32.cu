@@ -74,9 +74,10 @@
 // to the tiled forms at the end of this file (conv_tiled_tf32_kernel), which
 // take any C, H and W.  The launch plan (cluster, band and tap group of the
 // res stage; pooled rows a block and tap group of the feature pool; the
-// tiled forms' tile) is computed by res_plan, feat_plan, tiled_res_plan and
-// tiled_feat_plan here and by fused_resblock.py's *_tf32_plan; an entry point
-// refuses a plan that differs from its own (cudaErrorInvalidValue).
+// tiled forms' tile) is computed by res_plan and feat_plan here, by
+// tiled_tf32_plan.cuh's res_plan and feat_plan, and by fused_resblock.py's
+// *_tf32_plan; an entry point refuses a plan that differs from its own
+// (cudaErrorInvalidValue).
 //
 // Arithmetic follows the TPU kernel: the affine as two rounded operations
 // (__fmul_rn, __fadd_rn, never contracted), then ReLU in the res stage; the
@@ -91,11 +92,14 @@
 
 #include <cooperative_groups.h>
 #include <cstdint>
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include "conv_tiled.cuh"
 #include "ptx.cuh"
+#include "tiled_tf32_plan.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -615,147 +619,480 @@ feat_pool_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w,
 //
 // Where no cluster of at most 8 blocks holds a frame's band with all its
 // channels, or a conv has more than kMaxRows output channels, each conv runs
-// on its own as an implicit GEMM over tiles (conv_tiled_tf32_kernel): a block
-// takes th x tw conv outputs (whole image rows, or part of one where W is
-// wider than a chunk of positions) x a group of up to kTiledGroup output channels,
-// and streams K = 9 ci through shared memory in chunks of all nine taps x
-// kTiledKc input channels, two chunks in flight (cp.async double buffers).
-// The operand tile's halo rows and columns come from device memory.  A
-// chunk's operand lands raw and is then transformed in place, x * s + t (and
-// ReLU in the res stage), zero off the frame and past ci: the prologue the
-// cluster kernels apply as they stage.  The products are group_products',
-// 3xTF32 with a fresh sum every k8 step, so the arithmetic is the cluster
-// kernels' up to the order of the K chunks.
+// on its own as an implicit GEMM over tiles (conv_tiled_tf32_kernel; the
+// plan and the weight image in tiled_tf32_plan.cuh).  A block of 16 warps,
+// one an SM, takes a tile of conv outputs x a group of output channels: in
+// the res stage 8 x 16 outputs x 64 channels, in the feature pool the 17 x
+// 17 dense outputs behind 8 x 8 pooled ones x 32 channels (impala_128px's
+// shapes: 512, 256 and 1,024 blocks a launch).  K = 9 ci streams in chunks
+// of 16 input channels x all nine taps (K = 144), one barrier a chunk.
 //
-// The res stage is four such launches (dfd_res_stage_tiled_tf32, the passes
-// of conv_tiled.cuh's res_stage_passes), the feature pool one
-// (dfd_feat_pool_tiled_tf32): a block's tile is ph x pw pooled outputs, whose
-// (2 ph + 1) x (2 pw + 1) dense conv outputs it computes, -inf off the frame,
-// into shared memory over its buffers, then takes their 3x3 maxima; no block
-// needs another's.
+// What held the earlier tiled forms back (8-channel chunks by cp.async, pool
+// tiles of 3 x 65 dense outputs), and what this design does about it
+// (PERF.md section 6, measured by tools/torch_mma_variants.py --source tiled
+// --stamps):
+// - Copies.  74 KB of weights a chunk by cp.async filled the SM's queue of
+//   memory requests, and the operand's copies and the transform's shared
+//   loads waited behind them (3.5-4 us a chunk).  Now each chunk's weights
+//   come by one bulk copy and its operand tile by one tensor-map load (TMA,
+//   zero outside the frame), each completing on an mbarrier; only frames
+//   with W % 4 != 0 copy the operand by 4-byte cp.async.
+// - The 3xTF32 split.  Every operand value is split into TF32 hi and lo
+//   once: the weights by split_weights_kernel, once a call, into an image of
+//   the ring's layout (tiled_tf32::image_offset; zero past ci and co); the
+//   activations as a chunk is transformed (x * s + t, ReLU in the res stage,
+//   zero off the frame and past ci), into hi and lo planes.  Both lie in the
+//   core-matrix layout of the tensor cores' operands (planes of 4 channels,
+//   16 bytes a position or a weight row), so the product loop only loads
+//   and multiplies.
+// - Overlap.  Chunk k + 1's transform runs in three slices between the tap
+//   columns of chunk k's products: on wgmma while they are in flight.
+// - Products.  The res stage multiplies on wgmma (m64n72k8 TF32, A the
+//   weights and B the planes, both from shared memory): the block's four
+//   warpgroups take 2 x 72 halo-padded positions (a tile row and its two
+//   halo columns, so a tap is a shift of B's start; 128 of 144 products are
+//   kept) x the two k8 halves of each tap.  In its products phase it runs
+//   at about the tensor cores' TF32 rate; the same template on mma.sync
+//   was 1.12-1.19x slower.  The pool's 32 channels do not fill wgmma's 64
+//   rows: it stays on mma.sync, a warp 32 channels x 40 positions, K in
+//   halves.
+// - The sum.  The tensor cores do not round the sum they carry to nearest
+//   (group_products' note): a fresh sum every tap column (9 products) on
+//   wgmma and every k8 step in the pool is added to the output's in f32
+//   (__fadd_rn), and the K halves' sums are added in a fixed order.
+//
+// The res stage is four launches after the weights' split
+// (dfd_res_stage_tiled_tf32), the feature pool one (dfd_feat_pool_tiled_tf32):
+// its dense outputs, -inf off the frame, go to shared memory over the
+// buffers, then their 3x3 maxima to device memory; no block needs another's.
 
-constexpr int kTiledKc = 8;   // input channels of a chunk: one k8 step a tap
-constexpr int kTiledCs = kTiledKc + 4;       // operand floats a position (4 mod 8: no conflicts)
-constexpr int kTiledCsw = 9 * kTiledKc + 4;  // weight floats a row
+namespace tt = tiled_tf32;
 
-// Shared bytes of a tiled block: two operand and two weight buffers, or the
-// dense map that overlays them in the feature pool, whichever is larger.
-size_t tiled_smem(int co, int th, int tw, bool pool) {
-  const int rows = a_rows(min(co, kTiledGroup));
-  const size_t conv =
-      4 * (2 * (size_t)(th + 2) * (tw + 2) * kTiledCs + 2 * (size_t)rows * kTiledCsw);
-  const size_t dense = pool ? 4 * (size_t)rows * th * tw : 0;
-  return conv > dense ? conv : dense;
-}
 
-// The res stage's tile: as many whole rows as one chunk of positions covers
-// (part of a row where W is wider), fewer rows, then narrower, while the
-// buffers do not fit; then spread evenly over the frame.
-void tiled_res_plan(int C, int H, int W, int* th, int* tw) {
-  const int cap = chunk_cap(min(C, kTiledGroup));
-  int w = min(W, cap), h = max(1, min(H, cap / w));
-  while (tiled_smem(C, h, w, false) > (size_t)kMaxSmem) {
-    if (h > 1) --h;
-    else w = max(1, w / 2);
-  }
-  const int ntr = (H + h - 1) / h, ntc = (W + w - 1) / w;
-  *th = (H + ntr - 1) / ntr;
-  *tw = (W + ntc - 1) / ntc;
-}
-
-// The feature pool's tile of ph x pw pooled outputs: the widest run of
-// pooled columns whose dense columns, three dense rows of them, one chunk
-// covers, then as many pooled rows as the chunk takes; fewer while the
-// buffers do not fit; then spread evenly.
-void tiled_feat_plan(int co, int H, int W, int* ph, int* pw) {
-  const int cap = chunk_cap(min(co, kTiledGroup)), Ho = (H + 1) / 2, Wo = (W + 1) / 2;
-  int c = min(Wo, max(1, (cap / 3 - 1) / 2));
-  int r = min(Ho, max(1, (cap / (2 * c + 1) - 1) / 2));
-  while (tiled_smem(co, 2 * r + 1, 2 * c + 1, true) > (size_t)kMaxSmem) {
-    if (r > 1) --r;
-    else c = max(1, c / 2);
-  }
-  const int ntr = (Ho + r - 1) / r, ntc = (Wo + c - 1) / c;
-  *ph = (Ho + ntr - 1) / ntr;
-  *pw = (Wo + ntc - 1) / ntc;
-}
-
-// The landed operand chunk as the conv's operand, in place: x * s + t (then
-// ReLU if relu) on the frame, zero off it and past ci.
-__device__ void transform_tiled(const TiledArgs& a, float* tile, int m, int oy, int ox, int c0) {
-  const int tile_w = a.tw + 2, npt = (a.th + 2) * tile_w;
-  float sv[kTiledKc], tv[kTiledKc];
+// Weights w (member m's conv j [co][9 ci] in tap order at
+// w + (m * J + j) * co * 9 ci) as hi and lo into img, conv (m, j)'s image at
+// img + (m * J + j) * conv_image_floats: one thread a core-matrix row (4
+// channels of one tap of one output channel, read as 16 bytes where ci % 4
+// == 0), neighbouring threads on neighbouring rows, so that the image is
+// written 16 bytes a thread in order.
+__global__ void __launch_bounds__(256)
+split_weights_kernel(const float* __restrict__ w, float* __restrict__ img, int MJ, int co, int ci,
+                     int group) {
+  const int groups = tt::cdiv(co, group), nk = tt::cdiv(ci, tt::kKc);
+  const long long conv = tt::conv_image_floats(ci, co, group), half = tt::chunk_floats(group) / 2;
+  const long long total = (long long)MJ * groups * nk * 9 * tt::kKq * group;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
+       i += (long long)gridDim.x * blockDim.x) {
+    long long r = i;
+    const int row = int(r % group);
+    r /= group;
+    const int q = int(r % tt::kKq);
+    r /= tt::kKq;
+    const int tap = int(r % 9);
+    r /= 9;
+    const int k = int(r % nk);
+    r /= nk;
+    const int gi = int(r % groups);
+    const long long mj = r / groups;
+    const int o = gi * group + row, c0 = k * tt::kKc + 4 * q;
+    const float* src = w + (mj * co + o) * 9 * ci + (size_t)tap * ci;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f), hi, lo;
+    float* u = &v.x;
+    if (o < co && c0 < ci) {
+      if ((ci & 3) == 0) {
+        v = __ldg(reinterpret_cast<const float4*>(src + c0));
+      } else {
 #pragma unroll
-  for (int c = 0; c < kTiledKc; ++c) {
-    const int ch = min(c0 + c, a.ci - 1);
-    sv[c] = a.s[(size_t)m * a.st_ms + ch];
-    tv[c] = a.t[(size_t)m * a.st_ms + ch];
-  }
-  for (int p = threadIdx.x; p < npt; p += kThreads) {
-    const int r = p / tile_w, x = ox - 1 + (p - r * tile_w), y = oy - 1 + r;
-    const bool inside = y >= 0 && y < a.H && x >= 0 && x < a.W;
-    float* d = tile + p * kTiledCs;
-#pragma unroll
-    for (int c = 0; c < kTiledKc; ++c) {
-      float v = 0.f;
-      if (inside && c0 + c < a.ci) {
-        v = affine(d[c], sv[c], tv[c]);
-        if (a.relu) v = fmaxf(v, 0.f);
+        for (int e = 0; e < 4; ++e) u[e] = c0 + e < ci ? src[c0 + e] : 0.f;
       }
-      d[c] = v;
+    }
+    float* h = &hi.x;
+    float* l = &lo.x;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      uint32_t vh, vl;
+      split(u[e], vh, vl);
+      h[e] = __uint_as_float(vh);
+      l[e] = __uint_as_float(vl);
+    }
+    float* dst = img + mj * conv + tt::image_offset(ci, group, o, tap, c0);
+    *reinterpret_cast<float4*>(dst) = hi;
+    *reinterpret_cast<float4*>(dst + half) = lo;
+  }
+}
+
+// A tiled block's view of its tile.  The operand's halo tile is th + 2 rows
+// x tile_w = tw + 2 columns from frame row oy - 1 and column ox - 1; it
+// lands raw from frame column x0 (4-aligned where the copies take 16 bytes)
+// in rows of lw floats, halo column 0 at landing column dx; its hi and lo
+// planes hold pa positions (P of the halo tile, then what the res stage's
+// halo-padded products read past it).
+struct TileView {
+  int oy, ox, rows, tile_w, P, pa, x0, lw, dx;
+};
+
+// Start copying chunk c0 .. c0 + kKc - 1 of the input channels into the
+// landing tile [kKc][rows][lw].  Where W % 4 == 0 (a.vec) one thread starts
+// a tensor-map load of the whole box, completing on bar (what lies off the
+// frame reads zero; channels past the member's ci read its neighbour's);
+// else each warp copies a landing row at a time, 4 bytes a lane, and what
+// lies off the frame or past ci is left as it is.  transform_slice zeroes
+// all of those.  Either way no thread waits for the other's copies here.
+__device__ void issue_operand(const TiledArgs& a, const CUtensorMap& map, float* land,
+                              uint64_t* bar, size_t mb, int c0, const TileView& v) {
+  if (a.vec) {
+    if (threadIdx.x == 0) {
+      fence_proxy_async();
+      tma_load_3d(land, &map, v.x0, v.oy - 1, int(mb * a.ci + c0),
+                  uint32_t(4 * tt::kKc * v.rows * v.lw), bar);
+    }
+    return;
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t plane = (size_t)a.H * a.W;
+  const float* src = a.in + (mb * a.ci + c0) * plane;
+  const int nc = min(tt::kKc, a.ci - c0);
+  for (int cr = warp; cr < nc * v.rows; cr += tt::kThreads / 32) {
+    const int c = cr / v.rows, y = v.oy - 1 + (cr - c * v.rows);
+    if (y < 0 || y >= a.H) continue;
+    const float* row = src + c * plane + (size_t)y * a.W;
+    float* dst = land + cr * v.lw;
+    for (int u = lane; u < v.lw; u += 32) {
+      const int x = v.x0 + u;
+      if (x >= 0 && x < a.W) cp_async4(dst + u, row + x);
     }
   }
 }
 
+// One thread starts the bulk copy of a chunk's weight image into wst,
+// completing on bar.  Shared memory the block last read by generic loads
+// is handed to the copy engine behind a proxy fence.
+__device__ void issue_weights(float* wst, const float* wimg, int group, uint64_t* bar) {
+  if (threadIdx.x != 0) return;
+  fence_proxy_async();
+  bulk_copy(wst, wimg, uint32_t(tt::chunk_floats(group) * 4), bar);
+}
+
+// The landed chunk as the conv's operand: each value r becomes v = r * s + t
+// (then ReLU if relu) on the frame, zero off it, past ci and past the halo
+// tile, written as hi(v) and lo(v) into the planes ([2][kKq][pa][4]).  A
+// quarter of the threads takes each plane (4 channels, their s and t held
+// by TransformPlane), its positions kThreads / kKq apart; the positions go
+// in kSlices slices, so that the products of one chunk can interleave the
+// transform of the next.
+constexpr int kSlices = 3;
+
+struct TransformPlane {
+  float s[4], t[4];
+  bool in[4];
+};
+
+__device__ __forceinline__ TransformPlane transform_plane(const TiledArgs& a, int m, int c0) {
+  const int q = threadIdx.x / (tt::kThreads / tt::kKq);
+  TransformPlane tp;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int c = c0 + 4 * q + e;
+    tp.in[e] = c < a.ci;
+    tp.s[e] = tp.in[e] ? __ldg(a.s + (size_t)m * a.st_ms + c) : 0.f;
+    tp.t[e] = tp.in[e] ? __ldg(a.t + (size_t)m * a.st_ms + c) : 0.f;
+  }
+  return tp;
+}
+
+__device__ __forceinline__ void transform_slice(const TiledArgs& a, const TransformPlane& tp,
+                                                const float* land, float* planes,
+                                                const TileView& v, int slice) {
+  constexpr int kStride = tt::kThreads / tt::kKq;
+  const int q = threadIdx.x / kStride, cstride = v.rows * v.lw;
+  const int per = (v.pa + kSlices - 1) / kSlices, end = min(v.pa, (slice + 1) * per);
+  const float* lq = land + 4 * q * cstride + v.dx;
+  float4* hq = reinterpret_cast<float4*>(planes) + q * v.pa;
+  for (int p = slice * per + threadIdx.x - q * kStride; p < end; p += kStride) {
+    const int r = p / v.tile_w, col = p - r * v.tile_w;
+    const int y = v.oy - 1 + r, x = v.ox - 1 + col;
+    const bool inside = p < v.P && y >= 0 && y < a.H && x >= 0 && x < a.W;
+    const float* src = lq + r * v.lw + col;
+    float4 hi, lo;
+    float* hv = &hi.x;
+    float* lv = &lo.x;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float u = 0.f;
+      if (inside && tp.in[e]) {
+        u = affine(src[e * cstride], tp.s[e], tp.t[e]);
+        if (a.relu) u = fmaxf(u, 0.f);
+      }
+      uint32_t uh, ul;
+      split(u, uh, ul);
+      hv[e] = __uint_as_float(uh);
+      lv[e] = __uint_as_float(ul);
+    }
+    hq[p] = hi;
+    hq[tt::kKq * v.pa + p] = lo;
+  }
+}
+
+// One chunk's products on mma.sync into part, a fresh sum every k8 step
+// (fewer live registers than a longer one) added to acc: the warp's MT m16
+// tiles x NT n8 tiles, its k8 step(s) wk, wk + WK, ... of each tap.  wh and
+// wl point at this lane's weight column in the chunk's hi and lo weights;
+// b_lane[n] at its position.
+template <int MT, int NT, int WK, class Between>
+__device__ __forceinline__ void chunk_products_mma(float (&acc)[MT][NT][4], float (&part)[MT][NT][4],
+                                                   const uint32_t* wh, const uint32_t* wl,
+                                                   const uint32_t* oph, const uint32_t* opl,
+                                                   const int (&b_lane)[NT], int wk, int G, int pa,
+                                                   int tile_w, Between between) {
+  constexpr int NJ = tt::kKc / 8 / WK;
+#pragma unroll 1
+  for (int kw = 0; kw < 3; ++kw) {
+#pragma unroll
+    for (int kh = 0; kh < 3; ++kh) {
+      const int tap = kw * 3 + kh, shift = (kh * tile_w + kw) * 4;
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj) {
+        const int j = wk + jj * WK;  // the chunk's k8 step: planes 2j and 2j + 1
+        uint32_t ahi[MT][4], alo[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {  // rows g, g + 8; columns tig, tig + 4
+            const int off = ((tap * tt::kKq + 2 * j + (e >> 1)) * G + mt * 16 + (e & 1) * 8) * 4;
+            ahi[mt][e] = wh[off];
+            alo[mt][e] = wl[off];
+          }
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          uint32_t bhi[2], blo[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int off = (2 * j + h) * pa * 4 + b_lane[n] + shift;
+            bhi[h] = oph[off];
+            blo[h] = opl[off];
+          }
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) mma_tf32(part[mt][n], alo[mt], bhi);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) mma_tf32(part[mt][n], ahi[mt], blo);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) mma_tf32(part[mt][n], ahi[mt], bhi);
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              acc[mt][n][e] = __fadd_rn(acc[mt][n][e], part[mt][n][e]);
+              part[mt][n][e] = 0.f;
+            }
+      }
+    }
+    between(kw);
+  }
+}
+
+// One chunk's products on wgmma: the warpgroup's 64 rows x 72 halo-padded
+// positions from n0 on, its k8 step wk of each tap, a fresh sum every tap
+// column (three k8 steps, nine products) added to acc; between(kw) runs
+// while a tap column's products are in flight.  The weights are A (64 rows,
+// [tap][plane][row][4]), the planes B (positions 16 bytes apart), so a tap
+// is a shift of B's start.
+template <class Between>
+__device__ __forceinline__ void chunk_products_wgmma(float (&acc)[1][9][4], float (&part)[1][9][4],
+                                                     const float* wst, const float* planes,
+                                                     int n0, int wk, int pa, int tile_w,
+                                                     Between between) {
+  float (&d)[36] = reinterpret_cast<float (&)[36]>(part);
+  const int half = int(tt::chunk_floats(tt::kResGroup) / 2);
+  const uint32_t lbo_a = tt::kResGroup * 16, lbo_b = pa * 16;
+#pragma unroll 1
+  for (int kw = 0; kw < 3; ++kw) {
+    wgmma_fence();
+#pragma unroll
+    for (int kh = 0; kh < 3; ++kh) {
+      const int tap = kw * 3 + kh;
+      const float* a = wst + (tap * tt::kKq + 2 * wk) * tt::kResGroup * 4;
+      const float* b = planes + (2 * wk * pa + n0 + kh * tile_w + kw) * 4;
+      const uint64_t ahi = smem_desc(a, lbo_a, 128), alo = smem_desc(a + half, lbo_a, 128);
+      const uint64_t bhi = smem_desc(b, lbo_b, 128);
+      const uint64_t blo = smem_desc(b + tt::kKq * pa * 4, lbo_b, 128);
+      wgmma_n72(d, alo, bhi, kh > 0);
+      wgmma_n72(d, ahi, blo, 1);
+      wgmma_n72(d, ahi, bhi, 1);
+    }
+    wgmma_commit();
+    between(kw);
+    wgmma_wait0();
+#pragma unroll
+    for (int n = 0; n < 9; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        fence_operand(part[0][n][e]);
+        acc[0][n][e] = __fadd_rn(acc[0][n][e], part[0][n][e]);
+      }
+  }
+}
+
 // blockIdx.x = (member * B + frame) * ntiles + tile, blockIdx.y = group of
-// kTiledGroup output channels.  One conv of a res stage (bias, then the residual
-// where res is set), or the feature pool's conv and pool (POOL).
-template <int MT, bool POOL>
-__global__ void __launch_bounds__(kThreads, 2)
-conv_tiled_tf32_kernel(const __grid_constant__ TiledArgs a) {
+// output channels (64 in the res stage, 32 in the pool).  On mma.sync the
+// warps are WM over the group's rows (MT m16 tiles each) x WN over the
+// positions (NT n8 tiles each) x WK over each chunk's k8 steps; on wgmma
+// (the res stage) the four warpgroups are 2 over the halo-padded positions
+// (72 each) x 2 over the k8 steps.  One conv of a res stage (bias, then the
+// residual where res is set), or the feature pool's conv and pool (POOL).
+//
+// Chunk k's operand lands two iterations ahead and is transformed one
+// ahead, in slices between the tap columns of chunk k - 1's products (on
+// wgmma while they run), its weights land one ahead; one barrier a chunk
+// orders them.
+template <int MT, int NT, int WK, bool POOL, bool WGMMA>
+__global__ void __launch_bounds__(tt::kThreads, 1)
+conv_tiled_tf32_kernel(const __grid_constant__ TiledArgs a, const __grid_constant__ CUtensorMap map) {
+  constexpr int G = POOL ? tt::kPoolGroup : tt::kResGroup;
+  constexpr int WM = WGMMA ? 1 : G / (16 * MT);
+  constexpr int WN = WGMMA ? 2 : tt::kThreads / 32 / (WM * WK);
+  static_assert(WGMMA ? (MT == 1 && NT == 9 && WK == 2 && !POOL && 2 * 72 == tt::kResHalo)
+                      : WM * 16 * MT == G && WN * NT * 8 == (POOL ? tt::kPoolSlots : tt::kResSlots),
+                "a block's rows and positions");
+  static_assert(WK == 1 || WK * 8 == tt::kThreads / 32, "a K half is 8 warps");
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kNt = 16 / MT, kE = 4 / MT;
   const int ti = int(blockIdx.x % (unsigned)a.ntiles);
   const size_t mb = blockIdx.x / (unsigned)a.ntiles;
   const int m = int(mb / a.B), tr = ti / a.ntc, tc = ti - tr * a.ntc;
-  const int oy = POOL ? 2 * tr * a.ph - 1 : tr * a.th;  // the tile's first conv output
-  const int ox = POOL ? 2 * tc * a.pw - 1 : tc * a.tw;
-  const int co0 = blockIdx.y * kTiledGroup, cog = min(a.co, kTiledGroup), rows = a_rows(cog);
-  const int tile_w = a.tw + 2, npos = a.th * a.tw;
-  const size_t tile_elems = (size_t)(a.th + 2) * tile_w * kTiledCs;
-  float* const tile0 = reinterpret_cast<float*>(smem);
-  float* const tile1 = tile0 + tile_elems;
-  float* const wb0 = tile1 + tile_elems;
-  float* const wb1 = wb0 + (size_t)rows * kTiledCsw;
+  TileView v;
+  v.oy = POOL ? 2 * tr * a.ph - 1 : tr * a.th;  // the tile's first conv output
+  v.ox = POOL ? 2 * tc * a.pw - 1 : tc * a.tw;
+  v.rows = a.th + 2;
+  v.tile_w = a.tw + 2;
+  v.P = v.rows * v.tile_w;
+  v.pa = tt::plane_positions(POOL, a.th, a.tw);
+  v.x0 = a.vec ? (v.ox - 1) & ~3 : v.ox - 1;
+  v.lw = a.vec ? tt::landing_width(a.tw) : v.tile_w;
+  v.dx = v.ox - 1 - v.x0;
+  const int co0 = blockIdx.y * G, npos = a.th * a.tw;
+  const size_t wfl = tt::chunk_floats(G), pfl = (size_t)2 * tt::kKc * v.pa,
+               lfl = (size_t)tt::kKc * v.rows * tt::landing_width(a.tw);
+  // [2][wfl], then [2][pfl], then [2][lfl], from the first 128-byte boundary (the tensor-map
+  // loads' alignment)
+  float* const wbuf = reinterpret_cast<float*>(smem + (128 - smem_addr(smem) % 128) % 128);
+  float* const pbuf = wbuf + 2 * wfl;
+  float* const lbuf = pbuf + 2 * pfl;
+  const int nk = tt::cdiv(a.ci, tt::kKc);
+  const float* wimg = a.w + (size_t)m * a.w_ms + (size_t)blockIdx.y * nk * wfl;
 
-  const Warp wp = warp_place<MT>(cog, npos);  // one chunk of positions covers the tile
-  const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
-  const int row0 = wp.wm * MT * 16 + g;
-  int boff[kNt];
-  b_offsets<MT>(boff, wp, 0, npos, a.tw, tile_w, kTiledCs);
-  float acc[MT][kNt][4];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
+  const int wk = WK > 1 ? warp / 8 : 0;  // the K half: the warp's top bit in either layout
+  const int wn = WGMMA ? (warp / 4) % 2 : warp % WN, wm = WGMMA ? 0 : (warp / WN) % WM;
+  const int row0 = WGMMA ? (warp % 4) * 16 + g : wm * 16 * MT + g;  // this lane's first row
+  // position slot s of this warp's n8 tile n, column c2: the tile's output
+  // s (mma.sync) or the halo-padded row position s (wgmma)
+  auto slot = [&](int n, int c2) { return WGMMA ? wn * 72 + n * 8 + 2 * tig + c2
+                                                : (wn * NT + n) * 8 + 2 * tig + c2; };
+  auto place = [&](int s, int& ly, int& lx) {  // the slot's tile output; false past the tile
+    if (WGMMA) {
+      const int q = s + v.tile_w + 1;
+      ly = q / v.tile_w - 1;
+      lx = q - (ly + 1) * v.tile_w - 1;
+      return lx >= 0 && lx < a.tw && ly < a.th;
+    }
+    ly = s / a.tw;
+    lx = s - ly * a.tw;
+    return s < npos;
+  };
+  int b_lane[NT];  // mma.sync: this lane's B position (g's) in each n8 tile
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int p = (wn * NT + n) * 8 + g;
+    b_lane[n] = (p < npos ? (p / a.tw) * v.tile_w + p % a.tw : 0) * 4 + tig;
+  }
+  float acc[MT][NT][4], part[MT][NT][4];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int n = 0; n < kNt; ++n)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][n][e] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[mt][n][e] = part[mt][n][e] = 0.f;
 
-  const int nk = (a.ci + kTiledKc - 1) / kTiledKc;
-  issue_tiled<kTiledKc, kThreads>(a, tile0, wb0, mb, m, oy, ox, co0, 0, rows);
-  for (int k = 0; k < nk; ++k) {
-    float* const tl = k & 1 ? tile1 : tile0;
-    cp_async_wait_all();
-    __syncthreads();  // chunk k has landed; every warp is done with chunk k - 1
-    transform_tiled(a, tl, m, oy, ox, k * kTiledKc);
-    __syncthreads();
-    if (k + 1 < nk)
-      issue_tiled<kTiledKc, kThreads>(a, k & 1 ? tile0 : tile1, k & 1 ? wb0 : wb1, mb, m, oy,
-                                      ox, co0, (k + 1) * kTiledKc, rows);
-    if (wp.active)
-      group_products<MT>(acc, tl, boff, wp.nt, (k & 1 ? wb1 : wb0) + row0 * kTiledCsw + tig,
-                         kTiledCsw, kTiledKc, 9, 0, tile_w, kTiledCs);
+  // chunk k's weights complete on wbar[k & 1], its tensor-map operand on lbar[k & 1]
+  __shared__ __align__(8) uint64_t wbar[2], lbar[2];
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&wbar[i], 1);
+      mbar_init(&lbar[i], 1);
+    }
+    fence_mbar_init();
   }
+  __syncthreads();  // no thread tests a barrier before it is initialized
+  issue_weights(wbuf, wimg, G, &wbar[0]);
+  issue_operand(a, map, lbuf, &lbar[0], mb, 0, v);
+  cp_async_commit();
+  if (nk > 1) issue_operand(a, map, lbuf + lfl, &lbar[1], mb, tt::kKc, v);
+  cp_async_commit();
+  cp_async_wait_all();
+  if (a.vec) mbar_wait(&lbar[0], 0);
+  __syncthreads();
+  {
+    const TransformPlane tp = transform_plane(a, m, 0);
+    for (int slice = 0; slice < kSlices; ++slice) transform_slice(a, tp, lbuf, pbuf, v, slice);
+  }
+  for (int k = 0; k < nk; ++k) {
+    cp_async_wait_all();
+    if (WGMMA) fence_proxy_async();
+    __syncthreads();  // chunk k's planes are in; chunk k + 1 has landed; every warp is done
+                      // with chunk k - 1
+    if (k + 1 < nk) issue_weights(wbuf + ((k + 1) & 1) * wfl, wimg + (k + 1) * wfl, G,
+                                  &wbar[(k + 1) & 1]);
+    if (k + 2 < nk)
+      issue_operand(a, map, lbuf + (k & 1) * lfl, &lbar[k & 1], mb, (k + 2) * tt::kKc, v);
+    cp_async_commit();
+    // chunk k + 1's transform, a slice after each tap column of chunk k's products
+    const bool more = k + 1 < nk;
+    const TransformPlane tp = transform_plane(a, m, more ? (k + 1) * tt::kKc : 0);
+    auto between = [&](int kw) {
+      if (!more) return;
+      if (kw == 0 && a.vec) mbar_wait(&lbar[(k + 1) & 1], ((k + 1) >> 1) & 1);
+      transform_slice(a, tp, lbuf + ((k + 1) & 1) * lfl, pbuf + ((k + 1) & 1) * pfl, v, kw);
+    };
+    const float* wst = wbuf + (k & 1) * wfl;
+    const float* planes = pbuf + (k & 1) * pfl;
+    mbar_wait(&wbar[k & 1], (k >> 1) & 1);  // chunk k's weights are in
+    if constexpr (WGMMA) {
+      chunk_products_wgmma(acc, part, wst, planes, wn * 72, wk, v.pa, v.tile_w, between);
+    } else {
+      const uint32_t* wh = reinterpret_cast<const uint32_t*>(wst) + (wm * 16 * MT + g) * 4 + tig;
+      const uint32_t* oph = reinterpret_cast<const uint32_t*>(planes);
+      chunk_products_mma<MT, NT, WK>(acc, part, wh, wh + wfl / 2, oph, oph + tt::kKq * v.pa * 4,
+                                     b_lane, wk, G, v.pa, v.tile_w, between);
+    }
+  }
+  __syncthreads();  // every warp is done with the buffers, which are overlaid below
+  // the K halves' sums: the second half's through shared memory (red), then
+  // the first half's warps hold the outputs
+  constexpr int kRed = WK > 1 ? 8 * MT * NT * 4 * 32 : 0;
+  if (WK > 1) {
+    float* const red = reinterpret_cast<float*>(smem) + (warp % 8) * (MT * NT * 4 * 32);
+    if (wk > 0) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) red[((mt * NT + n) * 4 + e) * 32 + lane] = acc[mt][n][e];
+    }
+    __syncthreads();
+    if (!POOL && wk > 0) return;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[mt][n][e] = __fadd_rn(acc[mt][n][e], red[((mt * NT + n) * 4 + e) * 32 + lane]);
+  }
+  // this lane's outputs: rows row0 + mt * 16 + h * 8 of the group, slots
+  // slot(n, c2)
   float bv[MT][2];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
@@ -764,96 +1101,139 @@ conv_tiled_tf32_kernel(const __grid_constant__ TiledArgs a) {
       bv[mt][h] = a.b[(size_t)m * a.b_ms + min(co0 + row0 + mt * 16 + h * 8, a.co - 1)];
 
   if (POOL) {
-    __syncthreads();  // the dense map overwrites the buffers
-    float* const sd = reinterpret_cast<float*>(smem);
-    if (wp.active) {
+    float* const sd = reinterpret_cast<float*>(smem) + kRed;  // the dense map [G][npos]
 #pragma unroll
-      for (int n = 0; n < kNt; ++n) {
-        if (n >= wp.nt) continue;
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-        for (int c2 = 0; c2 < 2; ++c2) {
-          const int p = (wp.wn * wp.nt + n) * 8 + 2 * tig + c2;
-          if (p >= npos) continue;
-          const int ly = p / a.tw, y = oy + ly, x = ox + p - ly * a.tw;
-          const bool inside = y >= 0 && y < a.H && x >= 0 && x < a.W;
+      for (int c2 = 0; c2 < 2; ++c2) {
+        int ly, lx;
+        if (wk > 0 || !place(slot(n, c2), ly, lx)) continue;
+        const int y = v.oy + ly, x = v.ox + lx;
+        const bool inside = y >= 0 && y < a.H && x >= 0 && x < a.W;
 #pragma unroll
-          for (int mt = 0; mt < MT; ++mt)
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int k = row0 + mt * 16 + h * 8;
-              if (k < rows)
-                sd[k * npos + p] =
-                    inside ? __fadd_rn(acc[mt][n][h * 2 + c2], bv[mt][h]) : -CUDART_INF_F;
-            }
-        }
+          for (int h = 0; h < 2; ++h)
+            sd[(row0 + mt * 16 + h * 8) * npos + ly * a.tw + lx] =
+                inside ? __fadd_rn(acc[mt][n][h * 2 + c2], bv[mt][h]) : -CUDART_INF_F;
       }
-    }
     __syncthreads();
-    const int valid = min(kTiledGroup, a.co - co0), per = a.ph * a.pw;
-    for (int i = threadIdx.x; i < valid * per; i += kThreads) {
+    const int valid = min(G, a.co - co0), per = a.ph * a.pw;
+    for (int i = threadIdx.x; i < valid * per; i += tt::kThreads) {
       const int k = i / per, rem = i - k * per, ly = rem / a.pw, lx = rem - ly * a.pw;
       const int py = tr * a.ph + ly, px = tc * a.pw + lx;
       if (py >= a.Ho || px >= a.Wo) continue;
       const float* d = sd + k * npos + 2 * ly * a.tw + 2 * lx;
-      float v = -CUDART_INF_F;
+      float u = -CUDART_INF_F;
       for (int dy = 0; dy < 3; ++dy)
-        for (int dx = 0; dx < 3; ++dx) v = fmaxf(v, d[dy * a.tw + dx]);
-      a.out[((mb * a.co + co0 + k) * a.Ho + py) * a.Wo + px] = v;
+        for (int dx = 0; dx < 3; ++dx) u = fmaxf(u, d[dy * a.tw + dx]);
+      a.out[((mb * a.co + co0 + k) * a.Ho + py) * a.Wo + px] = u;
     }
     return;
   }
-  if (!wp.active) return;
-  // the epilogue: kE n8 tiles at a time, every residual load issued before
-  // the first is used (res may be out: each value is read, then written, by
-  // this thread alone)
+  // the epilogue: every residual load issued before the first is used (res
+  // may be out: each value is read, then written, by this thread alone)
   const size_t plane = (size_t)a.H * a.W;
+  int goff[NT][2];
+  float rv[NT][2][MT][2];
 #pragma unroll
-  for (int n0 = 0; n0 < kNt; n0 += kE) {
-    if (n0 >= wp.nt) break;
-    int goff[kE][2];
-    float rv[kE][2][MT][2];
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int u = 0; u < kE; ++u)
+    for (int c2 = 0; c2 < 2; ++c2) {
+      int ly, lx;
+      const bool in_tile = place(slot(n, c2), ly, lx);
+      const int y = v.oy + ly, x = v.ox + lx;
+      goff[n][c2] = in_tile && y < a.H && x < a.W ? y * a.W + x : -1;
 #pragma unroll
-      for (int c2 = 0; c2 < 2; ++c2) {
-        const int p = (wp.wn * wp.nt + n0 + u) * 8 + 2 * tig + c2;
-        const int ly = p / a.tw, y = oy + ly, x = ox + p - ly * a.tw;
-        goff[u][c2] = p < npos && y < a.H && x < a.W ? y * a.W + x : -1;
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
+        for (int h = 0; h < 2; ++h) {
+          const int co = co0 + row0 + mt * 16 + h * 8;
+          rv[n][c2][mt][h] = a.res != nullptr && goff[n][c2] >= 0 && co < a.co
+                                 ? a.res[(mb * a.co + co) * plane + goff[n][c2]]
+                                 : 0.f;
+        }
+    }
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int co = co0 + row0 + mt * 16 + h * 8;
-            rv[u][c2][mt][h] = a.res != nullptr && goff[u][c2] >= 0 && co < a.co
-                                   ? a.res[(mb * a.co + co) * plane + goff[u][c2]]
-                                   : 0.f;
-          }
-      }
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int u = 0; u < kE; ++u)
+    for (int c2 = 0; c2 < 2; ++c2) {
+      if (goff[n][c2] < 0) continue;
 #pragma unroll
-      for (int c2 = 0; c2 < 2; ++c2) {
-        if (goff[u][c2] < 0) continue;
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int co = co0 + row0 + mt * 16 + h * 8;
-            if (co >= a.co) continue;
-            float v = __fadd_rn(acc[mt][n0 + u][h * 2 + c2], bv[mt][h]);
-            if (a.res != nullptr) v = __fadd_rn(rv[u][c2][mt][h], v);
-            a.out[(mb * a.co + co) * plane + goff[u][c2]] = v;
-          }
-      }
-  }
+        for (int h = 0; h < 2; ++h) {
+          const int co = co0 + row0 + mt * 16 + h * 8;
+          if (co >= a.co) continue;
+          float u = __fadd_rn(acc[mt][n][h * 2 + c2], bv[mt][h]);
+          if (a.res != nullptr) u = __fadd_rn(rv[n][c2][mt][h], u);
+          a.out[(mb * a.co + co) * plane + goff[n][c2]] = u;
+        }
+    }
 }
 
-cudaError_t allow_smem(const void* kernel, bool* done) {
+cudaError_t allow_smem(const void* kernel, bool* done, int bytes = kMaxSmem) {
   if (*done) return cudaSuccess;
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   *done = err == cudaSuccess;
   return err;
+}
+
+cudaError_t split_weights(const float* w, float* img, int MJ, int co, int ci, int group,
+                          cudaStream_t stream) {
+  const long long rows =
+      (long long)MJ * tt::cdiv(co, group) * tt::cdiv(ci, tt::kKc) * 9 * tt::kKq * group;
+  const long long blocks = (rows + 255) / 256 < 132 * 16 ? (rows + 255) / 256 : 132 * 16;
+  split_weights_kernel<<<unsigned(blocks), 256, 0, stream>>>(w, img, MJ, co, ci, group);
+  return cudaGetLastError();
+}
+
+// The tensor map of a.in as [planes][H][W] f32 (M B ci planes) whose box is a
+// chunk's landing tile (kKc planes x th + 2 rows x landing_width columns),
+// zero outside; a.vec (W % 4 == 0, a.in 16-byte aligned) is the caller's.
+cudaError_t operand_map(const TiledArgs& a, int M, CUtensorMap* map) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode),
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return cudaErrorInvalidValue;
+  }
+  const cuuint64_t dims[3] = {(cuuint64_t)a.W, (cuuint64_t)a.H, (cuuint64_t)M * a.B * a.ci};
+  const cuuint64_t strides[2] = {(cuuint64_t)a.W * 4, (cuuint64_t)a.H * a.W * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)tt::landing_width(a.tw), (cuuint32_t)a.th + 2,
+                             (cuuint32_t)tt::kKc};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(a.in), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+                 CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
+// The res stage's form (wgmma, m64n72 a warpgroup, K halves) or the feature
+// pool's (mma.sync, a warp 2 m16 tiles x 5 n8 tiles, K halves).
+template <bool POOL>
+cudaError_t launch_tiled(const TiledArgs& a, int M, cudaStream_t stream) {
+  void (*kernel)(const TiledArgs, const CUtensorMap);
+  if constexpr (POOL)
+    kernel = &conv_tiled_tf32_kernel<2, 5, 2, true, false>;
+  else
+    kernel = &conv_tiled_tf32_kernel<1, 9, 2, false, true>;
+  static bool smem_set = false;
+  cudaError_t err = allow_smem((const void*)kernel, &smem_set, int(tt::kSmemMax));
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)M * a.B * a.ntiles;
+  const long long groups = tt::cdiv(a.co, POOL ? tt::kPoolGroup : tt::kResGroup);
+  if (blocks > 0x7fffffffLL || groups > 65535) return cudaErrorInvalidValue;
+  CUtensorMap map = {};
+  if (a.vec && (err = operand_map(a, M, &map)) != cudaSuccess) return err;
+  kernel<<<dim3(unsigned(blocks), unsigned(groups)), tt::kThreads,
+           size_t(tt::smem_bytes(POOL, a.th, a.tw)), stream>>>(a, map);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -915,66 +1295,75 @@ extern "C" int dfd_feat_pool_tf32(const float* x, const float* w, const float* b
   return (int)cudaGetLastError();
 }
 
-namespace {
-
-template <bool POOL>
-cudaError_t launch_tiled(const TiledArgs& a, int M, cudaStream_t stream) {
-  const bool one = m_tiles(min(a.co, kTiledGroup)) == 1;
-  void (*kernel)(const TiledArgs) =
-      one ? &conv_tiled_tf32_kernel<1, POOL> : &conv_tiled_tf32_kernel<2, POOL>;
-  static bool smem_set[2] = {false, false};
-  cudaError_t err = allow_smem((const void*)kernel, &smem_set[one ? 0 : 1]);
-  if (err != cudaSuccess) return err;
-  const long long blocks = (long long)M * a.B * a.ntiles;
-  const long long groups = (a.co + kTiledGroup - 1) / kTiledGroup;
-  if (blocks > 0x7fffffffLL || groups > 65535) return cudaErrorInvalidValue;
-  kernel<<<dim3(unsigned(blocks), unsigned(groups)), kThreads,
-           tiled_smem(a.co, a.th, a.tw, POOL), stream>>>(a);
-  return cudaGetLastError();
-}
-
-}  // namespace
-
-// The res stage where no cluster holds a band (or C > 256): four tiled
-// launches of th x tw outputs a block, the plan of
-// fused_resblock.res_stage_tf32_plan's tiled form, refused unless it is
-// tiled_res_plan's.  scratch is a [M, B, C, H, W] buffer of the caller's.
+// The res stage where no cluster holds a band (or C > 256): the four convs'
+// weights split into wimg (M * 4 * tiled_tf32::conv_image_floats(C, C, 64)
+// floats; unless split is 0, when wimg already holds w's image), then four
+// tiled launches of th x tw outputs a block, each conv's
+// output in device memory: scratch <- conv0(x); out <- x + conv1(scratch);
+// scratch <- conv2(out); out <- out + conv3(scratch).  The block input is
+// never overwritten; a conv that adds its residual to out reads and writes
+// each value of it on one thread.  The plan is fused_resblock.
+// res_stage_tf32_plan's tiled form, refused unless it is tiled_tf32::
+// res_plan's.  wimg and scratch ([M, B, C, H, W]) are the caller's.
 extern "C" int dfd_res_stage_tiled_tf32(const float* x, const float* w, const float* b,
-                                        const float* s, const float* t, float* scratch, float* out,
-                                        int M, int B, int C, int H, int W, int th, int tw,
-                                        void* stream) {
+                                        const float* s, const float* t, float* wimg,
+                                        float* scratch, float* out, int M, int B, int C, int H,
+                                        int W, int th, int tw, int split, void* stream) {
   if (M <= 0 || B <= 0 || C <= 0 || H <= 0 || W <= 0) return (int)cudaSuccess;
   int pth = 0, ptw = 0;
-  tiled_res_plan(C, H, W, &pth, &ptw);
+  tt::res_plan(H, W, &pth, &ptw);
   if (pth != th || ptw != tw) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  return (int)res_stage_passes(tiled_args(B, C, C, H, W, th, tw, 0, 0), x, w, b, s, t, scratch,
-                               out, C, [&](const TiledArgs& a) {
-                                 return launch_tiled<false>(a, M, st);
-                               });
+  cudaError_t err = split ? split_weights(w, wimg, M * 4, C, C, tt::kResGroup, st) : cudaSuccess;
+  if (err != cudaSuccess) return (int)err;
+  const long long conv = tt::conv_image_floats(C, C, tt::kResGroup);
+  TiledArgs a = tiled_args(B, C, C, H, W, th, tw, 0, 0);
+  a.w_ms = 4 * conv;
+  a.b_ms = a.st_ms = 4 * C;
+  a.relu = 1;
+  const float* in[4] = {x, scratch, out, scratch};
+  float* dst[4] = {scratch, out, scratch, out};
+  const float* res[4] = {nullptr, x, nullptr, out};
+  for (int j = 0; j < 4; ++j) {
+    a.in = in[j];
+    a.vec = W % 4 == 0 && aligned16(in[j]);
+    a.out = dst[j];
+    a.res = res[j];
+    a.w = wimg + j * conv;
+    a.b = b + (size_t)j * C;
+    a.s = s + (size_t)j * C;
+    a.t = t + (size_t)j * C;
+    err = launch_tiled<false>(a, M, st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 // The feature pool where no band of pooled rows fits a block (or co > 256):
-// one tiled launch of ph x pw pooled outputs a block, refused unless the
-// plan is tiled_feat_plan's.
+// the weights split into wimg (M * tiled_tf32::conv_image_floats(ci, co,
+// 32) floats; unless split is 0), then one tiled launch of ph x pw pooled
+// outputs a block, refused unless the plan is tiled_tf32::feat_plan's.
 extern "C" int dfd_feat_pool_tiled_tf32(const float* x, const float* w, const float* b,
-                                        const float* s, const float* t, float* out, int M, int B,
-                                        int ci, int co, int H, int W, int ph, int pw,
-                                        void* stream) {
+                                        const float* s, const float* t, float* wimg, float* out,
+                                        int M, int B, int ci, int co, int H, int W, int ph, int pw,
+                                        int split, void* stream) {
   if (M <= 0 || B <= 0 || ci <= 0 || co <= 0 || H <= 0 || W <= 0) return (int)cudaSuccess;
   int pph = 0, ppw = 0;
-  tiled_feat_plan(co, H, W, &pph, &ppw);
+  tt::feat_plan(H, W, &pph, &ppw);
   if (pph != ph || ppw != pw) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = split ? split_weights(w, wimg, M, co, ci, tt::kPoolGroup, st) : cudaSuccess;
+  if (err != cudaSuccess) return (int)err;
   TiledArgs a = tiled_args(B, ci, co, H, W, 2 * ph + 1, 2 * pw + 1, ph, pw);
   a.in = x;
-  a.w = w;
+  a.vec = W % 4 == 0 && aligned16(x);
+  a.w = wimg;
   a.b = b;
   a.s = s;
   a.t = t;
   a.out = out;
-  a.w_ms = (long long)co * 9 * ci;
+  a.w_ms = tt::conv_image_floats(ci, co, tt::kPoolGroup);
   a.b_ms = co;
   a.st_ms = ci;
-  a.vec = ci % 4 == 0 && aligned16(w);
-  return (int)launch_tiled<true>(a, M, (cudaStream_t)stream);
+  return (int)launch_tiled<true>(a, M, st);
 }

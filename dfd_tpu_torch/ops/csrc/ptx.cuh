@@ -1,6 +1,7 @@
 // The PTX wrappers the port's tensor-core and copy kernels share: cp.async
-// into shared memory, and the 3xTF32 arithmetic (the cvt.rna hi/lo split and
-// the m16n8k8 TF32 product).  Included by fused_resblock_tf32.cu,
+// into shared memory, Hopper's bulk copies on mbarriers, the 3xTF32
+// arithmetic (the cvt.rna hi/lo split and the m16n8k8 TF32 product), and
+// Hopper's warpgroup TF32 product (wgmma) with its descriptors and fences.  Included by fused_resblock_tf32.cu,
 // fused_resblock_mma.cu, gemm_chain.cu, res_chain.cu and relayout.cu;
 // ops/build.py hashes this header into every library's name, so an edit here
 // rebuilds them all.
@@ -52,6 +53,96 @@ __device__ __forceinline__ uint2 split(float a) {
   uint2 h;
   split(a, h.x, h.y);
   return h;
+}
+
+// Hopper's bulk copies: the tensor memory accelerator copies bytes (a
+// multiple of 16, both addresses 16-byte aligned) from global to shared
+// memory and completes them on an mbarrier in shared memory, which a thread
+// has armed with the bytes to expect; waiters test the barrier's phase.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
+}
+
+// A tensor map's box at coordinates (x, y, z) (innermost first; outside the
+// tensor reads zero) into dst, 128-byte aligned, completing on bar, which
+// this thread arms with the box's bytes.
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* map, int x, int y, int z,
+                                            uint32_t bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n"
+      ::"r"(smem_addr(dst)), "l"(map), "r"(x), "r"(y), "r"(z), "r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra LAB_WAIT;\n}\n" ::"r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+// Hopper's warpgroup products (sm_90a): a descriptor of an operand tile in
+// shared memory in the no-swizzle core-matrix layout (8 rows x 16 bytes,
+// rows 16 bytes apart): lbo bytes between the two core matrices of a k8
+// step, sbo bytes between groups of 8 rows.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
+         (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving a read or write of v across a wgmma wait.
+__device__ __forceinline__ void fence_operand(float& v) { asm volatile("" : "+f"(v)::"memory"); }
+
+// Orders this thread's generic writes to shared memory before the async
+// proxy's (wgmma's) reads of it.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// D[64 x 72] (+)= A[64 x 8] * B[8 x 72] on the tensor cores, A and B TF32 in shared
+// memory (descriptors), D f32 in registers; D starts from zero where scale_d is 0.
+__device__ __forceinline__ void wgmma_n72(float (&d)[36], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, "
+      "%9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, "
+      "%27, %28, %29, %30, %31, %32, %33, %34, %35"
+      "}, %36, %37, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
 __device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const uint32_t b[2]) {

@@ -42,11 +42,17 @@ chosen by its launch plan (:func:`res_stage_tf32_plan`,
   of rows with every channel in shared memory (and, in f32, at most 256
   output channels): the whole stage or feature block in one launch;
 - the tiled form everywhere else (a :class:`TiledPlan`): each conv an
-  implicit GEMM over tiles of outputs x 64 output channels with the input
-  channels streamed through shared memory, so any C, H and W runs.  The res
-  stage is then four launches, its convs' outputs in device memory (one
-  scratch buffer beside ``out``); the feature pool one.  Counted in
-  ``tiled_launches`` (f32) and ``tiled_mma_launches`` (bf16), one a call.
+  implicit GEMM over tiles of outputs x a group of output channels (64; the
+  f32 feature pool 32) with the input channels streamed through shared
+  memory, so any C, H and W runs.  The res stage is then four launches, its
+  convs' outputs in device memory (one scratch buffer beside ``out``); the
+  feature pool one.  In f32 the weights are split into TF32 hi and lo, into
+  an image of the kernels' layout (:func:`tf32_weight_image_plain` is its
+  plain version), once for each weight tensor the wrapper is given: the
+  image is kept while the same tensor object, unmodified, comes back on the
+  same stream (a rollout's steps reuse their prepared weights).  Counted
+  in ``tiled_launches`` (f32) and ``tiled_mma_launches`` (bf16), one a
+  call.
 
 :func:`fused_supported` (the TPU's lane rule ``H * W % 128 == 0``) is kept
 only as the IMPALA model's gate, so the port runs the same layers through
@@ -55,6 +61,7 @@ the kernels as the JAX package, at every shape it admits.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import NamedTuple, Optional, Tuple, Union
@@ -227,7 +234,7 @@ class TiledPlan(NamedTuple):
     smem: int
 
 
-TILED_KC = {"tf32": 8, "mma": 16}  # input channels of a chunk: one k8 / k16 step a tap
+TILED_KC = {"tf32": 16, "mma": 16}  # input channels of a chunk: two k8 / one k16 step a tap
 
 
 def _pad16(n: int) -> int:
@@ -327,26 +334,39 @@ def _feat_pool_mma_cluster(ci: int, co: int, H: int, W: int):
 
 # -- the tiled forms' plans ------------------------------------------------------------
 
+# The f32 tiled forms (csrc/tiled_tf32_plan.cuh): blocks of 16 warps, K in chunks of 16
+# input channels, two of each buffer; the res stage 64 output channels x 128 positions a
+# block (whose halo-padded rows fit 144), the feature pool 32 x 320 dense positions.
+TF32_TILED_KC, TF32_TILED_STAGES = TILED_KC["tf32"], 2
+TF32_RES_GROUP, TF32_RES_SLOTS, TF32_RES_HALO = 64, 128, 144
+TF32_POOL_GROUP, TF32_POOL_SLOTS = 32, 320
+TF32_TILED_SMEM_MAX = SMEM_MAX - 256  # the rest holds the kernel's static mbarriers
 
-def _tiled_geometry(route: str, co: int) -> Tuple[int, int]:
+
+def _mma_tiled_geometry(co: int) -> Tuple[int, int]:
     """(weight rows a block's warps read, positions they take at once) of a
-    tiled block of ``route`` ("tf32" or "mma") over ``co`` output channels."""
-    if route == "tf32":
-        return _tf32_tiles(min(co, FEAT_GROUP))
+    bf16 tiled block over ``co`` output channels."""
     return min(FEAT_GROUP, _pad16(co)), 256
 
 
 def _tiled_smem(route: str, co: int, th: int, tw: int, pool: bool) -> int:
-    """Shared bytes of a tiled block of th x tw conv outputs: the operand
-    tile with its halo and a chunk of weights (two of each in f32; in bf16
-    one f32 landing buffer of each and their bf16 copies), or the feature
-    pool's dense map over them, whichever is larger."""
-    rows, _ = _tiled_geometry(route, co)
-    npt, kc = (th + 2) * (tw + 2), TILED_KC[route]
+    """Shared bytes of a tiled block of th x tw conv outputs.  f32
+    (``tiled_tf32::smem_bytes``): two of each buffer for 16 input channels
+    (the raw operand tile landing in rows of 4-float pieces, its hi and lo
+    planes, the group's weights as hi and lo) from a 128-byte boundary, or
+    what overlays them after the products (the K halves' sums, then the
+    pool's dense map), whichever is larger.  bf16: one f32 landing buffer
+    of each and their bf16 copies, or the dense map."""
+    npt = (th + 2) * (tw + 2)
     if route == "tf32":
-        conv = 4 * (2 * npt * (kc + 4) + 2 * rows * (9 * kc + 4))
-    else:
-        conv = npt * (4 * (kc + 4) + 2 * (kc + 8)) + rows * (4 * (9 * kc + 4) + 2 * (9 * kc + 8))
+        group = TF32_POOL_GROUP if pool else TF32_RES_GROUP
+        landing = TF32_TILED_KC * (th + 2) * 4 * -(-(tw + 5) // 4)
+        planes = 2 * TF32_TILED_KC * (npt if pool else max(npt, TF32_RES_HALO + 2 * (tw + 2) + 2))
+        ring = 4 * TF32_TILED_STAGES * (landing + planes + 18 * TF32_TILED_KC * group) + 128
+        return max(ring, 4 * (8 * 32 * 40 + group * th * tw) if pool else 4 * 8 * 32 * 36)
+    rows, _ = _mma_tiled_geometry(co)
+    kc = TILED_KC[route]
+    conv = npt * (4 * (kc + 4) + 2 * (kc + 8)) + rows * (4 * (9 * kc + 4) + 2 * (9 * kc + 8))
     return max(conv, 4 * rows * th * tw if pool else 0)
 
 
@@ -356,20 +376,63 @@ def _spread(n: int, per: int) -> Tuple[int, int]:
     return -(-n // tiles), tiles
 
 
-@functools.lru_cache(maxsize=None)
-def res_stage_tiled_plan(C: int, H: int, W: int, route: str) -> TiledPlan:
-    """The tiled res stage's tile: as many whole image rows as the block's
-    warps cover at once (part of a row where W is wider), fewer rows, then
-    narrower, while the buffers do not fit; then spread evenly over the
-    frame.  The C entry computes the same (``tiled_res_plan``)."""
-    rows, cap = _tiled_geometry(route, C)
-    w = min(W, cap)
-    h = max(1, min(H, cap // w))
-    while _tiled_smem(route, C, h, w, False) > SMEM_MAX:
+def _res_tile_tf32(H: int, W: int) -> Tuple[int, int]:
+    """``tiled_tf32::res_plan`` before the spread: 16 columns (all of W where
+    it is narrower), as many rows as fill 128 positions (all of H where it is
+    shorter, the columns then widened to fill them), fewer rows (then
+    columns) while its halo-padded rows pass 144 positions or the buffers
+    do not fit."""
+    w = min(W, 16)
+    h = min(H, TF32_RES_SLOTS // w)
+    if h == H:
+        w = min(W, TF32_RES_SLOTS // h)
+    while h * (w + 2) - 2 > TF32_RES_HALO or \
+            _tiled_smem("tf32", TF32_RES_GROUP, h, w, False) > TF32_TILED_SMEM_MAX:
         if h > 1:
             h -= 1
         else:
-            w = max(1, w // 2)
+            w -= 1
+    return h, w
+
+
+def _pool_tile_tf32(H: int, W: int) -> Tuple[int, int]:
+    """``tiled_tf32::feat_plan`` before the spread: 8 x 8 pooled outputs (289
+    dense of the block's 320), a side short of 8 giving its positions to the
+    other, fewer while the ring does not fit."""
+    Ho, Wo = (H + 1) // 2, (W + 1) // 2
+    r, c = min(Ho, 8), min(Wo, 8)
+    if r < 8:
+        c = min(Wo, max(1, (TF32_POOL_SLOTS // (2 * r + 1) - 1) // 2))
+    elif c < 8:
+        r = min(Ho, max(1, (TF32_POOL_SLOTS // (2 * c + 1) - 1) // 2))
+    while (r > 1 or c > 1) and _tiled_smem("tf32", TF32_POOL_GROUP, 2 * r + 1, 2 * c + 1,
+                                            True) > TF32_TILED_SMEM_MAX:
+        if r >= c:
+            r -= 1
+        else:
+            c -= 1
+    return r, c
+
+
+@functools.lru_cache(maxsize=None)
+def res_stage_tiled_plan(C: int, H: int, W: int, route: str) -> TiledPlan:
+    """The tiled res stage's tile.  f32: ``tiled_tf32::res_plan``
+    (:func:`_res_tile_tf32`), then spread evenly over the frame.  bf16: as
+    many whole image rows as the block's warps cover at once (part of a row
+    where W is wider), fewer rows, then narrower, while the buffers do not
+    fit; then spread evenly.  The C entry computes the same."""
+    if route == "tf32":
+        h, w = _res_tile_tf32(H, W)
+        rows = TF32_RES_GROUP
+    else:
+        rows, cap = _mma_tiled_geometry(C)
+        w = min(W, cap)
+        h = max(1, min(H, cap // w))
+        while _tiled_smem(route, C, h, w, False) > SMEM_MAX:
+            if h > 1:
+                h -= 1
+            else:
+                w = max(1, w // 2)
     th, ntr = _spread(H, h)
     tw, ntc = _spread(W, w)
     return TiledPlan(th, tw, ntr * ntc, rows, TILED_KC[route], _tiled_smem(route, C, th, tw, False))
@@ -377,24 +440,59 @@ def res_stage_tiled_plan(C: int, H: int, W: int, route: str) -> TiledPlan:
 
 @functools.lru_cache(maxsize=None)
 def feat_pool_tiled_plan(ci: int, co: int, H: int, W: int, route: str) -> TiledPlan:
-    """The tiled feature pool's tile of pooled outputs: the widest run of
-    pooled columns whose dense columns, three dense rows of them, the warps
-    cover at once, then as many pooled rows as they take; fewer while the
-    buffers do not fit; then spread evenly.  The C entry computes the same
-    (``tiled_feat_plan``)."""
-    rows, cap = _tiled_geometry(route, co)
+    """The tiled feature pool's tile of pooled outputs.  f32:
+    ``tiled_tf32::feat_plan`` (:func:`_pool_tile_tf32`), then spread evenly.
+    bf16: the widest run of pooled columns whose dense columns, three dense
+    rows of them, the warps cover at once, then as many pooled rows as they
+    take; fewer while the buffers do not fit; then spread evenly.  The C
+    entry computes the same."""
     Ho, Wo = (H + 1) // 2, (W + 1) // 2
-    c = min(Wo, max(1, (cap // 3 - 1) // 2))
-    r = min(Ho, max(1, (cap // (2 * c + 1) - 1) // 2))
-    while _tiled_smem(route, co, 2 * r + 1, 2 * c + 1, True) > SMEM_MAX:
-        if r > 1:
-            r -= 1
-        else:
-            c = max(1, c // 2)
+    if route == "tf32":
+        r, c = _pool_tile_tf32(H, W)
+        rows = TF32_POOL_GROUP
+    else:
+        rows, cap = _mma_tiled_geometry(co)
+        c = min(Wo, max(1, (cap // 3 - 1) // 2))
+        r = min(Ho, max(1, (cap // (2 * c + 1) - 1) // 2))
+        while _tiled_smem(route, co, 2 * r + 1, 2 * c + 1, True) > SMEM_MAX:
+            if r > 1:
+                r -= 1
+            else:
+                c = max(1, c // 2)
     ph, ntr = _spread(Ho, r)
     pw, ntc = _spread(Wo, c)
     return TiledPlan(ph, pw, ntr * ntc, rows, TILED_KC[route],
                      _tiled_smem(route, co, 2 * ph + 1, 2 * pw + 1, True))
+
+
+def tf32_weight_image_floats(ci: int, co: int, group: int) -> int:
+    """Floats of one conv's f32 weight image for one member
+    (``tiled_tf32::conv_image_floats``): every group of ``group`` output
+    channels x every chunk of 16 input channels, each as hi and lo planes
+    [2, 9 taps, 4, group, 4]."""
+    return -(-co // group) * -(-ci // TF32_TILED_KC) * 2 * 9 * TF32_TILED_KC * group
+
+
+def _tf32_round(v: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value, ties away from zero (cvt.rna.tf32.f32)."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_weight_image_plain(w: torch.Tensor, ci: int, group: int) -> torch.Tensor:
+    """The f32 tiled forms' weight image (``split_weights_kernel``) of w
+    [..., co, 9 ci] in tap order: [..., groups, chunks, 2 (hi, lo), 9 taps,
+    4 planes, group rows, 4 channels], zero past co and ci, with hi =
+    tf32(w) and lo = tf32(w - hi)."""
+    lead, co = w.shape[:-2], w.shape[-2]
+    ng, nk, kc = -(-co // group), -(-ci // TF32_TILED_KC), TF32_TILED_KC
+    v = F.pad(w.reshape(*lead, co, 9, ci), (0, nk * kc - ci, 0, 0, 0, ng * group - co))
+    v = v.reshape(*lead, ng, group, 9, nk, kc // 4, 4)
+    n = len(lead)
+    v = v.permute(*range(n), n, n + 3, n + 2, n + 4, n + 1, n + 5)  # [ng, nk, 9, 4, group, 4]
+    hi = _tf32_round(v)
+    lo = _tf32_round(v - hi)
+    return torch.stack([hi, lo], dim=n + 2).contiguous()
 
 
 # -- each route's plan: the cluster form where it fits, else the tiled form -------------
@@ -434,12 +532,40 @@ def feat_pool_mma_plan(ci: int, co: int, H: int, W: int) -> Union[Tuple[int, int
 
 
 def _bind_tiled(lib: ctypes.CDLL, route: str) -> None:
+    """The tiled entries' arguments; the f32 ones take a weight image buffer
+    after t, and whether to split the weights into it before the plan."""
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     res = getattr(lib, f"dfd_res_stage_tiled_{route}")
     feat = getattr(lib, f"dfd_feat_pool_tiled_{route}")
-    res.argtypes = [vp] * 7 + [i32] * 7 + [vp]
-    feat.argtypes = [vp] * 6 + [i32] * 8 + [vp]
+    image = int(route == "tf32")
+    res.argtypes = [vp] * (7 + image) + [i32] * (7 + image) + [vp]
+    feat.argtypes = [vp] * (6 + image) + [i32] * (8 + image) + [vp]
     res.restype = feat.restype = i32
+
+
+# The f32 tiled forms' weight images, most recent last: a rollout passes the same
+# prepared weight tensors at every step (ImpalaPolicy.prepare), so their image is split
+# once and reused while the tensor is the same object at the same version on the same
+# stream.  Each entry holds its tensor, so no other tensor can take its memory.
+_IMAGES: "collections.OrderedDict" = collections.OrderedDict()
+_IMAGES_KEPT = 6
+
+
+def _weight_image(w: torch.Tensor, floats: int, stream: int) -> Tuple[torch.Tensor, bool]:
+    """(the image buffer for w, whether the kernel must split w into it);
+    a new buffer is kept by :func:`_keep_image` once its launch is in."""
+    hit = _IMAGES.get((id(w), stream))
+    if hit is not None and hit[0] is w and hit[1] == w._version and hit[2].numel() == floats:
+        _IMAGES.move_to_end((id(w), stream))
+        return hit[2], False
+    return torch.empty(floats, device=w.device), True
+
+
+def _keep_image(w: torch.Tensor, stream: int, image: torch.Tensor) -> None:
+    _IMAGES[(id(w), stream)] = (w, w._version, image)
+    _IMAGES.move_to_end((id(w), stream))
+    while len(_IMAGES) > _IMAGES_KEPT:
+        _IMAGES.popitem(last=False)
 
 
 @functools.lru_cache(maxsize=None)
@@ -488,12 +614,19 @@ def fused_res_stage(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, s: torch.
         ptrs = (x.data_ptr(), w.data_ptr(), b.data_ptr(), s.data_ptr(), t.data_ptr())
         if isinstance(plan, TiledPlan):
             scratch = torch.empty_like(x)  # the odd convs' outputs
-            entry = lib.dfd_res_stage_tiled_tf32 if f32 else lib.dfd_res_stage_tiled_mma
-            build.raise_on(entry(*ptrs, scratch.data_ptr(), out.data_ptr(), M, B, C, H, W,
-                                 plan.rows, plan.cols, stream), what + " (tiled)")
             if f32:
+                wimg, split = _weight_image(
+                    w, M * 4 * tf32_weight_image_floats(C, C, plan.group), stream)
+                build.raise_on(lib.dfd_res_stage_tiled_tf32(
+                    *ptrs, wimg.data_ptr(), scratch.data_ptr(), out.data_ptr(), M, B, C, H, W,
+                    plan.rows, plan.cols, int(split), stream), what + " (tiled)")
+                if split:
+                    _keep_image(w, stream, wimg)
                 fused_res_stage.tiled_launches += 1
             else:
+                build.raise_on(lib.dfd_res_stage_tiled_mma(
+                    *ptrs, scratch.data_ptr(), out.data_ptr(), M, B, C, H, W, plan.rows,
+                    plan.cols, stream), what + " (tiled)")
                 fused_res_stage.tiled_mma_launches += 1
         elif f32:
             cluster, band, wt, _ = plan
@@ -539,12 +672,18 @@ def fused_feat_pool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, s: torch.
         ptrs = (x.data_ptr(), w.data_ptr(), b.data_ptr(), s.data_ptr(), t.data_ptr(),
                 out.data_ptr())
         if isinstance(plan, TiledPlan):
-            entry = lib.dfd_feat_pool_tiled_tf32 if f32 else lib.dfd_feat_pool_tiled_mma
-            build.raise_on(entry(*ptrs, M, B, ci, co, H, W, plan.rows, plan.cols, stream),
-                           what + " (tiled)")
             if f32:
+                wimg, split = _weight_image(
+                    w, M * tf32_weight_image_floats(ci, co, plan.group), stream)
+                build.raise_on(lib.dfd_feat_pool_tiled_tf32(
+                    *ptrs[:5], wimg.data_ptr(), ptrs[5], M, B, ci, co, H, W, plan.rows,
+                    plan.cols, int(split), stream), what + " (tiled)")
+                if split:
+                    _keep_image(w, stream, wimg)
                 fused_feat_pool.tiled_launches += 1
             else:
+                build.raise_on(lib.dfd_feat_pool_tiled_mma(
+                    *ptrs, M, B, ci, co, H, W, plan.rows, plan.cols, stream), what + " (tiled)")
                 fused_feat_pool.tiled_mma_launches += 1
         elif f32:
             pb, _, wt, _ = plan

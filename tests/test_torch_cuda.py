@@ -285,8 +285,9 @@ def test_fused_routes_follow_compute_dtype(cuda, monkeypatch):
     # and so do the tiled entry points, in both routes
     plan = fr.res_stage_tiled_plan(8, 16, 16, "tf32")
     x, w, b, s, t = res
-    ptrs = [v.data_ptr() for v in (x, w, b, s, t, torch.empty_like(x), out)]
-    assert tf32().dfd_res_stage_tiled_tf32(*ptrs, 2, 1, 8, 16, 16, plan.rows + 1, plan.cols,
+    wimg = torch.empty(2 * 4 * fr.tf32_weight_image_floats(8, 8, plan.group), device=cuda)
+    ptrs = [v.data_ptr() for v in (x, w, b, s, t, wimg, torch.empty_like(x), out)]
+    assert tf32().dfd_res_stage_tiled_tf32(*ptrs, 2, 1, 8, 16, 16, plan.rows + 1, plan.cols, 1,
                                           stream) != 0
     plan = fr.feat_pool_tiled_plan(8, 16, 16, 16, "mma")
     x, w, b, s, t = feat
@@ -1758,6 +1759,31 @@ def test_tiled_forms_match_plain(cuda, kind, shape):
     before = getattr(kernel, attr)
     _check_fused(kind, shape, cuda)
     assert getattr(kernel, attr) == before + 1
+
+
+def test_tiled_weight_image_is_kept_until_the_weights_change(cuda):
+    """The f32 tiled forms split a weight tensor into its image once and
+    keep it while the same tensor comes back unmodified: a second call
+    splits nothing and gives the same output; after an in-place change of
+    the weights the next call splits them again and matches the plain
+    version; another tensor with the same values gets its own image."""
+    shape = (2, 1, 16, 16, 128, 128)  # a frame no cluster holds: the tiled form
+    M, B, ci, co, H, W = shape
+    x, w, b, s, t = _fused_args("res", M, B, ci, co, H, W, cuda)
+    assert isinstance(fr.res_stage_tf32_plan(ci, H, W), fr.TiledPlan)
+    first = fr.fused_res_stage(x, w, b, s, t)
+    key = next(k for k, v in fr._IMAGES.items() if v[0] is w)
+    image = fr._IMAGES[key][2].clone()
+    torch.testing.assert_close(fr.fused_res_stage(x, w, b, s, t), first, rtol=0, atol=0)
+    assert torch.equal(fr._IMAGES[key][2], image)
+    w.mul_(0.5)
+    got = fr.fused_res_stage(x, w, b, s, t)
+    want = fr.fused_res_stage_plain(x, w, b, s, t)
+    assert (got - want).abs().max().item() <= 1e-5 * max(1.0, want.abs().max().item())
+    assert not torch.equal(fr._IMAGES[key][2], image)
+    other = w.clone()
+    torch.testing.assert_close(fr.fused_res_stage(x, other, b, s, t), got, rtol=0, atol=0)
+    assert any(v[0] is other for v in fr._IMAGES.values())
 
 
 @pytest.mark.parametrize("n_links", [1, 2, 4, 6, 8, 11, 12, 15, 32, 64])

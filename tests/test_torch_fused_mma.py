@@ -12,9 +12,15 @@ fits an H100 block, and what cannot fit raises.  On CPU tensors both
 wrappers run their plain versions in either type and count no launch.
 """
 
+import ctypes
+import shutil
+import subprocess
+
+import numpy as np
 import pytest
 import torch
 
+from dfd_tpu_torch.ops import build
 from dfd_tpu_torch.ops import fused_resblock as fr
 
 # (C, H, W): impala_prod_bf16's res stages, the bf16 reference check's, ragged ones
@@ -136,16 +142,157 @@ def test_flagship_f32_plans_fill_the_card():
 def test_tf32_plans_refuse_what_does_not_fit():
     """What no cluster of f32 blocks holds (a band of 4000 columns, more than
     256 channels, a feature pool of 512 input channels at W = 512) goes to
-    the tiled form: tiles that cover the frame, whose dense positions one
-    chunk of the warps takes, in a block's shared memory."""
+    the tiled form: tiles that cover the frame, whose (dense) positions the
+    block's warps take at once (128 in the res stage, 320 in the pool), 64
+    or 32 output channels a block, K in chunks of 16 input channels, in a
+    block's shared memory."""
     for C, H, W in ((16, 8, 4000), (257, 16, 16)):
         plan = fr.res_stage_tf32_plan(C, H, W)
         _tiles_cover(plan, H, W, feat=False)
-        assert plan.rows * plan.cols <= fr._tf32_tiles(min(C, 64))[1] and plan.kc == 8
+        assert plan.rows * plan.cols <= fr.TF32_RES_SLOTS and plan.kc == 16
+        assert plan.group == fr.TF32_RES_GROUP
     for ci, co, H, W in ((512, 64, 16, 512), (16, 300, 16, 16)):
         plan = fr.feat_pool_tf32_plan(ci, co, H, W)
         _tiles_cover(plan, H, W, feat=True)
-        assert (2 * plan.rows + 1) * (2 * plan.cols + 1) <= fr._tf32_tiles(min(co, 64))[1]
+        assert (2 * plan.rows + 1) * (2 * plan.cols + 1) <= fr.TF32_POOL_SLOTS and plan.kc == 16
+        assert plan.group == fr.TF32_POOL_GROUP
+
+
+# impala_128px's three tiled calls at its chunk of M = 16 members, one frame each
+FLAGSHIP_128 = [("res", 64, 64, 64, 64), ("feat", 64, 128, 64, 64), ("res", 128, 128, 32, 32)]
+SMS, WARPS_A_BLOCK = 132, 16
+
+
+@pytest.mark.parametrize("kind, ci, co, H, W", FLAGSHIP_128,
+                         ids=["res-64@64x64", "feat-64to128@64x64", "res-128@32x32"])
+def test_tiled_tf32_plans_fill_the_card_at_128_pixels(kind, ci, co, H, W):
+    """At impala_128px's shapes (M = 16) the f32 tiled forms launch at least
+    132 x 16 warps of work (two 8-warp blocks' worth an SM; a block is 16
+    warps, one an SM), in a block's shared memory; the feature pool's tile
+    computes at most 4.6 dense conv outputs a pooled one (the 3 x 65-dense
+    tiles before: 6.09)
+    and leaves at most a tenth of the warps' position slots past it; the
+    res stage's fills its 128 slots."""
+    M = 16
+    if kind == "res":
+        plan = fr.res_stage_tf32_plan(ci, H, W)
+        slots, used = fr.TF32_RES_SLOTS, plan.rows * plan.cols
+    else:
+        plan = fr.feat_pool_tf32_plan(ci, co, H, W)
+        slots, used = fr.TF32_POOL_SLOTS, (2 * plan.rows + 1) * (2 * plan.cols + 1)
+        assert used / (plan.rows * plan.cols) <= 4.6
+    assert isinstance(plan, fr.TiledPlan) and plan.smem <= fr.TF32_TILED_SMEM_MAX
+    assert used <= slots and (slots - used) <= 0.1 * slots
+    blocks = M * plan.tiles * -(-co // plan.group)
+    assert blocks * WARPS_A_BLOCK >= SMS * 16
+
+
+@pytest.fixture(scope="module")
+def plan_header(tmp_path_factory):
+    """``csrc/tiled_tf32_plan.cuh`` compiled by g++ behind a C interface."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the plan's header for the host")
+    d = tmp_path_factory.mktemp("tiled_tf32_plan")
+    (d / "plan.cc").write_text(
+        '#include "tiled_tf32_plan.cuh"\n'
+        'namespace tt = tiled_tf32;\n'
+        'extern "C" void res_plan(int H, int W, int* th, int* tw) { tt::res_plan(H, W, th, tw); }\n'
+        'extern "C" void feat_plan(int H, int W, int* ph, int* pw) { tt::feat_plan(H, W, ph, pw); }\n'
+        'extern "C" long long smem_bytes(int pool, int th, int tw) {\n'
+        '  return tt::smem_bytes(pool != 0, th, tw); }\n'
+        'extern "C" long long conv_image_floats(int ci, int co, int group) {\n'
+        '  return tt::conv_image_floats(ci, co, group); }\n'
+        'extern "C" long long image_offset(int ci, int group, int o, int tap, int c) {\n'
+        '  return tt::image_offset(ci, group, o, tap, c); }\n')
+    lib = d / "libplan.so"
+    subprocess.run([gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I", str(build.CSRC), "-o",
+                    str(lib), str(d / "plan.cc")], check=True, capture_output=True)
+    host = ctypes.CDLL(str(lib))
+    i32, i64, ip = ctypes.c_int, ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)
+    host.res_plan.argtypes = host.feat_plan.argtypes = [i32, i32, ip, ip]
+    host.smem_bytes.argtypes = [i32] * 3
+    host.conv_image_floats.argtypes = [i32] * 3
+    host.image_offset.argtypes = [i32] * 5
+    host.smem_bytes.restype = host.conv_image_floats.restype = host.image_offset.restype = i64
+    return host
+
+
+# (H, W) for the host plan comparison: the flagship's, ragged and extreme frames
+HOST_PLAN_FRAMES = [(64, 64), (32, 32), (16, 16), (200, 150), (8, 4000), (61, 1001), (1, 1),
+                    (1, 300), (300, 1), (2, 150), (3, 7), (128, 128), (192, 192), (9, 13),
+                    (17, 33), (1000, 2), (2, 1000), (5, 128), (127, 129)]
+
+
+@pytest.mark.parametrize("H, W", HOST_PLAN_FRAMES)
+def test_tiled_tf32_plan_in_python_is_the_c_plan(plan_header, H, W):
+    """The Python plans and shared bytes are the C entries' own
+    (``tiled_tf32::res_plan``, ``feat_plan``, ``smem_bytes``), compiled
+    here from the header the kernels include; the res stage's halo-padded
+    rows fit its two warpgroups' 144 positions."""
+    th, tw = ctypes.c_int(), ctypes.c_int()
+    plan = fr.res_stage_tiled_plan(64, H, W, "tf32")
+    plan_header.res_plan(H, W, ctypes.byref(th), ctypes.byref(tw))
+    assert (plan.rows, plan.cols) == (th.value, tw.value)
+    assert plan.rows * (plan.cols + 2) - 2 <= fr.TF32_RES_HALO
+    assert plan.smem == plan_header.smem_bytes(0, th.value, tw.value) <= fr.TF32_TILED_SMEM_MAX
+    plan = fr.feat_pool_tiled_plan(16, 64, H, W, "tf32")
+    plan_header.feat_plan(H, W, ctypes.byref(th), ctypes.byref(tw))
+    assert (plan.rows, plan.cols) == (th.value, tw.value)
+    assert plan.smem == plan_header.smem_bytes(1, 2 * th.value + 1, 2 * tw.value + 1) \
+        <= fr.TF32_TILED_SMEM_MAX
+
+
+@pytest.mark.parametrize("ci, co, group", [(64, 64, 64), (128, 128, 64), (64, 128, 32),
+                                           (6, 20, 32), (264, 264, 64), (16, 300, 32)])
+def test_tf32_weight_image_layout_is_the_c_layout(plan_header, ci, co, group):
+    """Every weight of the plain image (``tf32_weight_image_plain``) sits
+    where the C side's ``image_offset`` puts it, hi then lo, and the image's
+    size is ``conv_image_floats``'s; the rest of it is zero."""
+    w = torch.arange(1, co * 9 * ci + 1, dtype=torch.float32).reshape(co, 9 * ci)
+    img = fr.tf32_weight_image_plain(w, ci, group).reshape(-1)
+    assert img.numel() == fr.tf32_weight_image_floats(ci, co, group) \
+        == plan_header.conv_image_floats(ci, co, group)
+    half = 9 * fr.TF32_TILED_KC * group
+    o, tap, c = np.meshgrid(np.arange(co), np.arange(9), np.arange(ci), indexing="ij")
+    off = np.vectorize(plan_header.image_offset)(ci, group, o, tap, c).reshape(-1)
+    want = w.reshape(co, 9, ci).reshape(-1)
+    hi = img[torch.from_numpy(off)]
+    lo = img[torch.from_numpy(off + half)]
+    assert torch.equal(hi + lo, want)  # an integer below 2^22 is two TF32 values exactly
+    mask = torch.ones_like(img, dtype=torch.bool)
+    mask[torch.from_numpy(off)] = False
+    mask[torch.from_numpy(off + half)] = False
+    assert not img[mask].any()
+
+
+def test_tf32_weight_image_is_split_once_per_tensor():
+    """The f32 tiled wrappers' image of a weight tensor is split again only
+    when the tensor is another object, was changed in place, or comes on
+    another stream; the newest few are kept."""
+    fr._IMAGES.clear()
+
+    def image_of(w, floats=100, stream=0):  # as the wrappers ask, then keep after a launch
+        image, split = fr._weight_image(w, floats, stream)
+        if split:
+            fr._keep_image(w, stream, image)
+        return image, split
+
+    w = torch.randn(2, 4, 8, 72)
+    assert fr._weight_image(w, 100, stream=0)[1]          # not kept until its launch is in
+    image, split = image_of(w)
+    assert split and image.numel() == 100
+    again, split = image_of(w)
+    assert not split and again is image
+    assert image_of(w, stream=1)[1]                       # another stream
+    w.add_(1.0)                                           # changed in place
+    assert image_of(w)[1]
+    assert image_of(w.clone())[1]                         # another tensor, same values
+    for _ in range(fr._IMAGES_KEPT):
+        image_of(torch.randn(3), floats=4)
+    assert image_of(w)[1]                                 # evicted by newer images
+    assert len(fr._IMAGES) == fr._IMAGES_KEPT
+    fr._IMAGES.clear()
 
 
 @pytest.mark.parametrize("compute_dtype", [None, torch.bfloat16], ids=["f32", "bf16"])

@@ -81,8 +81,9 @@ def _inputs(rng, kind, M, B, ci, co, H, W):
     ("res", 1, 1, 264, 264, 16, 16, False),   # past the f32 cluster kernels' 256 channels
     ("feat", 2, 1, 64, 128, 64, 64, False),   # the 128-pixel flagship's second feature block
     ("res", 1, 1, 64, 64, 96, 96, True),      # 192-pixel frames' first res stage in bf16
+    ("res", 2, 1, 128, 128, 32, 32, False),   # the 128-pixel flagship's third res stage
 ], ids=["f32-res-64@64x64", "f32-res-264@16x16", "f32-feat-64to128@64x64",
-        "bf16-res-64@96x96"])
+        "bf16-res-64@96x96", "f32-res-128@32x32"])
 def test_fused_kernels_past_the_cluster_form_match_pallas(kind, M, B, ci, co, H, W, bf16):
     """The shapes the cluster plans cannot take: each plan is the tiled
     form's, in a block's shared memory, and the port's result is JAX's."""
@@ -94,7 +95,8 @@ def test_fused_kernels_past_the_cluster_form_match_pallas(kind, M, B, ci, co, H,
         plan = (pfr.feat_pool_mma_plan if bf16 else pfr.feat_pool_tf32_plan)(ci, co, H, W)
         jfn, pfn = jfr.fused_feat_pool, pfr.fused_feat_pool
     assert isinstance(plan, pfr.TiledPlan) and plan.smem <= pfr.SMEM_MAX
-    assert plan.group == min(64, -(-co // 16) * 16)
+    assert plan.group == (min(64, -(-co // 16) * 16) if bf16 else
+                          pfr.TF32_RES_GROUP if kind == "res" else pfr.TF32_POOL_GROUP)
     jcd, pcd = (jnp.bfloat16, torch.bfloat16) if bf16 else (None, None)
     want = np.asarray(jax.vmap(lambda *a: jfn(*a, interpret=True, compute_dtype=jcd))(*args))
     got = _np(pfn(*map(T, args), compute_dtype=pcd))
@@ -103,6 +105,35 @@ def test_fused_kernels_past_the_cluster_form_match_pallas(kind, M, B, ci, co, H,
         assert np.abs(got - want).max() <= TOL_FUSED_RES_BF16 * np.abs(want).max()
     else:
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind, ci, co", [("res", 64, 64), ("res", 128, 128), ("feat", 64, 128),
+                                           ("feat", 6, 20), ("res", 264, 264)])
+def test_tf32_weight_image_holds_jax_weights(kind, ci, co):
+    """The f32 tiled forms' weight image (``tf32_weight_image_plain``, what
+    ``split_weights_kernel`` writes) of OIHW weights: hi and lo are TF32
+    values (the low 13 bits zero), |lo| at most half an ulp of hi's, and
+    hi + lo, read back at each weight's place, is JAX's tap-ordered weight
+    (``dfd_tpu``'s ``reorder_conv_weight``) within 2^-22 of it."""
+    rng = np.random.RandomState(ci + co)
+    convs = 4 if kind == "res" else 1
+    w_oihw = (rng.randn(2, convs, co, ci, 3, 3) / np.sqrt(9 * ci)).astype(np.float32)
+    want = np.stack([np.stack([np.asarray(jfr.reorder_conv_weight(w_oihw[m, j]))
+                               for j in range(convs)]) for m in range(2)])  # [2, J, co, 9ci]
+    plan = (pfr.res_stage_tiled_plan(ci, 16, 16, "tf32") if kind == "res"
+            else pfr.feat_pool_tiled_plan(ci, co, 16, 16, "tf32"))
+    group, kc = plan.group, pfr.TF32_TILED_KC
+    img = pfr.tf32_weight_image_plain(T(want), ci, group)
+    ng, nk = -(-co // group), -(-ci // kc)
+    assert img.shape == (2, convs, ng, nk, 2, 9, kc // 4, group, 4)
+    bits = _np(img).view(np.uint32)
+    assert not (bits & 0x1FFF).any()
+    hi, lo = _np(img[:, :, :, :, 0]), _np(img[:, :, :, :, 1])
+    assert (np.abs(lo) <= np.abs(hi) * 2.0 ** -11 + 1e-30).all()
+    # [.., ng, nk, 9, kq, group, 4] -> [.., ng * group, 9, nk * kc]
+    back = (hi.astype(np.float64) + lo).transpose(0, 1, 2, 6, 4, 3, 5, 7)
+    back = back.reshape(2, convs, ng * group, 9, nk * kc)[:, :, :co, :, :ci]
+    np.testing.assert_allclose(back.reshape(want.shape), want, rtol=2.0 ** -22, atol=0)
 
 
 def test_flagship_at_128_pixels_takes_the_tiled_forms():

@@ -24,6 +24,11 @@ limit.  The cells take their ``bench.py`` ``TrainConfig``s (the default
 - ``gaussian_swimmer`` (``bench.py:173-181``): ``GaussianMLP(16, 6)`` on
   ``SwimmerEnv(max_steps=100)``, P = 512, normalized observations
   (``swimmer_step_kernel`` at N = 513, once a rollout step);
+- ``impala_128px``: ``chip_smoke.py``'s ``shapes`` phase's 128-pixel f32
+  flagship (``BIG_ENV``, ``BIG_MODEL``, P = ``BIG_P`` in chunks of
+  ``BIG_CHUNK``, T = ``BIG_T``: ``impala_prod_bf16``'s model in f32 on
+  3x128x128 frames), the path of the f32 tiled torso forms, imported from
+  the timed checkout's own ``chip_smoke.py``;
 - ``swimmer_host``: the sequential topology's ``Swimmer-v0`` as
   ``chip_smoke.py``'s host paths build it (the factory's model and env,
   batch 4, zeta 16, archive 16, seed 123; ``swimmer_step_kernel`` at N = 1,
@@ -46,7 +51,7 @@ import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CELLS = ("mlp_trap", "mlp_trap_e8", "impala_procmaze", "impala_prod_bf16",
-         "impala_prod_bf16_c16", "gaussian_swimmer", "swimmer_host")
+         "impala_prod_bf16_c16", "gaussian_swimmer", "swimmer_host", "impala_128px")
 
 
 def make_trainer(cell: str):
@@ -61,6 +66,13 @@ def make_trainer(cell: str):
     from dfd_tpu_torch.utils.metrics import EpochReporter
 
     tvd = distances.categorical_tvd
+    if cell == "impala_128px":  # as chip_smoke.py's shapes phase builds it
+        import chip_smoke as cs
+
+        cfg = TrainConfig(batch_size=cs.BIG_P, zeta_size=8, max_strategy_history_size=4,
+                          episode_length=cs.BIG_T, random_seed=0, population_chunk=cs.BIG_CHUNK)
+        env = ProcMazeEnv(**cs.BIG_ENV)
+        return VectorizedTrainer(ImpalaPolicy(env.obs_shape, 5, **cs.BIG_MODEL), env, tvd, cfg)
     if cell == "swimmer_host":
         env, model, dist = factory.get_init_data("Swimmer-v0", 123, "cuda")
         return SequentialRunner(model, env, dist, batch_size=4, zeta_size=16,

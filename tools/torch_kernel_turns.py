@@ -8,15 +8,22 @@ commit 67921d8: ``dfd_combine``, ``dfd_res_chain``, ``dfd_gemm_chain``,
 ``dfd_roll``, ``dfd_strided_copy``, ``dfd_gather_cols`` and
 ``dfd_transpose`` with their plans, ``dfd_concat_scaled(x, out, n, scales,
 n_scales, stream)`` without one; for ``swimmer``, a ``dfd_swimmer_step`` that
-takes this checkout's ``SwimmerArgs``.
+takes this checkout's ``SwimmerArgs``; for ``torso_tiled``, commit c7e4e21's
+``dfd_res_stage_tiled_tf32`` and ``dfd_feat_pool_tiled_tf32`` (no weight
+image), whose plans the tool takes from that checkout's own
+``dfd_tpu_torch/ops/fused_resblock.py``.
 Its ``dfd_tpu_torch/ops/csrc/perturb.cu``, ``gemm_chain.cu``,
 ``res_chain.cu``, ``relayout.cu`` and ``swimmer.cu`` are built with the same ``nvcc`` flags
 as this checkout's (``dfd_tpu_torch/ops/build.py``) into
 ``build/kernel_turns/`` and called through their own C entry points; this
 checkout's kernels go through their wrappers.  ``--kernels`` picks the
 groups to time (``perturb``: perturb, combine and combine's plan sweep;
-``gemm_chain``; ``res_chain``; ``relayout``; ``swimmer``), all by default;
-only their libraries are built.  Each case is timed parent,
+``gemm_chain``; ``res_chain``; ``relayout``; ``swimmer``; ``torso_tiled``:
+the f32 tiled res stage and feature pool of ``fused_resblock_tf32.cu`` at
+``impala_128px``'s three shapes, M = 16, five rounds, with cuDNN's f32
+chain in the same turns, then once more with this checkout's weight image
+split every call, as on a rollout's first step), all by default; only their
+libraries are built.  Each case is timed parent,
 change, change, parent (``time_ms``, CUDA events), so the two versions share
 the card, its clocks and its power limit: perturb and combine at the trained
 cells' shapes (combine also antithetic at ``mlp_trap``'s), gemm_chain at the
@@ -87,7 +94,10 @@ ROOT = Path(__file__).resolve().parents[1]
 PERTURB_SHAPES = ((2048, 5197), (128, 1_156_139), (64, 7_872_651))
 # the production transposes of x [33280, 1024], as x.view(rows, cols) (chip_smoke.py's)
 TRANSPOSES = ((33280, 1024), (64, 532480), (532480, 64), (16, 2129920), (2129920, 16))
-GROUPS = ("perturb", "gemm_chain", "res_chain", "relayout", "swimmer")
+GROUPS = ("perturb", "gemm_chain", "res_chain", "relayout", "swimmer", "torso_tiled")
+SOURCE = {"torso_tiled": "fused_resblock_tf32"}  # a group's source where it is not its name
+# impala_128px's three tiled f32 calls (chip_smoke.py's BIG_CHUNK members, one frame each)
+TORSO_TILED = (("res", 64, 64, 64, 64), ("feat", 64, 128, 64, 64), ("res", 128, 128, 32, 32))
 
 
 # dfd_combine's refusal of any plan but combine_plan's, and what the sweep builds instead
@@ -111,7 +121,8 @@ def build_parent(parent: Path, groups) -> dict:
     procs = {}
     for name in names:
         lib = out_dir / (f"lib{name}.so" if name == "anyplan" else f"lib{name}_parent.so")
-        cu = anyplan if name == "anyplan" else parent / "dfd_tpu_torch/ops/csrc" / f"{name}.cu"
+        cu = (anyplan if name == "anyplan" else
+              parent / "dfd_tpu_torch/ops/csrc" / f"{SOURCE.get(name, name)}.cu")
         cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib), str(cu)]
         procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT, text=True))
@@ -141,7 +152,76 @@ def build_parent(parent: Path, groups) -> dict:
         lib.dfd_concat_scaled.argtypes = [vp, vp, i64, vp, i32, vp]
     if "swimmer" in libs:
         libs["swimmer"].dfd_swimmer_step.argtypes = [ctypes.POINTER(sw._Args), i32, vp]
+    if "torso_tiled" in libs:
+        libs["torso_tiled"].dfd_res_stage_tiled_tf32.argtypes = [vp] * 7 + [i32] * 7 + [vp]
+        libs["torso_tiled"].dfd_feat_pool_tiled_tf32.argtypes = [vp] * 6 + [i32] * 8 + [vp]
     return libs
+
+
+def parent_module(parent: Path, rel: str, name: str):
+    """A module of the parent checkout, loaded from its file (its own
+    imports resolve to this checkout's package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, parent / rel)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def torso_tiled_turns(libs: dict, parent: Path, dev: torch.device) -> list:
+    """The f32 tiled torso forms at impala_128px's shapes: the parent's C
+    entries with the parent's own plans (from its ``ops/fused_resblock.py``;
+    they refuse any other), this checkout's wrappers, and cuDNN's f32 chain
+    (``chip_smoke.py::_chain``, TF32 off) in the same turns, five rounds;
+    each version checked against the plain version first."""
+    import chip_smoke
+    from dfd_tpu_torch.ops import fused_resblock as fr
+
+    pfr = parent_module(parent, "dfd_tpu_torch/ops/fused_resblock.py", "parent_fused_resblock")
+    lib, rows = libs["torso_tiled"], []
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    for kind, ci, co, H, W in TORSO_TILED:
+        M = chip_smoke.BIG_CHUNK
+        args, w_oihw = chip_smoke._fused_inputs(kind, M, 1, ci, co, H, W, dev, seed=7)
+        x = args[0]
+        ptrs = [v.data_ptr() for v in args]
+        if kind == "res":
+            plan = pfr.res_stage_tf32_plan(ci, H, W)
+            out, scratch = torch.empty_like(x), torch.empty_like(x)
+
+            def parent_call():
+                build.raise_on(lib.dfd_res_stage_tiled_tf32(
+                    *ptrs, scratch.data_ptr(), out.data_ptr(), M, 1, ci, H, W, plan.rows,
+                    plan.cols, stream()), "parent tiled res stage")
+                return out
+
+            change = lambda: fr.fused_res_stage(*args)
+            plain = fr.fused_res_stage_plain
+        else:
+            plan = pfr.feat_pool_tf32_plan(ci, co, H, W)
+            out = torch.empty(M, 1, co, (H + 1) // 2, (W + 1) // 2, device=dev)
+
+            def parent_call():
+                build.raise_on(lib.dfd_feat_pool_tiled_tf32(
+                    *ptrs, out.data_ptr(), M, 1, ci, co, H, W, plan.rows, plan.cols, stream()),
+                    "parent tiled feature pool")
+                return out
+
+            change = lambda: fr.fused_feat_pool(*args)
+            plain = fr.fused_feat_pool_plain
+        want = plain(*args)
+        tol = chip_smoke.TOL_FUSED_F32 * max(1.0, want.abs().max().item())
+        for f in (parent_call, change):
+            assert (f() - want).abs().max().item() <= tol, kind
+        del want
+        chain = lambda: chip_smoke._chain(kind, x, w_oihw, *args[2:])
+        name = f"tiled {kind} {ci}->{co} @{H}x{W} M={M}"
+        rows.append(turns(name, parent_call, change, 20, rounds=5, library=chain))
+        # the same with this checkout's weight image split every call (a rollout's first step)
+        fresh = lambda: (fr._IMAGES.clear(), change())[1]
+        rows.append(turns(name + ", weights split every call", parent_call, fresh, 20, rounds=5))
+    return rows
 
 
 def turns(name: str, parent, change, iters: int, rounds: int = 1, library=None) -> dict:
@@ -470,6 +550,11 @@ def main() -> int:
                   f"largest absolute difference {diff:.3g}", flush=True)
             rows.append(dict(turns(f"swimmer_step N={n} 7 links", parent, change, 50, rounds=5),
                              bit_equal=equal, max_abs_diff=diff))
+
+    if "torso_tiled" in args.kernels:
+        torch.backends.cudnn.allow_tf32 = False
+        build.build(*build.sources())  # time_ms sizes its spin from a warm call
+        rows += torso_tiled_turns(libs, args.parent, dev)
 
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:

@@ -34,9 +34,31 @@ stage and feature pool at its main path's rollout shapes:
   products unrolled by 2, so the next step's loads are issued before this
   step's products).
 
+- ``tiled``, the same source's tiled forms (``conv_tiled_tf32_kernel``,
+  ``split_weights_kernel``) at ``impala_128px``'s M = 16: the res stage at
+  64 ch x 64x64 and 128 ch x 32x32, the feature pool 64 -> 128 at 64x64.
+  Cuts: ``no_products`` (no ``mma.sync`` or ``wgmma``), ``no_transform``
+  (the landed operand is not rewritten as its affine's hi and lo planes),
+  ``no_store`` (no output written, so no epilogue); the bulk and tensor-map
+  copies stay (the barriers their readers wait on complete only with them).
+  The wrappers keep a weight tensor's split image between calls, so the
+  variants' times leave the split out; ``base`` is timed once more with the
+  image dropped before every call (``split_weights_kernel`` included).  Not
+  cuts: ``res_mma_sync`` (the res stage's products on ``mma.sync``, warps
+  of 32 channels x 32 positions, in place of ``wgmma``) and
+  ``pool_whole_k`` (the pool's warps 16 channels x 40 positions with all
+  of K, in place of 32 x 40 with K in halves).  Every variant's
+  largest error against the plain version is printed beside its times.
+
+``--stamps`` builds the tiled source once more with ``%globaltimer`` read
+at each phase of a chunk (the barrier, the copies' issue, the transform's
+slices with the products, the epilogue) and prints their medians over the
+res stage's blocks at ``impala_128px``'s two shapes.
+
 ``both`` runs ``bf16`` and ``tf32``.  The difference between ``base`` and
 a variant is what that part costs where it does not overlap the rest.  The
-variants compute wrong outputs; only their times are printed.  Times come
+cuts compute wrong outputs.  A variant nvcc refuses is printed and left
+out.  Times come
 from ``time_ms`` (CUDA events, the calls queued behind a spin kernel),
 beside the card's name and power limit.  Needs a CUDA device and ``nvcc``;
 builds under ``build/dfd_tpu_torch/variants/``.
@@ -47,8 +69,10 @@ from __future__ import annotations
 import argparse
 import ctypes
 import os
+import re
 import subprocess
 import sys
+from pathlib import Path
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -66,6 +90,37 @@ TF32_SPLIT = ("  hi = to_tf32(a) & 0xffffe000u;  // the low 13 bits of a TF32 va
               "  lo = to_tf32(__fsub_rn(a, __uint_as_float(hi)));\n")
 TF32_COPY = ("cp_async16(dst + r * csw + tap * kp + c, src + (size_t)r * 9 * ci + tap * ci + c);",
              "cp_async4(dst + r * csw + tap * kp + c, src + (size_t)r * 9 * ci + tap * ci + c);")
+
+
+CSRC = Path(__file__).resolve().parents[1] / "dfd_tpu_torch" / "ops" / "csrc"
+
+
+def build_variants(stem: str, srcs: dict) -> Path:
+    """Compile each variant (a source's text, or its text and the headers it
+    replaces) in a directory of its own beside copies of the shared headers,
+    all nvcc processes at once; returns the directory of the libraries."""
+    from dfd_tpu_torch.ops import build
+
+    out = build.BUILD_DIR / "variants"
+    procs = {}
+    for name, variant in srcs.items():
+        text, headers = variant if isinstance(variant, tuple) else (variant, {})
+        d = out / f"{stem}_{name}"
+        d.mkdir(parents=True, exist_ok=True)
+        for h in CSRC.glob("*.cuh"):
+            (d / h.name).write_text(headers.get(h.name, h.read_text()))
+        (d / f"{stem}.cu").write_text(text)
+        procs[name] = subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(out / f"lib{stem}_{name}.so"),
+             str(d / f"{stem}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:  # printed and left out of the timings
+            print(f"build: nvcc failed for the {stem} {name} variant:\n{log[-3000:]}", flush=True)
+            continue
+        spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill stores", log))
+        print(f"build: {stem} {name}: {spills} bytes of spill stores", flush=True)
+    return out
 
 
 def _cut(src: str, *olds: str, new: str = "") -> str:
@@ -90,8 +145,6 @@ RC_PRODUCTS = ("mma_tf32_zero(part[mt][u], alo[mt], bhi[u]);",
                "mma_tf32(part[mt][u], ahi[mt], blo[u]);",
                "mma_tf32(part[mt][u], ahi[mt], bhi[u]);",
                "mma_bf16(acc[mt][n], a[mt], b0, b1);")
-RC_SPLIT = ("  hi = to_tf32(a) & 0xffffe000u;\n"
-            "  lo = to_tf32(__fsub_rn(a, __uint_as_float(hi)));\n")
 RC_COPY = ("if (v == 4) cp_async16(d, src); else cp_async4(d, src);",)
 RC_EXCHANGE = ("    if (cs > 1) {  // this block's channels", "    if (ry > 0) {  // the top halo",
                "    if (y0 + rows < H) {  // the bottom halo")
@@ -102,7 +155,8 @@ def res_chain_variants(src: str) -> dict:
     return {
         "base": src,
         "no_products": _cut(src, *RC_PRODUCTS, new="{}"),
-        "no_split": _cut(src, RC_SPLIT, new="  hi = __float_as_uint(a);\n  lo = 0u;\n"),
+        "no_split": (src, {"ptx.cuh": _cut((CSRC / "ptx.cuh").read_text(), TF32_SPLIT,
+                                           new="  hi = __float_as_uint(a);\n  lo = 0u;\n")}),
         "no_weight_copy": _cut(src, *RC_COPY, new="{}"),
         "no_exchange": _cut(_cut(_cut(src, RC_EXCHANGE[0], new=RC_EXCHANGE[0].replace("cs > 1", "false")),
                                   RC_EXCHANGE[1], new=RC_EXCHANGE[1].replace("ry > 0", "false")),
@@ -114,8 +168,6 @@ def res_chain_variants(src: str) -> dict:
 
 def run_res_chain(dev: torch.device) -> None:
     """The res_chain variants at the wide probe's twelve cases."""
-    import re
-
     import numpy as np
 
     from dfd_tpu_torch.ops import build
@@ -123,21 +175,8 @@ def run_res_chain(dev: torch.device) -> None:
     from dfd_tpu_torch.probes import wide
     from dfd_tpu_torch.utils.profiling import time_ms
 
-    out = build.BUILD_DIR / "variants"
-    out.mkdir(parents=True, exist_ok=True)
     srcs = res_chain_variants((build.CSRC / "res_chain.cu").read_text())
-    procs = {}
-    for name, text in srcs.items():
-        (out / f"res_chain_{name}.cu").write_text(text)
-        procs[name] = subprocess.Popen(
-            [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(out / f"libres_chain_{name}.so"),
-             str(out / f"res_chain_{name}.cu")], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)
-    logs = {}
-    for name, proc in procs.items():
-        logs[name], _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for the res_chain {name} variant:\n{logs[name]}")
+    out = build_variants("res_chain", srcs)
     cases = []
     for C, H, W in wide.STAGES:
         rng = np.random.RandomState(2)
@@ -150,10 +189,7 @@ def run_res_chain(dev: torch.device) -> None:
             w = ws.transpose(2, 3).contiguous() if minor else ws
             for tag, cd in wide.DTYPES:
                 cases.append((f"{C}ch {layout[8:]} {tag}", x, w, bs, H, W, layout, cd))
-    spills = {k: sum(int(n) for n in re.findall(r"(\d+) bytes spill stores", v))
-              for k, v in logs.items()}
-    print("res_chain.cu, the wide probe's chains at P = 64; bytes of spill stores: "
-          + ", ".join(f"{k} {n}" for k, n in spills.items()))
+    print("res_chain.cu, the wide probe's chains at P = 64")
     print("variant         " + "  ".join(c[0] for c in cases))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     original = rc._kernels
@@ -172,26 +208,54 @@ def run_res_chain(dev: torch.device) -> None:
 
 
 def tf32_variants(src: str) -> dict:
+    ptx = (CSRC / "ptx.cuh").read_text()
     return {
         "base": src,
         "no_products": _cut(src, *TF32_PRODUCTS, new="{}"),
-        "no_split": _cut(src, TF32_SPLIT, new="  hi = __float_as_uint(a);\n  lo = 0u;\n"),
+        "no_split": (src, {"ptx.cuh": _cut(ptx, TF32_SPLIT,
+                                           new="  hi = __float_as_uint(a);\n  lo = 0u;\n")}),
         "no_weight_copy": _cut(src, *TF32_COPY, new="{}"),
         "no_products_no_copy": _cut(_cut(src, *TF32_PRODUCTS, new="{}"), *TF32_COPY, new="{}"),
     }
 
 
-# source: (file, variants, loader attribute, entry points and their int
-# arguments, compute_dtype, members, (kind, ci, co, H, W) cases)
+TILED_PRODUCTS = ("mma_tf32(part[mt][n], alo[mt], bhi);", "mma_tf32(part[mt][n], ahi[mt], blo);",
+                  "mma_tf32(part[mt][n], ahi[mt], bhi);", "wgmma_n72(d, alo, bhi, kh > 0);",
+                  "wgmma_n72(d, ahi, blo, 1);", "wgmma_n72(d, ahi, bhi, 1);")
+TILED_TRANSFORM = ("    for (int slice = 0; slice < kSlices; ++slice) transform_slice(a, tp, lbuf, pbuf, v, slice);\n",
+                   "      transform_slice(a, tp, lbuf + ((k + 1) & 1) * lfl, pbuf + ((k + 1) & 1) * pfl, v, kw);\n")
+TILED_RES_FORM = "kernel = &conv_tiled_tf32_kernel<1, 9, 2, false, true>;"
+TILED_POOL_FORM = "kernel = &conv_tiled_tf32_kernel<2, 5, 2, true, false>;"
+TILED_STORE = "a.out[(mb * a.co + co) * plane + goff[n][c2]] = u;"
+
+
+def tiled_variants(src: str) -> dict:
+    return {
+        "base": src,
+        "res_mma_sync": _cut(src, TILED_RES_FORM,
+                             new="kernel = &conv_tiled_tf32_kernel<2, 4, 2, false, false>;"),
+        "pool_whole_k": _cut(src, TILED_POOL_FORM,
+                             new="kernel = &conv_tiled_tf32_kernel<1, 5, 1, true, false>;"),
+        "no_products": _cut(src, *TILED_PRODUCTS, new="{}"),
+        "no_transform": _cut(src, *TILED_TRANSFORM, new="{}\n"),
+        "no_store": _cut(src, TILED_STORE, new="if (u == 12345.f) a.out[0] = u;"),
+    }
+
+
+# source: (file, variants, loader attribute, entry points and their pointer
+# and int arguments, compute_dtype, members, (kind, ci, co, H, W) cases)
 SOURCES = {
     "bf16": ("fused_resblock_mma", bf16_variants, "_mma_kernels",
-             (("dfd_res_stage_mma", 7), ("dfd_feat_pool_mma", 7)), torch.bfloat16, 65,
+             (("dfd_res_stage_mma", 6, 7), ("dfd_feat_pool_mma", 6, 7)), torch.bfloat16, 65,
              [("res", 64, 64, 32, 32), ("res", 128, 128, 16, 16), ("feat", 64, 128, 32, 32),
               ("feat", 128, 128, 16, 16)]),
     "tf32": ("fused_resblock_tf32", tf32_variants, "_tf32_kernels",
-             (("dfd_res_stage_tf32", 8), ("dfd_feat_pool_tf32", 8)), None, 129,
+             (("dfd_res_stage_tf32", 6, 8), ("dfd_feat_pool_tf32", 6, 8)), None, 129,
              [("res", 16, 16, 32, 32), ("res", 32, 32, 16, 16), ("feat", 16, 32, 32, 32),
               ("feat", 32, 32, 16, 16)]),
+    "tiled": ("fused_resblock_tf32", tiled_variants, "_tf32_kernels",
+              (("dfd_res_stage_tiled_tf32", 8, 8), ("dfd_feat_pool_tiled_tf32", 7, 9)), None, 16,
+              [("res", 64, 64, 64, 64), ("feat", 64, 128, 64, 64), ("res", 128, 128, 32, 32)]),
 }
 
 
@@ -202,22 +266,12 @@ def run(key: str, dev: torch.device) -> None:
     from dfd_tpu_torch.utils.profiling import time_ms
 
     stem, make, loader, entries, cd, M, cases = SOURCES[key]
-    out = build.BUILD_DIR / "variants"
-    out.mkdir(parents=True, exist_ok=True)
     srcs = make((build.CSRC / f"{stem}.cu").read_text())
-    procs = {}
-    for name, text in srcs.items():
-        (out / f"{stem}_{name}.cu").write_text(text)
-        procs[name] = subprocess.Popen(
-            [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(out / f"lib{stem}_{name}.so"),
-             str(out / f"{stem}_{name}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for the {stem} {name} variant:\n{log}")
+    out = build_variants(stem, srcs)
     inputs = [chip_smoke._fused_inputs(kind, M, 1, ci, co, H, W, dev, seed=0)[0]
               for kind, ci, co, H, W in cases]
+    wants = [(fr.fused_res_stage_plain if kind == "res" else fr.fused_feat_pool_plain)(
+        *args, compute_dtype=cd) for (kind, *_), args in zip(cases, inputs)]
     print(f"{stem}.cu, M = {M}, one frame a member")
     print("variant              " + "  ".join(f"{k} {ci}->{co} {H}x{W} ms"
                                               for k, ci, co, H, W in cases))
@@ -225,24 +279,111 @@ def run(key: str, dev: torch.device) -> None:
     original = getattr(fr, loader)
     try:
         for name in srcs:
+            if not (out / f"lib{stem}_{name}.so").exists():
+                continue
             lib = ctypes.CDLL(str(out / f"lib{stem}_{name}.so"))
-            for entry, n_int in entries:
-                getattr(lib, entry).argtypes = [vp] * 6 + [i32] * n_int + [vp]
+            for entry, n_ptr, n_int in entries:
+                getattr(lib, entry).argtypes = [vp] * n_ptr + [i32] * n_int + [vp]
                 getattr(lib, entry).restype = i32
             setattr(fr, loader, lambda lib=lib: lib)  # the wrappers launch this variant
-            row = []
-            for (kind, *_), args in zip(cases, inputs):
+            row, errs, fresh = [], [], []
+            for (kind, *_), args, want in zip(cases, inputs, wants):
                 fn = fr.fused_res_stage if kind == "res" else fr.fused_feat_pool
+                errs.append(((fn(*args, compute_dtype=cd) - want).abs().max()
+                             / want.abs().max().clamp(min=1.0)).item())
                 row.append(time_ms(lambda: fn(*args, compute_dtype=cd), dev, 20))
-            print(f"{name:20s} " + "  ".join(f"{ms:.4f}" for ms in row), flush=True)
+                if key == "tiled" and name == "base":  # the weights split every call
+                    fresh.append(time_ms(lambda: (fr._IMAGES.clear(), fn(*args))[1], dev, 20))
+            print(f"{name:20s} " + "  ".join(f"{ms:.4f}" for ms in row)
+                  + "  (max|d| / scale " + ", ".join(f"{e:.3g}" for e in errs) + ")", flush=True)
+            if fresh:
+                print(f"{'base, split each call':20s} " + "  ".join(f"{ms:.4f}" for ms in fresh),
+                      flush=True)
     finally:
         setattr(fr, loader, original)
 
 
+# --stamps: %globaltimer read by two threads of each block (warp 0's and warp
+# 15's first lanes) at the phases of a chunk, group 0's blocks of the last of
+# the res stage's four launches
+STAMP_DECL = """__device__ long long g_stamps[4096 * 2 * 64];
+__device__ __forceinline__ void stamp(int i) {
+  if ((threadIdx.x == 0 || threadIdx.x == 480) && blockIdx.x < 4096 && blockIdx.y == 0) {
+    long long c;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(c));
+    g_stamps[(blockIdx.x * 2 + (threadIdx.x ? 1 : 0)) * 64 + i] = c;
+  }
+}
+"""
+STAMPS = (  # (text, stamp before it) in order; stamp i + 4k for chunk k
+    ("  issue_weights(wbuf, wimg, G, &wbar[0]);\n", 0),
+    ("                      // with chunk k - 1\n", 2),  # after: the barrier
+    ("    // chunk k + 1's transform, a slice after each tap column of chunk k's products\n", 3),
+    ("    const float* wst = wbuf + (k & 1) * wfl;\n", 4),
+    ("  __syncthreads();  // every warp is done with the buffers, which are overlaid below\n", 60),
+)
+
+
+def stamped(src: str) -> str:
+    """The source with STAMPS' clock reads and an entry that copies them out."""
+    src = _cut(src, "template <int MT, int NT, int WK, bool POOL, bool WGMMA>\n__global__",
+               new=STAMP_DECL + "template <int MT, int NT, int WK, bool POOL, bool WGMMA>\n__global__")
+    for text, i in STAMPS:
+        call = f"stamp({i}{' + 4 * k' if 0 < i < 60 else ''});\n"
+        if i == 2:
+            src = _cut(src, text, new=text + "    " + call)
+        else:
+            src = _cut(src, text, new=text[:len(text) - len(text.lstrip())] + call + text)
+    return src + ("\nextern \"C\" int dfd_stamps(void* dst, size_t n) {\n"
+                  "  return (int)cudaMemcpyFromSymbol(dst, g_stamps, n);\n}\n")
+
+
+def run_stamps(dev: torch.device) -> None:
+    """Each phase's time a chunk, the median over the res stage's blocks (us)."""
+    import numpy as np
+
+    import chip_smoke
+    from dfd_tpu_torch.ops import build
+    from dfd_tpu_torch.ops import fused_resblock as fr
+
+    src = (build.CSRC / "fused_resblock_tf32.cu").read_text()
+    out = build_variants("fused_resblock_tf32", {"stamps": stamped(src)})
+    lib = ctypes.CDLL(str(out / "libfused_resblock_tf32_stamps.so"))
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.dfd_res_stage_tiled_tf32.argtypes = [vp] * 8 + [i32] * 8 + [vp]
+    lib.dfd_stamps.argtypes = [vp, ctypes.c_size_t]
+    original = fr._tf32_kernels
+    fr._tf32_kernels = lambda: lib
+    try:
+        for C, H, W in ((64, 64, 64), (128, 32, 32)):
+            args = chip_smoke._fused_inputs("res", 16, 1, C, C, H, W, dev, seed=0)[0]
+            for _ in range(3):
+                fr.fused_res_stage(*args)
+            torch.cuda.synchronize()
+            st = np.zeros(4096 * 2 * 64, np.int64)
+            assert lib.dfd_stamps(st.ctypes.data, st.nbytes) == 0
+            nb = 16 * fr.res_stage_tf32_plan(C, H, W).tiles
+            st = st.reshape(4096, 2, 64)[:nb].astype(np.float64) / 1e3
+            d = lambda i, j, w=0: np.median(st[:, w, j] - st[:, w, i])
+            nk = -(-C // 16)
+            rows = [f"chunk {k}: issue {d(2 + 4 * k, 3 + 4 * k):.2f}, transform slices and "
+                    f"products {d(4 + 4 * k, 2 + 4 * (k + 1) if k + 1 < nk else 60):.2f}"
+                    for k in range(nk)]
+            starts = np.sort(st[:, 0, 0] - st[:, 0, 0].min())
+            print(f"stamps: res {C} ch @{H}x{W}, M = 16, the last launch's {nb} blocks: block "
+                  f"{np.median(st[:, 0, 60] - st[:, 0, 0]):.2f} us from its start to its "
+                  f"epilogue (prologue {d(0, 2):.2f}); " + "; ".join(rows)
+                  + f"; the launch's blocks start over {starts[-1]:.2f} us", flush=True)
+    finally:
+        fr._tf32_kernels = original
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--source", choices=("bf16", "tf32", "res_chain", "both"),
+    ap.add_argument("--source", choices=("bf16", "tf32", "tiled", "res_chain", "both"),
                     default="both")
+    ap.add_argument("--stamps", action="store_true",
+                    help="also time the tiled res stage's phases with clock stamps")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_mma_variants: no CUDA device", file=sys.stderr)
@@ -255,6 +396,8 @@ def main() -> int:
             run_res_chain(torch.device("cuda"))
         else:
             run(key, torch.device("cuda"))
+    if args.stamps:
+        run_stamps(torch.device("cuda"))
     return 0
 
 
