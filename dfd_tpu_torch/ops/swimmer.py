@@ -22,8 +22,12 @@ a warp an episode.  It has two kinds of form, chosen by the link count:
 - past that, up to ``MAX_LINKS``, one form with the link count at run time
   (``swimmer_step_dyn_kernel``, counted in ``swimmer_step.dyn_launches``):
   the same arithmetic in the same order, with what the template forms keep
-  in registers in the episode's shared scratch, sized at launch, and as many
-  episodes a block as the scratch allows.
+  in registers in the episode's shared scratch, sized at launch (four
+  episodes a block at every count).  Its lanes split each phase's work
+  without summing anything twice: a Jacobian column a lane as running sums
+  over the links, the system's entries stepped from their index, the
+  Cholesky factor right-looking in place with rows owned by lanes, and the
+  back substitution on one lane.
 
 More than ``MAX_LINKS`` links are refused on every device.
 

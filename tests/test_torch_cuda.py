@@ -1786,8 +1786,8 @@ def test_tiled_weight_image_is_kept_until_the_weights_change(cuda):
     assert any(v[0] is other for v in fr._IMAGES.values())
 
 
-@pytest.mark.parametrize("n_links", [1, 2, 4, 6, 8, 11, 12, 15, 32, 64])
-@pytest.mark.parametrize("N", [1, 513])
+@pytest.mark.parametrize("n_links", [1, 2, 4, 6, 8, 11, 12, 15, 18, 19, 30, 31, 32, 33, 63, 64])
+@pytest.mark.parametrize("N", [1, 7, 513])
 def test_swimmer_forms_match_plain(cuda, n_links, N):
     """Every link count: the template form up to ``FORM_LINKS``, the run-time
     form past it, one launch of the one its count selects; one step from
@@ -1814,11 +1814,12 @@ def test_swimmer_forms_match_plain(cuda, n_links, N):
     assert torch.equal(got[2], want[2]) and torch.equal(got[5], want[5])
 
 
-@pytest.mark.parametrize("n_links", [15, 64])
+@pytest.mark.parametrize("n_links", [12, 15, 18, 19, 30, 31, 33, 63, 64])
 def test_swimmer_runtime_form_episode_ignores_its_neighbours(cuda, n_links):
-    """The run-time form (several episodes a block at 15 links, one at 64):
-    each of 9 episodes stepped alone gives its outputs among the 9, bit for
-    bit, and 20 more launches give the first one's."""
+    """The run-time form (four episodes a block, the last of 9 episodes'
+    three blocks partly filled): each episode stepped alone gives its
+    outputs among the 9, bit for bit, and 20 more launches give the first
+    one's."""
     from dfd_tpu_torch.envs import SwimmerEnv
     from dfd_tpu_torch.ops import swimmer as sw
 

@@ -267,14 +267,17 @@ def test_swimmer_step_and_episode_at_any_link_count_match_jax(n_links):
 @pytest.fixture(scope="module")
 def host_build(tmp_path_factory):
     """``csrc/swimmer.cu`` compiled as plain C++ (``tests/test_torch_swimmer.py``'s
-    build), once with its template forms and once with every count on the
-    run-time form (``-DDFD_FORM_LINKS=0``): each a step function over the
+    build), once with its template forms, once with every count on the
+    run-time form (``-DDFD_FORM_LINKS=0``: its register forms up to 32
+    unknowns) and once with every count on the run-time form's shared-memory
+    form (``-DDFD_REGISTER_ND=0`` too): each a step function over the
     kernel's argument struct."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the kernel's source for the host")
     steps = {}
-    for name, flags in (("forms", []), ("runtime", ["-DDFD_FORM_LINKS=0"])):
+    for name, flags in (("forms", []), ("runtime", ["-DDFD_FORM_LINKS=0"]),
+                        ("shared", ["-DDFD_FORM_LINKS=0", "-DDFD_REGISTER_ND=0"])):
         lib = tmp_path_factory.mktemp("swimmer") / f"libswimmer_{name}.so"
         subprocess.run([gxx, "-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC",
                         "-Wno-unknown-pragmas", *flags, "-o", str(lib),
@@ -295,7 +298,7 @@ def host_build(tmp_path_factory):
     return step
 
 
-@pytest.mark.parametrize("n_links", [1, 2, 4, 6, 8, 15, 32, 64])
+@pytest.mark.parametrize("n_links", [1, 2, 4, 6, 8, 12, 15, 18, 19, 30, 31, 32, 33, 63, 64])
 def test_host_compiled_kernel_at_any_link_count_matches_plain(host_build, n_links):
     """The kernel's step (its template form up to ``FORM_LINKS`` links, its
     run-time form past them) against ``swimmer_step_plain`` at 33 states
@@ -313,6 +316,33 @@ def test_host_compiled_kernel_at_any_link_count_matches_plain(host_build, n_link
     assert torch.equal(got[2], want[2]) and torch.equal(got[5], want[5])
 
 
+def test_host_compiled_runtime_form_reruns_a_substep_on_the_exact_operators(host_build):
+    """The run-time form at 15 links with one episode at rest, straight
+    joints and torques of 1e-25 among 9 near the reset's (its substitutions'
+    numerators below the 2^-60 of the card's branch-free divisions, so each
+    substep is taken again on the compiler's operators after the state is
+    restored): within the conditioning bound of the plain step, t and done
+    exact, and the other episodes' outputs those of the batch without it,
+    bit for bit."""
+    env = SwimmerEnv(n_links=15, max_steps=100, device=CPU)
+    c, rng = env.consts, np.random.RandomState(315)
+    f32 = lambda *shape, lim: T(rng.uniform(-lim, lim, shape).astype(np.float32))
+    ins = [f32(9, c.ndof, lim=0.1), f32(9, c.ndof, lim=0.1),
+           T(rng.randint(0, 100, 9).astype(np.int64)), f32(9, 14, lim=1.5)]
+    calm = host_build("forms", c, *ins)
+    ins = [x.clone() for x in ins]
+    ins[0][4, 3:], ins[1][4], ins[3][4] = 0.0, 0.0, ins[3][4] * 1e-25
+    got, want = host_build("forms", c, *ins), sw.swimmer_step_plain(c, *ins)
+    assert 0 < want[1][4].abs().max().item() < 2.0 ** -60
+    tol = 2 * _cond(env, ins[0][4:5], ins[1][4:5]) * EPS32
+    rel = lambda x, y: float((x.double() - y.double()).abs().max() / y.double().abs().max())
+    v0 = c.ndof - 2  # where the velocities start in the observation
+    assert rel(got[1][4], want[1][4]) <= tol and rel(got[3][4, v0:], want[3][4, v0:]) <= tol
+    assert torch.equal(got[2], want[2]) and torch.equal(got[5], want[5])
+    rest = [e for e in range(9) if e != 4]
+    assert all(torch.equal(x[rest], y[rest]) for x, y in zip(got, calm))
+
+
 @pytest.mark.parametrize("n_links", [1, 3, 7, 11])
 def test_runtime_form_equals_the_template_forms(host_build, n_links):
     """The run-time form takes the template forms' operations in their
@@ -324,6 +354,20 @@ def test_runtime_form_equals_the_template_forms(host_build, n_links):
            T(rng.randint(0, 100, 37).astype(np.int64)), f32(37, n_links - 1, lim=1.5))
     assert n_links <= sw.FORM_LINKS
     for a, b in zip(host_build("forms", c, *ins), host_build("runtime", c, *ins)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n_links", [1, 3, 7, 11, 12, 15, 30])
+def test_runtime_shared_memory_form_equals_the_other_forms(host_build, n_links):
+    """The run-time form's shared-memory form (its route past 32 unknowns)
+    takes the operations of the template forms (1 to 11 links) and of the
+    register forms (12 to 30) in their order: on the host every output bit
+    for bit, at 37 random states and actions."""
+    c, rng = SwimmerEnv(n_links=n_links, device=CPU).consts, np.random.RandomState(50 + n_links)
+    f32 = lambda *shape, lim: T(rng.uniform(-lim, lim, shape).astype(np.float32))
+    ins = (f32(37, c.ndof, lim=1.0), f32(37, c.ndof, lim=1.0),
+           T(rng.randint(0, 100, 37).astype(np.int64)), f32(37, n_links - 1, lim=1.5))
+    for a, b in zip(host_build("forms", c, *ins), host_build("shared", c, *ins)):
         assert torch.equal(a, b)
 
 

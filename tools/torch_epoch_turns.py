@@ -24,6 +24,11 @@ limit.  The cells take their ``bench.py`` ``TrainConfig``s (the default
 - ``gaussian_swimmer`` (``bench.py:173-181``): ``GaussianMLP(16, 6)`` on
   ``SwimmerEnv(max_steps=100)``, P = 512, normalized observations
   (``swimmer_step_kernel`` at N = 513, once a rollout step);
+- ``gaussian_swimmer_15``: ``gaussian_swimmer`` at 15 links (DeepMind
+  Control's ``swimmer15``), ``GaussianMLP(32, 14)``, as ``chip_smoke.py``'s
+  ``swimmer15_path`` builds it (its ``SWIM15_*`` sizes, imported from the
+  timed checkout's own ``chip_smoke.py``): the swimmer kernel's run-time
+  form at N = 513, once a rollout step;
 - ``impala_128px``: ``chip_smoke.py``'s ``shapes`` phase's 128-pixel f32
   flagship (``BIG_ENV``, ``BIG_MODEL``, P = ``BIG_P`` in chunks of
   ``BIG_CHUNK``, T = ``BIG_T``: ``impala_prod_bf16``'s model in f32 on
@@ -51,7 +56,8 @@ import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CELLS = ("mlp_trap", "mlp_trap_e8", "impala_procmaze", "impala_prod_bf16",
-         "impala_prod_bf16_c16", "gaussian_swimmer", "swimmer_host", "impala_128px")
+         "impala_prod_bf16_c16", "gaussian_swimmer", "swimmer_host", "impala_128px",
+         "gaussian_swimmer_15")
 
 
 def make_trainer(cell: str):
@@ -78,6 +84,15 @@ def make_trainer(cell: str):
         return SequentialRunner(model, env, dist, batch_size=4, zeta_size=16,
                                 max_strategy_history_size=16, random_seed=123,
                                 reporter=EpochReporter(quiet=True))
+    if cell == "gaussian_swimmer_15":  # as chip_smoke.py's swimmer15_path builds it
+        import chip_smoke as cs
+
+        cfg = TrainConfig(batch_size=cs.SWIM15_P, zeta_size=16, max_strategy_history_size=8,
+                          episode_length=cs.SWIM15_T, random_seed=0, normalize_obs=True)
+        links = cs.SWIM15_LINKS
+        return VectorizedTrainer(GaussianMLP(2 * links + 2, links - 1),
+                                 SwimmerEnv(n_links=links, max_steps=cs.SWIM15_T),
+                                 distances.gaussian_wasserstein_from_strategies, cfg)
     if cell == "gaussian_swimmer":
         cfg = TrainConfig(batch_size=512, zeta_size=16, max_strategy_history_size=8,
                           episode_length=100, random_seed=0, normalize_obs=True)

@@ -47,8 +47,9 @@ probe's concat, of its ``x [128, 1024]`` by 3, among the probe cases).  Combine
 and the relayouts take five such rounds, and their spread (the fastest and
 slowest round's ratio) is printed.  Each output is checked against the
 plain version first (the relayouts bit for bit).  The swimmer's step runs
-at ``gaussian_swimmer``'s 513 episodes of 7 links from random states and
-actions and at the host topology's one episode (the first of them), five
+at 513 episodes (``gaussian_swimmer``'s launch) from random states and
+actions and at the host topology's one episode (the first of them), at 7
+links (the template form) and at 12, 15, 32 and 64 (the run-time form), five
 rounds each, after a check of whether the two versions' outputs are equal
 bit for bit and of their largest absolute difference.
 
@@ -97,6 +98,7 @@ TRANSPOSES = ((33280, 1024), (64, 532480), (532480, 64), (16, 2129920), (2129920
 GROUPS = ("perturb", "gemm_chain", "res_chain", "relayout", "swimmer", "torso_tiled")
 SOURCE = {"torso_tiled": "fused_resblock_tf32"}  # a group's source where it is not its name
 # impala_128px's three tiled f32 calls (chip_smoke.py's BIG_CHUNK members, one frame each)
+SWIMMER_LINKS = (7, 12, 15, 32, 64)  # the template form of gaussian_swimmer, then the run-time form
 TORSO_TILED = (("res", 64, 64, 64, 64), ("feat", 64, 128, 64, 64), ("res", 128, 128, 32, 32))
 
 
@@ -525,31 +527,34 @@ def main() -> int:
         rows += relayout_turns(libs, dev)
 
     if "swimmer" in args.kernels:
-        c = SwimmerEnv(max_steps=100, device=dev).consts
-        g = torch.Generator(dev).manual_seed(7)
-        unif = lambda *shape: torch.rand(*shape, generator=g, device=dev) * 2 - 1
-        N = 513
-        state = (unif(N, c.ndof), unif(N, c.ndof),
-                 torch.randint(0, 100, (N,), generator=g, device=dev), 1.5 * unif(N, c.n_links - 1))
-        # gaussian_swimmer's launch, then the host topology's (its first episode)
-        for n in (N, 1):
-            ins = tuple(x[:n].contiguous() for x in state)
-            outs = tuple(torch.empty_like(x) for x in sw.swimmer_step(c, *ins))
+        for links in SWIMMER_LINKS:
+            c = SwimmerEnv(n_links=links, max_steps=100, device=dev).consts
+            g = torch.Generator(dev).manual_seed(7)
+            unif = lambda *shape: torch.rand(*shape, generator=g, device=dev) * 2 - 1
+            N = 513
+            state = (unif(N, c.ndof), unif(N, c.ndof),
+                     torch.randint(0, 100, (N,), generator=g, device=dev),
+                     1.5 * unif(N, c.n_links - 1))
+            # gaussian_swimmer's launch, then the host topology's (its first episode)
+            for n in (N, 1):
+                ins = tuple(x[:n].contiguous() for x in state)
+                outs = tuple(torch.empty_like(x) for x in sw.swimmer_step(c, *ins))
 
-            def parent():
-                build.raise_on(libs["swimmer"].dfd_swimmer_step(
-                    ctypes.byref(sw.kernel_args(c, ins, outs)), c.n_links, stream()),
-                    "parent swimmer_step")
-                return outs
+                def parent(c=c, ins=ins, outs=outs):
+                    build.raise_on(libs["swimmer"].dfd_swimmer_step(
+                        ctypes.byref(sw.kernel_args(c, ins, outs)), c.n_links, stream()),
+                        "parent swimmer_step")
+                    return outs
 
-            change = lambda: sw.swimmer_step(c, *ins)
-            pairs = list(zip(parent(), change()))
-            equal = all(torch.equal(x, y) for x, y in pairs)
-            diff = max((x.double() - y.double()).abs().max().item() for x, y in pairs)
-            print(f"turns: swimmer_step N={n} 7 links: the outputs equal bit for bit: {equal}; "
-                  f"largest absolute difference {diff:.3g}", flush=True)
-            rows.append(dict(turns(f"swimmer_step N={n} 7 links", parent, change, 50, rounds=5),
-                             bit_equal=equal, max_abs_diff=diff))
+                change = lambda c=c, ins=ins: sw.swimmer_step(c, *ins)
+                pairs = list(zip(parent(), change()))
+                equal = all(torch.equal(x, y) for x, y in pairs)
+                diff = max((x.double() - y.double()).abs().max().item() for x, y in pairs)
+                name = f"swimmer_step N={n} {links} links"
+                print(f"turns: {name}: the outputs equal bit for bit: {equal}; largest absolute "
+                      f"difference {diff:.3g}", flush=True)
+                rows.append(dict(turns(name, parent, change, 50 if links < 32 else 10, rounds=5),
+                                 bit_equal=equal, max_abs_diff=diff))
 
     if "torso_tiled" in args.kernels:
         torch.backends.cudnn.allow_tf32 = False
