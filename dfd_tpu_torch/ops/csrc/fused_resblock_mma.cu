@@ -74,7 +74,7 @@
 // block's 227 KB of shared memory even at clusters of 8 (the res stage's f32
 // tap alone outgrows it near 180 channels); fused_resblock.py's plans send
 // those shapes to the tiled forms at the end of this file
-// (conv_tiled_mma_kernel), which take any C, H and W.
+// (conv_tiled_mma_kernel, on wgmma), which take any C, H and W.
 //
 // Arithmetic follows the TPU kernel: the affine as two rounded operations
 // (__fmul_rn, __fadd_rn, never contracted), then ReLU in the res stage; both
@@ -91,6 +91,7 @@
 
 #include "conv_tiled.cuh"
 #include "ptx.cuh"
+#include "tiled_mma_plan.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -529,254 +530,473 @@ feat_pool_mma_kernel(const float* __restrict__ x, const float* __restrict__ w,
 //
 // Where no cluster of at most 8 blocks holds a frame's band with all its
 // channels beside a weight tap, each conv runs on its own as an implicit
-// GEMM over tiles (conv_tiled_mma_kernel): a block takes th x tw conv
-// outputs (whole image rows, or part of one where W is wider than the 256
-// positions of its warps) x a group of up to kTiledGroup output channels, and
-// streams K = 9 ci in chunks of all nine taps x kTiledKc input channels.  A
-// chunk lands by cp.async in f32 (the operand tile with its halo from device
-// memory, the group's weights), is rounded into bf16 buffers (the operand as
-// bf16(relu(x * s + t)), zero off the frame and past ci: the prologue the
-// cluster kernels apply as they stage), and the next chunk's copies start
-// before the tensor cores take this one.  The arithmetic is the cluster
-// kernels' up to the order of the K chunks: each conv output is summed in
-// f32 and stored in f32, and the next conv rounds relu(v * s + t) to bf16 as
-// the cluster kernel's epilogue does.
+// GEMM over tiles (conv_tiled_mma_kernel; the plan and the weight image in
+// tiled_mma_plan.cuh).  A block of 4 warpgroups, one an SM, takes a tile of
+// conv outputs x one group of 64 output channels, or both groups of a conv
+// with more than 64 (the two pairs of warpgroups read one operand tile):
+// res 64 @ 96x96 tiles of 6 x 96 outputs, res 128 @ 48x48 6 x 48 x 128
+// channels, the 192x192 feature pool the 17 x 15 dense outputs behind 8 x 7
+// pooled ones x 128 channels.  K = 9 ci streams in chunks of 16 input
+// channels x all nine taps, one barrier a chunk.
 //
-// The res stage is four such launches (dfd_res_stage_tiled_mma, the passes
-// of conv_tiled.cuh's res_stage_passes), the feature pool one
-// (dfd_feat_pool_tiled_mma): a block's tile is ph x pw pooled outputs, whose
-// (2 ph + 1) x (2 pw + 1) dense outputs it computes, -inf off the frame, into
-// shared memory over its buffers, then takes their 3x3 maxima.
+// What held the earlier tiled form back (PERF.md section 6), and what this
+// design does about it (measured by tools/torch_mma_variants.py --source
+// tiled_mma [--stamps]):
+// - Thin tiles.  Tiles of 2 x 96 outputs read and rounded the input 2.04
+//   times; the pool computed 6.1 dense outputs a pooled one.  Now each
+//   warpgroup's products cover 152 positions of the tile's halo-padded rows
+//   (a tile row and its two halo columns, so a tap is a shift of the
+//   operand's start), 608 a block: the halo costs 1.36x at 96x96, 1.39x at
+//   48x48, and the pool computes 4.55 dense outputs a pooled one.
+// - Copies.  The operand came by one 4-byte cp.async a (position, channel)
+//   and the f32 weights by cp.async, filling the SM's request queue.  Now
+//   each chunk's weights come by one bulk copy from a bf16 image, rounded
+//   once a weight tensor by round_weights_kernel in the ring's layout
+//   (tiled_mma::image_offset; zero past ci and co), and its operand by
+//   tensor-map loads (zero outside the frame), all on mbarriers; only f32
+//   frames with W % 4 != 0 copy the operand by 4-byte cp.async.
+// - The transform.  The landed tile became bf16 between two barriers while
+//   the tensor cores idled.  An f32 operand (the pool, the res stage's first
+//   conv) is still transformed (x * s + t, ReLU in the res stage, zero off
+//   the frame and past ci) into planes of 8 channels, 16 bytes a position
+//   (the core-matrix layout), once the chunk before has its products
+//   issued.  The res stage's convs 1-3 need none: each conv's
+//   epilogue writes the next one's operand, bf16(relu(v * s + t)), as bf16
+//   planes in device memory, which land by tensor map straight into the
+//   ring (four slots), and the f32 scratch between the convs is gone.
+// - Products.  mma.sync, each warp loading the whole weight chunk by
+//   ldmatrix for every tap.  Now wgmma m64n152k16 (bf16, f32 sums), A the
+//   weights and B the planes, both from shared memory by descriptor: nine a
+//   chunk a warpgroup; on planar operands chunk k's are issued before chunk
+//   k - 1's are waited for.  The sum is carried in the accumulators across
+//   all of K, as the cluster kernels' mma.sync carries it.
+// - The epilogue.  Each thread stored its scattered sums.  Now the sums and
+//   bias go to shared memory over the ring, then leave in units of 8
+//   channels x 4 positions of a tile row: the residual and the f32 outputs
+//   as float4s, the next conv's planes as 16 bytes a position.
+//
+// The res stage is four launches after the weights' rounding
+// (dfd_res_stage_tiled_mma), the feature pool one (dfd_feat_pool_tiled_mma):
+// its dense outputs, -inf off the frame, go to shared memory over the
+// buffers, then their 3x3 maxima to device memory; no block needs another's.
 
-constexpr int kTiledKc = 16;                 // input channels of a chunk: one k16 step a tap
-constexpr int kTiledRaw = kTiledKc + 4;      // f32 landing: floats a position
-constexpr int kTiledRawW = 9 * kTiledKc + 4; //   and a weight row
-constexpr int kTiledCs = kTiledKc + 8;       // bf16 operand: values a position (ldmatrix rows
-constexpr int kTiledCsw = 9 * kTiledKc + 8;  //   on distinct banks), and a weight row
-constexpr int kTiledCap = kWarps * kWarpN;   // positions a block's warps take at once
+namespace tmma = tiled_mma;
 
-__host__ __device__ __forceinline__ int tiled_rows(int co) {
-  return pad16(co) < kTiledGroup ? pad16(co) : kTiledGroup;
-}
+constexpr int kAcc = tmma::kN / 2;  // f32 sums a thread of a warpgroup holds
 
-// Shared bytes of a tiled block: the f32 landing buffers and the bf16 ones,
-// or the dense map that overlays them in the feature pool, whichever is larger.
-size_t tiled_smem(int co, int th, int tw, bool pool) {
-  const size_t npt = (size_t)(th + 2) * (tw + 2), rows = tiled_rows(co);
-  const size_t conv =
-      npt * (4 * kTiledRaw + 2 * kTiledCs) + rows * (4 * kTiledRawW + 2 * kTiledCsw);
-  const size_t dense = pool ? 4 * rows * th * tw : 0;
-  return conv > dense ? conv : dense;
-}
-
-// The res stage's tile: as many whole rows as the warps' positions cover
-// (part of a row where W is wider), fewer rows, then narrower, while the
-// buffers do not fit; then spread evenly over the frame.
-void tiled_res_plan(int C, int H, int W, int* th, int* tw) {
-  int w = min(W, kTiledCap), h = max(1, min(H, kTiledCap / w));
-  while (tiled_smem(C, h, w, false) > (size_t)kMaxSmem) {
-    if (h > 1) --h;
-    else w = max(1, w / 2);
-  }
-  const int ntr = (H + h - 1) / h, ntc = (W + w - 1) / w;
-  *th = (H + ntr - 1) / ntr;
-  *tw = (W + ntc - 1) / ntc;
-}
-
-// The feature pool's tile of ph x pw pooled outputs: the widest run of
-// pooled columns whose dense columns, three dense rows of them, the warps
-// cover, then as many pooled rows as they take; fewer while the buffers do
-// not fit; then spread evenly.
-void tiled_feat_plan(int co, int H, int W, int* ph, int* pw) {
-  const int Ho = (H + 1) / 2, Wo = (W + 1) / 2;
-  int c = min(Wo, max(1, (kTiledCap / 3 - 1) / 2));
-  int r = min(Ho, max(1, (kTiledCap / (2 * c + 1) - 1) / 2));
-  while (tiled_smem(co, 2 * r + 1, 2 * c + 1, true) > (size_t)kMaxSmem) {
-    if (r > 1) --r;
-    else c = max(1, c / 2);
-  }
-  const int ntr = (Ho + r - 1) / r, ntc = (Wo + c - 1) / c;
-  *ph = (Ho + ntr - 1) / ntr;
-  *pw = (Wo + ntc - 1) / ntc;
-}
-
-// The landed chunk in bf16: the operand as bf16(x * s + t, then ReLU if
-// relu) on the frame, zero off it and past ci; the weights rounded.
-__device__ void round_tiled(const TiledArgs& a, const float* tile, const float* wb, bf16* op,
-                            bf16* sw, int m, int oy, int ox, int c0, int rows) {
-  const int tile_w = a.tw + 2, npt = (a.th + 2) * tile_w;
-  float sv[kTiledKc], tv[kTiledKc];
+// Eight values as bf16 (round to nearest), 16 bytes.
+__device__ __forceinline__ uint4 pack_bf16x8(const float (&u)[8]) {
+  uint4 o;
+  uint32_t* w = &o.x;
 #pragma unroll
-  for (int c = 0; c < kTiledKc; ++c) {
-    const int ch = min(c0 + c, a.ci - 1);
-    sv[c] = a.s[(size_t)m * a.st_ms + ch];
-    tv[c] = a.t[(size_t)m * a.st_ms + ch];
+  for (int e = 0; e < 4; ++e) {
+    const __nv_bfloat162 h2 = __floats2bfloat162_rn(u[2 * e], u[2 * e + 1]);
+    w[e] = *reinterpret_cast<const uint32_t*>(&h2);
   }
-  for (int p = threadIdx.x; p < npt; p += kThreads) {
-    const int r = p / tile_w, x = ox - 1 + (p - r * tile_w), y = oy - 1 + r;
-    const bool inside = y >= 0 && y < a.H && x >= 0 && x < a.W;
-    const float* d = tile + p * kTiledRaw;
-    float v[kTiledKc];
+  return o;
+}
+
+// Weights w (member m's conv j [co][9 ci] in tap order at
+// w + (m * J + j) * co * 9 ci) rounded to bf16 into img, conv (m, j)'s image
+// at img + (m * J + j) * conv_image_elems: one thread a core-matrix row (8
+// channels of one tap of one output channel, read as two float4s where
+// ci % 4 == 0), neighbouring threads on neighbouring rows, so that the image
+// is written 16 bytes a thread in order.
+__global__ void __launch_bounds__(256)
+round_weights_kernel(const float* __restrict__ w, bf16* __restrict__ img, int MJ, int co, int ci) {
+  const int groups = tmma::image_groups(co), nk = tmma::cdiv(ci, tmma::kKc);
+  const long long conv = tmma::conv_image_elems(ci, co);
+  const long long total = (long long)MJ * nk * groups * 9 * tmma::kPlanes * tmma::kGroup;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
+       i += (long long)gridDim.x * blockDim.x) {
+    long long r = i;
+    const int row = int(r % tmma::kGroup);
+    r /= tmma::kGroup;
+    const int q = int(r % tmma::kPlanes);
+    r /= tmma::kPlanes;
+    const int tap = int(r % 9);
+    r /= 9;
+    const int g = int(r % groups);
+    r /= groups;
+    const int k = int(r % nk);
+    const long long mj = r / nk;
+    const int o = g * tmma::kGroup + row, c0 = k * tmma::kKc + 8 * q;
+    float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (o < co && c0 < ci) {
+      const float* src = w + (mj * co + o) * 9 * ci + (size_t)tap * ci + c0;
+      if ((ci & 3) == 0) {  // a float4 lies wholly below ci or past it
 #pragma unroll
-    for (int c = 0; c < kTiledKc; ++c) {
-      v[c] = 0.f;
-      if (inside && c0 + c < a.ci) {
-        v[c] = affine(d[c], sv[c], tv[c]);
-        if (a.relu) v[c] = fmaxf(v[c], 0.f);
+        for (int h = 0; h < 2; ++h) {
+          if (c0 + 4 * h >= ci) break;
+          const float4 f = __ldg(reinterpret_cast<const float4*>(src) + h);
+          v[4 * h] = f.x;
+          v[4 * h + 1] = f.y;
+          v[4 * h + 2] = f.z;
+          v[4 * h + 3] = f.w;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = c0 + e < ci ? src[e] : 0.f;
       }
     }
-#pragma unroll
-    for (int c = 0; c < kTiledKc; c += 2)
-      *reinterpret_cast<__nv_bfloat162*>(op + p * kTiledCs + c) =
-          __floats2bfloat162_rn(v[c], v[c + 1]);
-  }
-  for (int i = threadIdx.x; i < rows * 9 * kTiledKc / 2; i += kThreads) {
-    const int r = i / (9 * kTiledKc / 2), c = (i - r * (9 * kTiledKc / 2)) * 2;
-    *reinterpret_cast<__nv_bfloat162*>(sw + r * kTiledCsw + c) =
-        __floats2bfloat162_rn(wb[r * kTiledRawW + c], wb[r * kTiledRawW + c + 1]);
+    *reinterpret_cast<uint4*>(img + mj * conv + tmma::image_offset(ci, co, o, tap, c0)) =
+        pack_bf16x8(v);
   }
 }
 
-// blockIdx.x = (member * B + frame) * ntiles + tile, blockIdx.y = group of
-// kTiledGroup output channels.  One conv of a res stage (bias, then the
-// residual where res is set), or the feature pool's conv and pool (POOL).
-template <bool POOL>
-__global__ void __launch_bounds__(kThreads, 2)
-conv_tiled_mma_kernel(const __grid_constant__ TiledArgs a) {
+// The landed chunk c0 .. c0 + 15 as the conv's operand: each value r becomes
+// bf16(r * s + t, then ReLU if relu) on the frame, zero off it, past ci and
+// past the halo tile, into the planes ([kPlanes][pa][8]).  Half the threads
+// take each plane (8 channels, their s and t in registers), a position at a
+// time: 8 loads from the landing tile, one 16-byte store.
+__device__ __forceinline__ void transform_chunk(const TiledArgs& a, int m, int c0,
+                                                const float* land, bf16* planes,
+                                                const TileView& v) {
+  constexpr int kStride = tmma::kThreads / tmma::kPlanes;
+  const int q = threadIdx.x / kStride, cq = c0 + 8 * q, nv = min(8, a.ci - cq);
+  float sv[8], tv[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    sv[e] = e < nv ? __ldg(a.s + (size_t)m * a.st_ms + cq + e) : 0.f;
+    tv[e] = e < nv ? __ldg(a.t + (size_t)m * a.st_ms + cq + e) : 0.f;
+  }
+  const int cstride = v.rows * v.lw;
+  const float* lq = land + 8 * q * cstride + v.dx;
+  uint4* pq = reinterpret_cast<uint4*>(planes) + (size_t)q * v.pa;
+  for (int p = threadIdx.x - q * kStride; p < v.pa; p += kStride) {
+    const int r = p / v.tile_w, col = p - r * v.tile_w;
+    const int y = v.oy - 1 + r, x = v.ox - 1 + col;
+    const bool inside = p < v.P && y >= 0 && y < a.H && x >= 0 && x < a.W;
+    const float* src = lq + r * v.lw + col;
+    float u[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      u[e] = 0.f;
+      if (inside && e < nv) {
+        u[e] = affine(src[e * cstride], sv[e], tv[e]);
+        if (a.relu) u[e] = fmaxf(u[e], 0.f);
+      }
+    }
+    pq[p] = pack_bf16x8(u);
+  }
+}
+
+// One thread starts the bulk copy of a chunk's weights (the block's groups)
+// into wst, completing on bar.
+__device__ __forceinline__ void issue_weights(bf16* wst, const bf16* src, uint32_t bytes,
+                                              uint64_t* bar) {
+  if (threadIdx.x != 0) return;
+  fence_proxy_async();
+  bulk_copy(wst, src, bytes, bar);
+}
+
+// One thread starts the tensor-map loads of a planar chunk k (the operand's
+// planes 2k and 2k + 1 of this frame, each a halo tile of 16-byte positions)
+// into planes [2][pa][8], completing on bar: zero off the frame.
+__device__ __forceinline__ void issue_planes(const CUtensorMap& map, bf16* planes, uint64_t* bar,
+                                             const TileView& v, int plane0) {
+  if (threadIdx.x != 0) return;
+  mbar_expect_tx(bar, uint32_t(2 * 16 * v.P));
+  for (int q = 0; q < tmma::kPlanes; ++q)
+    tma_load_4d(planes + (size_t)q * v.pa * 8, &map, 0, v.ox - 1, v.oy - 1, plane0 + q, bar);
+}
+
+// One chunk's products, issued and committed: the warpgroup's 64 rows (wst:
+// its group's [9 taps][2 planes][64 rows][8]) x 152 halo-padded positions
+// from n0 (the planes, positions 16 bytes apart, so a tap is a shift of B's
+// start), one k16 step a tap, added to acc.  The caller waits for them.
+__device__ __forceinline__ void issue_products(float (&acc)[kAcc], const bf16* wst,
+                                               const bf16* planes, int n0, int pa, int tile_w) {
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) fence_operand(acc[i]);
+  wgmma_fence();
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap) {  // tap = kw * 3 + kh
+    const int kw = tap / 3, kh = tap % 3;
+    const uint64_t ad =
+        smem_desc(wst + tap * tmma::kPlanes * tmma::kGroup * 8, tmma::kGroup * 16, 128);
+    const uint64_t bd = smem_desc(planes + (n0 + kh * tile_w + kw) * 8, uint32_t(pa) * 16, 128);
+    wgmma_bf16_n152(acc, ad, bd, 1);
+  }
+  wgmma_commit();
+}
+
+// N (1 or 4) floats at p.
+template <int N>
+__device__ __forceinline__ void load_n(float (&d)[N], const float* p) {
+  if constexpr (N == 4) {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    d[0] = f.x;
+    d[1] = f.y;
+    d[2] = f.z;
+    d[3] = f.w;
+  } else {
+    d[0] = *p;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_n(float* p, const float (&d)[N]) {
+  if constexpr (N == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(d[0], d[1], d[2], d[3]);
+  else
+    *p = d[0];
+}
+
+// The res stage's epilogue from the block's sums in shared memory (sd, rows
+// of sstride; snt the next conv's s then t for the block's rows): units of 8
+// channels x N neighbouring positions of a tile row (see the kernel).
+template <int N>
+__device__ __forceinline__ void res_epilogue(const TiledArgs& a, const float* sd,
+                                             const float* snt, int rows, int sstride, int valid,
+                                             size_t mb, int co0, int oy, int ox) {
+  const size_t plane = (size_t)a.H * a.W;
+  const int qw = a.tw / N, per = a.th * qw;
+  const int units = (valid + 7) / 8 * per, planes_out = tmma::cdiv(a.co, 8);
+  for (int u = threadIdx.x; u < units; u += tmma::kThreads) {
+    const int q = u / per, rem = u - q * per, ly = rem / qw, lx = (rem - ly * qw) * N;
+    const int y = oy + ly, x = ox + lx;
+    if (y >= a.H || x >= a.W) continue;  // (N == 4: x < W, both multiples of 4, so x + 3 < W)
+    const size_t pos = (size_t)y * a.W + x;
+    const int spos = ly * a.tw + lx;
+    float t[8][N];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int r = min(8 * q + e, valid - 1);
+      load_n<N>(t[e], sd + r * sstride + spos);
+      if (a.res != nullptr) {
+        float rv[N];
+        load_n<N>(rv, a.res + (mb * a.co + co0 + r) * plane + pos);
+#pragma unroll
+        for (int i = 0; i < N; ++i) t[e][i] = __fadd_rn(rv[i], t[e][i]);
+      }
+    }
+    if (a.out != nullptr) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (8 * q + e < valid)
+          store_n<N>(a.out + (mb * a.co + co0 + 8 * q + e) * plane + pos, t[e]);
+    }
+    if (a.pout != nullptr) {
+      uint4* const dst =
+          reinterpret_cast<uint4*>(a.pout) + (mb * planes_out + co0 / 8 + q) * plane + pos;
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        float f[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int r = 8 * q + e;
+          f[e] = r < valid ? fmaxf(affine(t[e][i], snt[r], snt[rows + r]), 0.f) : 0.f;
+        }
+        dst[i] = pack_bf16x8(f);
+      }
+    }
+  }
+}
+
+// blockIdx.x = (member * B + frame) * ntiles + tile, blockIdx.y = the
+// block's groups of 64 output channels (two where co > 64).  Warpgroup wg
+// multiplies group wg / spans of the block over halo-padded positions
+// (wg % spans) * 152 .. + 151, spans = 4 / groups.  One conv of a res stage
+// (bias, then the residual where res is set; the f32 outputs where out is
+// set, the next conv's operand as bf16 planes where pout is), or the feature
+// pool's conv and pool (POOL).
+//
+// The operand is f32 (PLANAR false: a.in, landed by tensor map, then
+// transformed) or the previous conv's bf16 planes (PLANAR: landed by tensor
+// map straight into the plane slots).  Chunk k's operand and weights land S
+// iterations ahead in ring slot k % S.  f32: the operand is transformed one
+// iteration ahead into plane slot k % 2, after chunk k - 1's products are
+// issued (an issue waits while the tensor cores' queue is full, so the
+// transform overlaps only their last ones); planar: chunk k's products are
+// issued before chunk k - 1's are waited for.  One barrier a chunk orders
+// them.
+template <bool POOL, int S, bool PLANAR>
+__global__ void __launch_bounds__(tmma::kThreads, 1)
+conv_tiled_mma_kernel(const __grid_constant__ TiledArgs a, const __grid_constant__ CUtensorMap map) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const int gb = tmma::block_groups(a.co), spans = 4 / gb;
   const int ti = int(blockIdx.x % (unsigned)a.ntiles);
   const size_t mb = blockIdx.x / (unsigned)a.ntiles;
   const int m = int(mb / a.B), tr = ti / a.ntc, tc = ti - tr * a.ntc;
-  const int oy = POOL ? 2 * tr * a.ph - 1 : tr * a.th;  // the tile's first conv output
-  const int ox = POOL ? 2 * tc * a.pw - 1 : tc * a.tw;
-  const int co0 = blockIdx.y * kTiledGroup, rows = tiled_rows(a.co);
-  const int tile_w = a.tw + 2, npos = a.th * a.tw;
-  const size_t npt = (size_t)(a.th + 2) * tile_w;
-  float* const tile = reinterpret_cast<float*>(smem);
-  float* const wb = tile + npt * kTiledRaw;
-  bf16* const op = reinterpret_cast<bf16*>(wb + (size_t)rows * kTiledRawW);
-  bf16* const sw = op + npt * kTiledCs;
+  TileView v;
+  v.oy = POOL ? 2 * tr * a.ph - 1 : tr * a.th;  // the tile's first conv output
+  v.ox = POOL ? 2 * tc * a.pw - 1 : tc * a.tw;
+  v.rows = a.th + 2;
+  v.tile_w = a.tw + 2;
+  v.P = v.rows * v.tile_w;
+  v.pa = tmma::plane_positions(a.co, a.th, a.tw);
+  v.x0 = a.vec ? (v.ox - 1) & ~3 : v.ox - 1;
+  v.lw = a.vec ? tmma::landing_width(a.tw) : v.tile_w;
+  v.dx = v.ox - 1 - v.x0;
+  const int co0 = blockIdx.y * gb * tmma::kGroup, npos = a.th * a.tw;
+  const size_t wel = gb * tmma::chunk_elems(), pel = (size_t)tmma::kKc * v.pa,
+               lfl = (size_t)tmma::kKc * v.rows * tmma::landing_width(a.tw);
+  // [S][wel] bf16, then [PLANAR ? S : 2][pel] bf16, then (f32) [S][lfl] f32, from the first
+  // 128-byte boundary (the tensor-map loads' alignment)
+  bf16* const wbuf = reinterpret_cast<bf16*>(smem + (128 - smem_addr(smem) % 128) % 128);
+  bf16* const pbuf = wbuf + S * wel;
+  float* const lbuf = reinterpret_cast<float*>(pbuf + (PLANAR ? S : 2) * pel);
+  const int nk = tmma::cdiv(a.ci, tmma::kKc);
+  // a chunk's groups of the image
+  const size_t kstride = (size_t)tmma::image_groups(a.co) * tmma::chunk_elems();
+  const bf16* const wimg =
+      reinterpret_cast<const bf16*>(a.w) + (size_t)m * a.w_ms + (size_t)blockIdx.y * wel;
+  const int plane0 = int(mb) * tmma::cdiv(a.ci, 8);  // the frame's first operand plane
 
-  const WarpGrid g = warp_grid(rows);  // one warp row: the 256 positions cover the tile
-  const int lane = threadIdx.x & 31, gr = lane >> 2, gc = lane & 3;
-  int boff[2];
-  b_offsets(boff, 0, g.wn, npos, a.tw, tile_w, kTiledCs);
-  float acc[4][4][4];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wg = warp >> 2;
+  const int gsel = wg / spans, n0 = (wg % spans) * tmma::kN;
+  const int row0 = gsel * tmma::kGroup + (warp & 3) * 16 + (lane >> 2);  // this lane's first row
+  const int tig = lane & 3;
+  float acc[kAcc];
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
 
-  const int nk = (a.ci + kTiledKc - 1) / kTiledKc;
-  issue_tiled<kTiledKc, kThreads>(a, tile, wb, mb, m, oy, ox, co0, 0, rows);
-  for (int k = 0; k < nk; ++k) {
-    cp_async_wait_all();
-    __syncthreads();  // chunk k has landed; every warp is done with chunk k - 1
-    round_tiled(a, tile, wb, op, sw, m, oy, ox, k * kTiledKc, rows);
-    __syncthreads();  // the bf16 buffers are written; the landing ones are free
-    if (k + 1 < nk)
-      issue_tiled<kTiledKc, kThreads>(a, tile, wb, mb, m, oy, ox, co0, (k + 1) * kTiledKc, rows);
-    if (g.mtiles > 0) {
-      const bf16* ap = sw + (lane & 15) * kTiledCsw + (lane >> 4) * 8;
-      for (int tap = 0; tap < 9; ++tap) {
-        const int shift = ((tap % 3) * tile_w + tap / 3) * kTiledCs;  // tap = kw * 3 + kh
-        uint32_t af[4][4], bfr[2][4];
+  // chunk k's weights complete on wbar[k % S], its tensor-map operand on lbar[k % S]
+  __shared__ __align__(8) uint64_t wbar[S], lbar[S];
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S; ++i) {
+      mbar_init(&wbar[i], 1);
+      mbar_init(&lbar[i], 1);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();  // no thread tests a barrier before it is initialized
+  for (int i = 0; i < S && i < nk; ++i) {
+    issue_weights(wbuf + i * wel, wimg + i * kstride, uint32_t(wel * 2), &wbar[i]);
+    if (PLANAR)
+      issue_planes(map, pbuf + i * pel, &lbar[i], v, plane0 + 2 * i);
+    else
+      issue_operand<tmma::kKc, tmma::kThreads>(a, map, lbuf + i * lfl, &lbar[i], mb,
+                                               i * tmma::kKc, v);
+  }
+  if (PLANAR) {
+    for (int k = 0; k < nk; ++k) {
+      const int slot = k % S;
+      mbar_wait(&lbar[slot], (k / S) & 1);  // chunk k's planes and weights are in
+      mbar_wait(&wbar[slot], (k / S) & 1);
+      issue_products(acc, wbuf + slot * wel + gsel * tmma::chunk_elems(), pbuf + slot * pel, n0,
+                     v.pa, v.tile_w);
+      wgmma_wait1();  // chunk k - 1's products are done here
 #pragma unroll
-        for (int mt = 0; mt < 4; ++mt)
-          if (mt < g.mtiles) ldsm_x4(af[mt], ap + mt * 16 * kTiledCsw + tap * kTiledKc);
-        ldsm_x4(bfr[0], op + boff[0] + shift);
-        ldsm_x4(bfr[1], op + boff[1] + shift);
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          if (mt < g.mtiles) {
-#pragma unroll
-            for (int nt = 0; nt < 4; ++nt)
-              mma_bf16(acc[mt][nt], af[mt], bfr[nt >> 1][(nt & 1) * 2],
-                       bfr[nt >> 1][(nt & 1) * 2 + 1]);
-          }
-        }
+      for (int i = 0; i < kAcc; ++i) fence_operand(acc[i]);
+      __syncthreads();  // ... and in every warpgroup: its slot takes chunk k - 1 + S
+      const int j = k - 1 + S;
+      if (k > 0 && j < nk) {
+        issue_weights(wbuf + (j % S) * wel, wimg + j * kstride, uint32_t(wel * 2), &wbar[j % S]);
+        issue_planes(map, pbuf + (j % S) * pel, &lbar[j % S], v, plane0 + 2 * j);
       }
     }
-  }
-  const float* bm = a.b + (size_t)m * a.b_ms + co0;
-  const int valid = min(kTiledGroup, a.co - co0);
-  // this thread's 8 positions (n8 tile q >> 1, column q & 1): the frame
-  // offset, -1 past the tile or off the frame
-  int goff[8];
-  bool inside[8];
-#pragma unroll
-  for (int q = 0; q < 8; ++q) {
-    const int p = g.wn * kWarpN + (q >> 1) * 8 + 2 * gc + (q & 1);
-    const int ly = p / a.tw, y = oy + ly, x = ox + p - ly * a.tw;
-    inside[q] = p < npos && y >= 0 && y < a.H && x >= 0 && x < a.W;
-    goff[q] = p < npos ? (inside[q] ? y * a.W + x : -2) : -1;
-  }
-  if (POOL) {
-    __syncthreads();  // the dense map overwrites the buffers
-    float* const sd = reinterpret_cast<float*>(smem);
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-      if (mt >= g.mtiles) continue;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int k = mt * 16 + gr + (e >> 1) * 8, q = nt * 2 + (e & 1);
-          if (k >= rows || goff[q] == -1) continue;
-          const int p = g.wn * kWarpN + (q >> 1) * 8 + 2 * gc + (q & 1);
-          sd[k * npos + p] = inside[q] ? __fadd_rn(acc[mt][nt][e], bm[min(k, valid - 1)])
-                                       : -CUDART_INF_F;
-        }
-    }
+  } else {
+    cp_async_commit();
+    cp_async_wait_all();
+    if (a.vec) mbar_wait(&lbar[0], 0);
     __syncthreads();
+    transform_chunk(a, m, 0, lbuf, pbuf, v);
+    for (int k = 0; k < nk; ++k) {
+      const int slot = k % S;
+      cp_async_wait_all();
+      fence_proxy_async();
+      __syncthreads();  // chunk k's planes are in; every warpgroup is done with chunk k - 1's
+                        // products; landing slot k % S is transformed
+      if (k > 0 && k - 1 + S < nk) {
+        const int j = k - 1 + S;
+        issue_weights(wbuf + (j % S) * wel, wimg + j * kstride, uint32_t(wel * 2), &wbar[j % S]);
+      }
+      if (k + S < nk)
+        issue_operand<tmma::kKc, tmma::kThreads>(a, map, lbuf + slot * lfl, &lbar[slot], mb,
+                                                 (k + S) * tmma::kKc, v);
+      cp_async_commit();
+      mbar_wait(&wbar[slot], (k / S) & 1);  // chunk k's weights are in
+      issue_products(acc, wbuf + slot * wel + gsel * tmma::chunk_elems(), pbuf + (k & 1) * pel,
+                     n0, v.pa, v.tile_w);
+      if (k + 1 < nk) {  // chunk k + 1's transform while chunk k's products run
+        const int next = (k + 1) % S;
+        if (a.vec) mbar_wait(&lbar[next], ((k + 1) / S) & 1);
+        transform_chunk(a, m, (k + 1) * tmma::kKc, lbuf + next * lfl,
+                        pbuf + ((k + 1) & 1) * pel, v);
+      }
+      wgmma_wait0();
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) fence_operand(acc[i]);
+    }
+  }
+  wgmma_wait0();
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) fence_operand(acc[i]);
+
+  float bv[2];  // this lane's rows' biases
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    bv[h] = a.b[(size_t)m * a.b_ms + min(co0 + row0 + 8 * h, a.co - 1)];
+  // the tile output of n8 tile nt's column c2 (this lane's sums 4 nt + 2 h + c2, h the
+  // row half): halo-padded position n0 + 8 nt + 2 tig + c2; false past the tile
+  auto place = [&](int nt, int c2, int& ly, int& lx) {
+    const int s = n0 + 8 * nt + 2 * tig + c2;
+    ly = s / v.tile_w;
+    lx = s - ly * v.tile_w;
+    return lx < a.tw && ly < a.th;
+  };
+  // the sums plus bias into shared memory over the buffers ([gb * 64][sstride]: the pool's
+  // dense map, -inf off the frame), so that the outputs leave in rows
+  __syncthreads();  // every warpgroup is done with the buffers
+  const int sstride = tmma::stage_stride(npos);
+  float* const sd = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int nt = 0; nt < tmma::kN / 8; ++nt)
+#pragma unroll
+    for (int c2 = 0; c2 < 2; ++c2) {
+      int ly, lx;
+      if (!place(nt, c2, ly, lx)) continue;
+      const int y = v.oy + ly, x = v.ox + lx;
+      const bool inside = y >= 0 && y < a.H && x >= 0 && x < a.W;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        sd[(row0 + 8 * h) * sstride + ly * a.tw + lx] =
+            inside ? __fadd_rn(acc[4 * nt + 2 * h + c2], bv[h]) : -CUDART_INF_F;
+    }
+  const int valid = min(gb * tmma::kGroup, a.co - co0);
+  // the next conv's affine, for the block's rows (res stage, where pout is set)
+  float* const snt = sd + gb * tmma::kGroup * sstride;
+  const int tid = threadIdx.x, rows = gb * tmma::kGroup;
+  if (!POOL && a.pout != nullptr && tid < 2 * rows) {
+    const int c = min(co0 + tid % rows, a.co - 1);
+    snt[tid] = tid < rows ? a.sn[(size_t)m * a.st_ms + c] : a.tn[(size_t)m * a.st_ms + c];
+  }
+  __syncthreads();
+  if (POOL) {
     const int per = a.ph * a.pw;
-    for (int i = threadIdx.x; i < valid * per; i += kThreads) {
+    for (int i = threadIdx.x; i < valid * per; i += tmma::kThreads) {
       const int k = i / per, rem = i - k * per, ly = rem / a.pw, lx = rem - ly * a.pw;
       const int py = tr * a.ph + ly, px = tc * a.pw + lx;
       if (py >= a.Ho || px >= a.Wo) continue;
-      const float* d = sd + k * npos + 2 * ly * a.tw + 2 * lx;
-      float v = -CUDART_INF_F;
+      const float* d = sd + k * sstride + 2 * ly * a.tw + 2 * lx;
+      float u = -CUDART_INF_F;
       for (int dy = 0; dy < 3; ++dy)
-        for (int dx = 0; dx < 3; ++dx) v = fmaxf(v, d[dy * a.tw + dx]);
-      a.out[((mb * a.co + co0 + k) * a.Ho + py) * a.Wo + px] = v;
+        for (int dx = 0; dx < 3; ++dx) u = fmaxf(u, d[dy * a.tw + dx]);
+      a.out[((mb * a.co + co0 + k) * a.Ho + py) * a.Wo + px] = u;
     }
     return;
   }
-  // an m16 tile at a time, every residual load of it issued before the first
-  // is used (res may be out: each value is read, then written, by this
-  // thread alone)
-  const size_t plane = (size_t)a.H * a.W;
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-    if (mt >= g.mtiles) continue;
-    float rv[4][4];
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int k = mt * 16 + gr + (e >> 1) * 8, q = nt * 2 + (e & 1);
-        const bool in = a.res != nullptr && k < valid && inside[q];
-        rv[nt][e] = in ? a.res[(mb * a.co + co0 + k) * plane + goff[q]] : 0.f;
-      }
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int k = mt * 16 + gr + (e >> 1) * 8, q = nt * 2 + (e & 1);
-        if (k >= valid || !inside[q]) continue;
-        float v = __fadd_rn(acc[mt][nt][e], bm[k]);
-        if (a.res != nullptr) v = __fadd_rn(rv[nt][e], v);
-        a.out[(mb * a.co + co0 + k) * plane + goff[q]] = v;
-      }
-  }
+  // the res stage's outputs, a unit of 8 channels x 4 neighbouring positions of a tile
+  // row (x 1 where the row or the pointers do not take float4s) a thread at a time,
+  // neighbouring threads on neighbouring units: v = sums (+ the residual, every load of the
+  // unit issued before its first store: res may be out, each value read, then written, by
+  // one thread), then out = v in f32 (where out is set), and the next conv's operand
+  // bf16(relu(v * sn + tn)), zero past co, as 16 bytes of its planes a position (where
+  // pout is)
+  const bool vec4 = a.W % 4 == 0 && a.tw % 4 == 0 && (a.out == nullptr || aligned16(a.out)) &&
+                    (a.res == nullptr || aligned16(a.res));
+  if (vec4)
+    res_epilogue<4>(a, sd, snt, rows, sstride, valid, mb, co0, v.oy, v.ox);
+  else
+    res_epilogue<1>(a, sd, snt, rows, sstride, valid, mb, co0, v.oy, v.ox);
 }
 
-cudaError_t allow_smem(const void* kernel, bool* done) {
+cudaError_t allow_smem(const void* kernel, bool* done, int bytes = kMaxSmem) {
   if (*done) return cudaSuccess;
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   *done = err == cudaSuccess;
   return err;
 }
@@ -832,61 +1052,164 @@ extern "C" int dfd_feat_pool_mma(const float* x, const float* w, const float* b,
 
 namespace {
 
+// Kernels the tiled entries have launched in this process (dfd_tiled_mma_kernels).
+long long g_tiled_kernels = 0;
+
+cudaError_t counted(cudaError_t err) {
+  if (err == cudaSuccess) ++g_tiled_kernels;
+  return err;
+}
+
+cudaError_t round_weights(const float* w, bf16* img, int MJ, int co, int ci, cudaStream_t stream) {
+  const long long rows = (long long)MJ * tmma::cdiv(ci, tmma::kKc) * tmma::image_groups(co) * 9 *
+                         tmma::kPlanes * tmma::kGroup;
+  const long long blocks = (rows + 255) / 256 < 132 * 16 ? (rows + 255) / 256 : 132 * 16;
+  round_weights_kernel<<<unsigned(blocks), 256, 0, stream>>>(w, img, MJ, co, ci);
+  return counted(cudaGetLastError());
+}
+
+// The tensor map of the bf16 planes a.in ([planes][H][W][8], M B ceil(ci / 8)
+// planes) whose box is one plane's halo tile of 16-byte positions, zero
+// outside.
+cudaError_t planes_map(const TiledArgs& a, int M, CUtensorMap* map) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode),
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return cudaErrorInvalidValue;
+  }
+  const cuuint64_t dims[4] = {8, (cuuint64_t)a.W, (cuuint64_t)a.H,
+                              (cuuint64_t)M * a.B * tmma::cdiv(a.ci, 8)};
+  const cuuint64_t strides[3] = {16, (cuuint64_t)a.W * 16, (cuuint64_t)a.H * a.W * 16};
+  const cuuint32_t box[4] = {8, (cuuint32_t)a.tw + 2, (cuuint32_t)a.th + 2, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<float*>(a.in), dims,
+                strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+                 CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
+// One tiled launch, its operand f32 (a.in, transformed) or bf16 planes
+// (planar), with the ring of slots tiled_mma::stages gives.
 template <bool POOL>
-cudaError_t launch_tiled(const TiledArgs& a, int M, cudaStream_t stream) {
-  static bool smem_set = false;
-  cudaError_t err = allow_smem((const void*)&conv_tiled_mma_kernel<POOL>, &smem_set);
+cudaError_t launch_tiled(const TiledArgs& a, int M, bool planar, cudaStream_t stream) {
+  using Kernel = void (*)(const TiledArgs, const CUtensorMap);
+  static const Kernel kernels[3][3] = {
+      {&conv_tiled_mma_kernel<POOL, 2, false>, &conv_tiled_mma_kernel<POOL, 3, false>, nullptr},
+      {POOL ? nullptr : &conv_tiled_mma_kernel<false, 2, true>,
+       POOL ? nullptr : &conv_tiled_mma_kernel<false, 3, true>,
+       POOL ? nullptr : &conv_tiled_mma_kernel<false, 4, true>}};
+  static bool smem_set[3][3] = {};
+  const int stages = tmma::stages(POOL, planar, a.co, a.th, a.tw);
+  const Kernel kernel = kernels[planar][stages - 2];
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  cudaError_t err =
+      allow_smem((const void*)kernel, &smem_set[planar][stages - 2], int(tmma::kSmemMax));
   if (err != cudaSuccess) return err;
   const long long blocks = (long long)M * a.B * a.ntiles;
-  const long long groups = (a.co + kTiledGroup - 1) / kTiledGroup;
+  const long long groups = tmma::image_groups(a.co) / tmma::block_groups(a.co);
   if (blocks > 0x7fffffffLL || groups > 65535) return cudaErrorInvalidValue;
-  conv_tiled_mma_kernel<POOL><<<dim3(unsigned(blocks), unsigned(groups)), kThreads,
-                                tiled_smem(a.co, a.th, a.tw, POOL), stream>>>(a);
-  return cudaGetLastError();
+  CUtensorMap map = {};
+  if (planar)
+    err = planes_map(a, M, &map);
+  else if (a.vec)
+    err = operand_map(a, M, tmma::landing_width(a.tw), tmma::kKc, &map);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(unsigned(blocks), unsigned(groups)), tmma::kThreads,
+           size_t(tmma::smem_bytes(POOL, planar, a.co, a.th, a.tw, stages)), stream>>>(a, map);
+  return counted(cudaGetLastError());
 }
 
 }  // namespace
 
-// The res stage where no cluster holds a band: four tiled launches of
-// th x tw outputs a block, the plan of fused_resblock.res_stage_mma_plan's
-// tiled form, refused unless it is tiled_res_plan's.  scratch is a
-// [M, B, C, H, W] buffer of the caller's.
+// How many kernels the tiled entries have launched (the weights' rounding
+// included): a call's count is the difference around it.
+extern "C" long long dfd_tiled_mma_kernels() { return g_tiled_kernels; }
+
+// The res stage where no cluster holds a band: the four convs' weights
+// rounded into wimg (M * 4 * tiled_mma::conv_image_elems(C, C) bf16 values;
+// unless round is 0, when wimg already holds w's image), then four tiled
+// launches of th x tw outputs a block, the plan of fused_resblock.
+// res_stage_mma_plan's tiled form, refused unless it is tiled_mma::
+// res_plan's.  Each conv writes the next one's operand, bf16(relu(v * s +
+// t)), as bf16 planes ([M B][ceil(C / 8)][H][W][8]) into one of two buffers
+// in scratch (the caller's, 2 M B ceil(C / 8) H W 8 bf16 values), so that
+// convs 1-3 land bf16 with no transform: planes A <- conv0(x);
+// out <- x + conv1(A), planes B from it; planes A <- conv2(B);
+// out <- out + conv3(A).  The block input is never overwritten; a conv that
+// adds its residual to out reads and writes each value of it on one thread.
 extern "C" int dfd_res_stage_tiled_mma(const float* x, const float* w, const float* b,
-                                       const float* s, const float* t, float* scratch, float* out,
-                                       int M, int B, int C, int H, int W, int th, int tw,
-                                       void* stream) {
+                                       const float* s, const float* t, float* wimg,
+                                       float* scratch, float* out, int M, int B, int C, int H,
+                                       int W, int th, int tw, int round, void* stream) {
   if (M <= 0 || B <= 0 || C <= 0 || H <= 0 || W <= 0) return (int)cudaSuccess;
   int pth = 0, ptw = 0;
-  tiled_res_plan(C, H, W, &pth, &ptw);
+  tmma::res_plan(C, H, W, &pth, &ptw);
   if (pth != th || ptw != tw) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  return (int)res_stage_passes(tiled_args(B, C, C, H, W, th, tw, 0, 0), x, w, b, s, t, scratch,
-                               out, C, [&](const TiledArgs& a) {
-                                 return launch_tiled<false>(a, M, st);
-                               });
+  bf16* const img = reinterpret_cast<bf16*>(wimg);
+  cudaError_t err = round ? round_weights(w, img, M * 4, C, C, st) : cudaSuccess;
+  if (err != cudaSuccess) return (int)err;
+  const long long conv = tmma::conv_image_elems(C, C);
+  const size_t pel = (size_t)M * B * tmma::cdiv(C, 8) * H * W * 8;  // one planes buffer
+  bf16* const pa = reinterpret_cast<bf16*>(scratch);
+  bf16* const pb = pa + pel;
+  // conv j's operand, residual, f32 output and the planes it writes for conv j + 1
+  const void* in[4] = {x, pa, pb, pa};
+  const float* res[4] = {nullptr, x, nullptr, out};
+  float* dst[4] = {nullptr, out, nullptr, out};
+  void* pout[4] = {pa, pb, pa, nullptr};
+  TiledArgs a = tiled_args(B, C, C, H, W, th, tw, 0, 0);
+  a.w_ms = 4 * conv;
+  a.b_ms = a.st_ms = 4 * C;
+  a.relu = 1;
+  for (int j = 0; j < 4; ++j) {
+    a.in = static_cast<const float*>(in[j]);
+    a.vec = j == 0 && W % 4 == 0 && aligned16(x);
+    a.res = res[j];
+    a.out = dst[j];
+    a.pout = pout[j];
+    a.w = reinterpret_cast<const float*>(img + j * conv);
+    a.b = b + (size_t)j * C;
+    a.s = s + (size_t)j * C;
+    a.t = t + (size_t)j * C;
+    a.sn = s + (size_t)(j < 3 ? j + 1 : j) * C;  // the next conv's affine
+    a.tn = t + (size_t)(j < 3 ? j + 1 : j) * C;
+    if ((err = launch_tiled<false>(a, M, j > 0, st)) != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
-// The feature pool where no band of pooled rows fits a block: one tiled
-// launch of ph x pw pooled outputs a block, refused unless the plan is
-// tiled_feat_plan's.
+// The feature pool where no band of pooled rows fits a block: the weights
+// rounded into wimg (M * tiled_mma::conv_image_elems(ci, co) bf16 values;
+// unless round is 0), then one tiled launch of ph x pw pooled outputs a
+// block, refused unless the plan is tiled_mma::feat_plan's.
 extern "C" int dfd_feat_pool_tiled_mma(const float* x, const float* w, const float* b,
-                                       const float* s, const float* t, float* out, int M, int B,
-                                       int ci, int co, int H, int W, int ph, int pw,
-                                       void* stream) {
+                                       const float* s, const float* t, float* wimg, float* out,
+                                       int M, int B, int ci, int co, int H, int W, int ph, int pw,
+                                       int round, void* stream) {
   if (M <= 0 || B <= 0 || ci <= 0 || co <= 0 || H <= 0 || W <= 0) return (int)cudaSuccess;
   int pph = 0, ppw = 0;
-  tiled_feat_plan(co, H, W, &pph, &ppw);
+  tmma::feat_plan(co, H, W, &pph, &ppw);
   if (pph != ph || ppw != pw) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = round ? round_weights(w, reinterpret_cast<bf16*>(wimg), M, co, ci, st)
+                          : cudaSuccess;
+  if (err != cudaSuccess) return (int)err;
   TiledArgs a = tiled_args(B, ci, co, H, W, 2 * ph + 1, 2 * pw + 1, ph, pw);
   a.in = x;
-  a.w = w;
+  a.vec = W % 4 == 0 && aligned16(x);
+  a.w = wimg;
   a.b = b;
   a.s = s;
   a.t = t;
   a.out = out;
-  a.w_ms = (long long)co * 9 * ci;
+  a.w_ms = tmma::conv_image_elems(ci, co);
   a.b_ms = co;
   a.st_ms = ci;
-  a.vec = ci % 4 == 0 && aligned16(w);
-  return (int)launch_tiled<true>(a, M, (cudaStream_t)stream);
+  return (int)launch_tiled<true>(a, M, false, st);
 }

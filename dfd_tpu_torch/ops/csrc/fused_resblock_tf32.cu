@@ -721,49 +721,6 @@ split_weights_kernel(const float* __restrict__ w, float* __restrict__ img, int M
   }
 }
 
-// A tiled block's view of its tile.  The operand's halo tile is th + 2 rows
-// x tile_w = tw + 2 columns from frame row oy - 1 and column ox - 1; it
-// lands raw from frame column x0 (4-aligned where the copies take 16 bytes)
-// in rows of lw floats, halo column 0 at landing column dx; its hi and lo
-// planes hold pa positions (P of the halo tile, then what the res stage's
-// halo-padded products read past it).
-struct TileView {
-  int oy, ox, rows, tile_w, P, pa, x0, lw, dx;
-};
-
-// Start copying chunk c0 .. c0 + kKc - 1 of the input channels into the
-// landing tile [kKc][rows][lw].  Where W % 4 == 0 (a.vec) one thread starts
-// a tensor-map load of the whole box, completing on bar (what lies off the
-// frame reads zero; channels past the member's ci read its neighbour's);
-// else each warp copies a landing row at a time, 4 bytes a lane, and what
-// lies off the frame or past ci is left as it is.  transform_slice zeroes
-// all of those.  Either way no thread waits for the other's copies here.
-__device__ void issue_operand(const TiledArgs& a, const CUtensorMap& map, float* land,
-                              uint64_t* bar, size_t mb, int c0, const TileView& v) {
-  if (a.vec) {
-    if (threadIdx.x == 0) {
-      fence_proxy_async();
-      tma_load_3d(land, &map, v.x0, v.oy - 1, int(mb * a.ci + c0),
-                  uint32_t(4 * tt::kKc * v.rows * v.lw), bar);
-    }
-    return;
-  }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t plane = (size_t)a.H * a.W;
-  const float* src = a.in + (mb * a.ci + c0) * plane;
-  const int nc = min(tt::kKc, a.ci - c0);
-  for (int cr = warp; cr < nc * v.rows; cr += tt::kThreads / 32) {
-    const int c = cr / v.rows, y = v.oy - 1 + (cr - c * v.rows);
-    if (y < 0 || y >= a.H) continue;
-    const float* row = src + c * plane + (size_t)y * a.W;
-    float* dst = land + cr * v.lw;
-    for (int u = lane; u < v.lw; u += 32) {
-      const int x = v.x0 + u;
-      if (x >= 0 && x < a.W) cp_async4(dst + u, row + x);
-    }
-  }
-}
-
 // One thread starts the bulk copy of a chunk's weight image into wst,
 // completing on bar.  Shared memory the block last read by generic loads
 // is handed to the copy engine behind a proxy fence.
@@ -1026,9 +983,9 @@ conv_tiled_tf32_kernel(const __grid_constant__ TiledArgs a, const __grid_constan
   }
   __syncthreads();  // no thread tests a barrier before it is initialized
   issue_weights(wbuf, wimg, G, &wbar[0]);
-  issue_operand(a, map, lbuf, &lbar[0], mb, 0, v);
+  issue_operand<tt::kKc, tt::kThreads>(a, map, lbuf, &lbar[0], mb, 0, v);
   cp_async_commit();
-  if (nk > 1) issue_operand(a, map, lbuf + lfl, &lbar[1], mb, tt::kKc, v);
+  if (nk > 1) issue_operand<tt::kKc, tt::kThreads>(a, map, lbuf + lfl, &lbar[1], mb, tt::kKc, v);
   cp_async_commit();
   cp_async_wait_all();
   if (a.vec) mbar_wait(&lbar[0], 0);
@@ -1045,7 +1002,8 @@ conv_tiled_tf32_kernel(const __grid_constant__ TiledArgs a, const __grid_constan
     if (k + 1 < nk) issue_weights(wbuf + ((k + 1) & 1) * wfl, wimg + (k + 1) * wfl, G,
                                   &wbar[(k + 1) & 1]);
     if (k + 2 < nk)
-      issue_operand(a, map, lbuf + (k & 1) * lfl, &lbar[k & 1], mb, (k + 2) * tt::kKc, v);
+      issue_operand<tt::kKc, tt::kThreads>(a, map, lbuf + (k & 1) * lfl, &lbar[k & 1], mb,
+                                           (k + 2) * tt::kKc, v);
     cp_async_commit();
     // chunk k + 1's transform, a slice after each tap column of chunk k's products
     const bool more = k + 1 < nk;
@@ -1189,31 +1147,6 @@ cudaError_t split_weights(const float* w, float* img, int MJ, int co, int ci, in
   return cudaGetLastError();
 }
 
-// The tensor map of a.in as [planes][H][W] f32 (M B ci planes) whose box is a
-// chunk's landing tile (kKc planes x th + 2 rows x landing_width columns),
-// zero outside; a.vec (W % 4 == 0, a.in 16-byte aligned) is the caller's.
-cudaError_t operand_map(const TiledArgs& a, int M, CUtensorMap* map) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (encode == nullptr) {
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode),
-                                cudaEnableDefault, &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return cudaErrorInvalidValue;
-  }
-  const cuuint64_t dims[3] = {(cuuint64_t)a.W, (cuuint64_t)a.H, (cuuint64_t)M * a.B * a.ci};
-  const cuuint64_t strides[2] = {(cuuint64_t)a.W * 4, (cuuint64_t)a.H * a.W * 4};
-  const cuuint32_t box[3] = {(cuuint32_t)tt::landing_width(a.tw), (cuuint32_t)a.th + 2,
-                             (cuuint32_t)tt::kKc};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(a.in), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-                 CUDA_SUCCESS
-             ? cudaSuccess
-             : cudaErrorInvalidValue;
-}
-
 // The res stage's form (wgmma, m64n72 a warpgroup, K halves) or the feature
 // pool's (mma.sync, a warp 2 m16 tiles x 5 n8 tiles, K halves).
 template <bool POOL>
@@ -1230,7 +1163,8 @@ cudaError_t launch_tiled(const TiledArgs& a, int M, cudaStream_t stream) {
   const long long groups = tt::cdiv(a.co, POOL ? tt::kPoolGroup : tt::kResGroup);
   if (blocks > 0x7fffffffLL || groups > 65535) return cudaErrorInvalidValue;
   CUtensorMap map = {};
-  if (a.vec && (err = operand_map(a, M, &map)) != cudaSuccess) return err;
+  if (a.vec && (err = operand_map(a, M, tt::landing_width(a.tw), tt::kKc, &map)) != cudaSuccess)
+    return err;
   kernel<<<dim3(unsigned(blocks), unsigned(groups)), tt::kThreads,
            size_t(tt::smem_bytes(POOL, a.th, a.tw)), stream>>>(a, map);
   return cudaGetLastError();

@@ -43,16 +43,17 @@ chosen by its launch plan (:func:`res_stage_tf32_plan`,
   output channels): the whole stage or feature block in one launch;
 - the tiled form everywhere else (a :class:`TiledPlan`): each conv an
   implicit GEMM over tiles of outputs x a group of output channels (64; the
-  f32 feature pool 32) with the input channels streamed through shared
-  memory, so any C, H and W runs.  The res stage is then four launches, its
-  convs' outputs in device memory (one scratch buffer beside ``out``); the
-  feature pool one.  In f32 the weights are split into TF32 hi and lo, into
-  an image of the kernels' layout (:func:`tf32_weight_image_plain` is its
-  plain version), once for each weight tensor the wrapper is given: the
-  image is kept while the same tensor object, unmodified, comes back on the
-  same stream (a rollout's steps reuse their prepared weights).  Counted
-  in ``tiled_launches`` (f32) and ``tiled_mma_launches`` (bf16), one a
-  call.
+  f32 feature pool 32; bf16 convs past 64 channels both groups of 64 in one
+  block) with the input channels streamed through shared memory, so any C,
+  H and W runs.  The res stage is then four launches, its convs' outputs in
+  device memory (one scratch buffer beside ``out``); the feature pool one.
+  The weights go to the kernels as an image of their layout, made once for
+  each weight tensor the wrapper is given: in f32 split into TF32 hi and lo
+  (:func:`tf32_weight_image_plain` is its plain version), in bf16 rounded
+  (:func:`mma_weight_image_plain`).  The image is kept while the same
+  tensor object, unmodified, comes back on the same stream (a rollout's
+  steps reuse their prepared weights).  Counted in ``tiled_launches`` (f32)
+  and ``tiled_mma_launches`` (bf16), one a call.
 
 :func:`fused_supported` (the TPU's lane rule ``H * W % 128 == 0``) is kept
 only as the IMPALA model's gate, so the port runs the same layers through
@@ -215,7 +216,7 @@ def _on_cpu(x, *operands, compute_dtype) -> bool:
 # the f32 ones and every tiled one compute the plan themselves and refuse one
 # that differs.
 SMEM_MAX = 232_448  # bytes of shared memory an H100 block can use
-FEAT_GROUP = 64     # output channels of one bf16 feature-pool block, and of a tiled block
+FEAT_GROUP = 64     # output channels of one bf16 cluster feature-pool block
 TF32_MAX_ROWS = 256  # output channels an f32 cluster block takes: 8 warps of 32
 
 
@@ -224,7 +225,8 @@ class TiledPlan(NamedTuple):
     outputs (the res stage's conv outputs; the feature pool's pooled
     outputs, from (2 rows + 1) x (2 cols + 1) dense ones) of ``group``
     output channels, ``tiles`` tiles a frame, streaming the input channels
-    ``kc`` at a time through ``smem`` bytes of shared memory."""
+    ``kc`` at a time through a ring of ``stages`` slots in ``smem`` bytes of
+    shared memory."""
 
     rows: int
     cols: int
@@ -232,6 +234,7 @@ class TiledPlan(NamedTuple):
     group: int
     kc: int
     smem: int
+    stages: int = 2
 
 
 TILED_KC = {"tf32": 16, "mma": 16}  # input channels of a chunk: two k8 / one k16 step a tap
@@ -343,31 +346,22 @@ TF32_POOL_GROUP, TF32_POOL_SLOTS = 32, 320
 TF32_TILED_SMEM_MAX = SMEM_MAX - 256  # the rest holds the kernel's static mbarriers
 
 
-def _mma_tiled_geometry(co: int) -> Tuple[int, int]:
-    """(weight rows a block's warps read, positions they take at once) of a
-    bf16 tiled block over ``co`` output channels."""
-    return min(FEAT_GROUP, _pad16(co)), 256
-
-
 def _tiled_smem(route: str, co: int, th: int, tw: int, pool: bool) -> int:
     """Shared bytes of a tiled block of th x tw conv outputs.  f32
     (``tiled_tf32::smem_bytes``): two of each buffer for 16 input channels
     (the raw operand tile landing in rows of 4-float pieces, its hi and lo
     planes, the group's weights as hi and lo) from a 128-byte boundary, or
     what overlays them after the products (the K halves' sums, then the
-    pool's dense map), whichever is larger.  bf16: one f32 landing buffer
-    of each and their bf16 copies, or the dense map."""
+    pool's dense map), whichever is larger.  bf16: :func:`_mma_smem` with
+    its ring's slots."""
+    if route == "mma":
+        return _mma_smem(pool, co, th, tw, _mma_stages(pool, co, th, tw))
     npt = (th + 2) * (tw + 2)
-    if route == "tf32":
-        group = TF32_POOL_GROUP if pool else TF32_RES_GROUP
-        landing = TF32_TILED_KC * (th + 2) * 4 * -(-(tw + 5) // 4)
-        planes = 2 * TF32_TILED_KC * (npt if pool else max(npt, TF32_RES_HALO + 2 * (tw + 2) + 2))
-        ring = 4 * TF32_TILED_STAGES * (landing + planes + 18 * TF32_TILED_KC * group) + 128
-        return max(ring, 4 * (8 * 32 * 40 + group * th * tw) if pool else 4 * 8 * 32 * 36)
-    rows, _ = _mma_tiled_geometry(co)
-    kc = TILED_KC[route]
-    conv = npt * (4 * (kc + 4) + 2 * (kc + 8)) + rows * (4 * (9 * kc + 4) + 2 * (9 * kc + 8))
-    return max(conv, 4 * rows * th * tw if pool else 0)
+    group = TF32_POOL_GROUP if pool else TF32_RES_GROUP
+    landing = TF32_TILED_KC * (th + 2) * 4 * -(-(tw + 5) // 4)
+    planes = 2 * TF32_TILED_KC * (npt if pool else max(npt, TF32_RES_HALO + 2 * (tw + 2) + 2))
+    ring = 4 * TF32_TILED_STAGES * (landing + planes + 18 * TF32_TILED_KC * group) + 128
+    return max(ring, 4 * (8 * 32 * 40 + group * th * tw) if pool else 4 * 8 * 32 * 36)
 
 
 def _spread(n: int, per: int) -> Tuple[int, int]:
@@ -414,55 +408,129 @@ def _pool_tile_tf32(H: int, W: int) -> Tuple[int, int]:
     return r, c
 
 
+# The bf16 tiled forms (csrc/tiled_mma_plan.cuh): blocks of 4 warpgroups, each 64 output
+# channels x 152 positions of the tile's halo-padded rows on wgmma; one group of 64 output
+# channels a block over 4 x 152 positions, or both groups of a conv past 64 channels over
+# 2 x 152; K in chunks of 16 input channels through a ring of 3 slots where they fit, else 2.
+MMA_TILED_KC, MMA_GROUP, MMA_N = TILED_KC["mma"], 64, 152
+MMA_TILED_SMEM_MAX = SMEM_MAX - 256  # the rest holds the kernel's static mbarriers
+MMA_BOX_MAX = 251  # the widest tile whose landing rows fit a tensor map's 256-float box
+
+
+def _mma_block_groups(co: int) -> int:
+    """``tiled_mma::block_groups``: groups of 64 output channels a block takes."""
+    return 2 if co > MMA_GROUP else 1
+
+
+def _mma_slots(co: int) -> int:
+    """``tiled_mma::block_slots``: halo-padded positions a block's products cover."""
+    return 4 // _mma_block_groups(co) * MMA_N
+
+
+def _mma_image_groups(co: int) -> int:
+    """``tiled_mma::image_groups``: groups of a conv's image, whole blocks' worth."""
+    gb = _mma_block_groups(co)
+    return gb * -(-(-(-co // MMA_GROUP)) // gb)
+
+
+def _mma_smem(pool: bool, co: int, th: int, tw: int, stages: int, planar: bool = False) -> int:
+    """``tiled_mma::smem_bytes``: ``stages`` ring slots from a 128-byte
+    boundary, each the block's bf16 weights and, for an f32 operand, its
+    landing tile in rows of 4-float pieces (two slots of bf16 planes beside
+    them), for a ``planar`` one (the res stage's convs 1-3) its bf16 planes;
+    or the block's sums (the pool's dense map; rows of the tile's outputs
+    rounded to 4 plus 4, ``stage_stride``) and the res stage's next affine,
+    which overlay them after the products, whichever is larger."""
+    landing = 4 * MMA_TILED_KC * (th + 2) * 4 * -(-(tw + 5) // 4)
+    planes = 2 * MMA_TILED_KC * 8 * -(-max((th + 2) * (tw + 2),
+                                             _mma_slots(co) + 2 * (tw + 2) + 2) // 8)
+    weights = 2 * _mma_block_groups(co) * 9 * MMA_TILED_KC * MMA_GROUP
+    ring = (stages * (planes + weights) if planar else stages * (landing + weights) + 2 * planes)
+    sums = 4 * _mma_block_groups(co) * MMA_GROUP * (4 * -(-(th * tw) // 4) + 4 + (0 if pool else 2))
+    return max(ring + 128, sums)
+
+
+def _mma_stages(pool: bool, co: int, th: int, tw: int, planar: bool = False) -> int:
+    """``tiled_mma::stages``: ring slots, for an f32 operand 3 where they
+    fit, else 2; for a planar one 4, 3 or 2."""
+    for stages in ((4, 3) if planar else (3,)):
+        if _mma_smem(pool, co, th, tw, stages, planar) <= MMA_TILED_SMEM_MAX:
+            return stages
+    return 2
+
+
+def _res_tile_mma(C: int, H: int, W: int) -> Tuple[int, int]:
+    """``tiled_mma::res_plan`` before the spread: whole rows of at most
+    (slots + 2) / 4 - 2 columns, as many rows as the block's halo-padded
+    positions take (all of H where it is shorter, the columns then widened
+    to fill them, up to ``MMA_BOX_MAX``), fewer rows (then columns) while
+    two ring slots do not fit."""
+    slots = _mma_slots(C)
+    w = min(W, (slots + 2) // 4 - 2)
+    h = min(H, (slots + 2) // (w + 2))
+    if h == H:
+        w = min(W, MMA_BOX_MAX, (slots + 2) // h - 2)
+    while _mma_smem(False, C, h, w, 2) > MMA_TILED_SMEM_MAX:
+        if h > 1:
+            h -= 1
+        else:
+            w -= 1
+    return h, w
+
+
+def _pool_tile_mma(co: int, H: int, W: int) -> Tuple[int, int]:
+    """``tiled_mma::feat_plan`` before the spread: 8 pooled rows and as many
+    columns as the halo-padded dense rows take (all of them where they fit,
+    the rows then widened), fewer while two ring slots or the dense map do
+    not fit."""
+    Ho, Wo, slots = (H + 1) // 2, (W + 1) // 2, _mma_slots(co)
+    r = min(Ho, 8)
+    c = min(Wo, max(1, ((slots + 2) // (2 * r + 1) - 3) // 2))
+    if c == Wo:
+        r = min(Ho, max(1, ((slots + 2) // (2 * c + 3) - 1) // 2))
+    while (r > 1 or c > 1) and ((2 * r + 1) * (2 * c + 3) - 2 > slots or _mma_smem(
+            True, co, 2 * r + 1, 2 * c + 1, 2) > MMA_TILED_SMEM_MAX):
+        if r >= c:
+            r -= 1
+        else:
+            c -= 1
+    return r, c
+
+
 @functools.lru_cache(maxsize=None)
 def res_stage_tiled_plan(C: int, H: int, W: int, route: str) -> TiledPlan:
-    """The tiled res stage's tile.  f32: ``tiled_tf32::res_plan``
-    (:func:`_res_tile_tf32`), then spread evenly over the frame.  bf16: as
-    many whole image rows as the block's warps cover at once (part of a row
-    where W is wider), fewer rows, then narrower, while the buffers do not
-    fit; then spread evenly.  The C entry computes the same."""
+    """The tiled res stage's tile: ``tiled_tf32::res_plan``
+    (:func:`_res_tile_tf32`) or ``tiled_mma::res_plan``
+    (:func:`_res_tile_mma`), then spread evenly over the frame.  The C
+    entry computes the same."""
     if route == "tf32":
-        h, w = _res_tile_tf32(H, W)
-        rows = TF32_RES_GROUP
+        (h, w), group = _res_tile_tf32(H, W), TF32_RES_GROUP
     else:
-        rows, cap = _mma_tiled_geometry(C)
-        w = min(W, cap)
-        h = max(1, min(H, cap // w))
-        while _tiled_smem(route, C, h, w, False) > SMEM_MAX:
-            if h > 1:
-                h -= 1
-            else:
-                w = max(1, w // 2)
+        (h, w), group = _res_tile_mma(C, H, W), _mma_block_groups(C) * MMA_GROUP
     th, ntr = _spread(H, h)
     tw, ntc = _spread(W, w)
-    return TiledPlan(th, tw, ntr * ntc, rows, TILED_KC[route], _tiled_smem(route, C, th, tw, False))
+    stages = TF32_TILED_STAGES if route == "tf32" else _mma_stages(False, C, th, tw)
+    return TiledPlan(th, tw, ntr * ntc, group, TILED_KC[route],
+                     _tiled_smem(route, C, th, tw, False), stages)
 
 
 @functools.lru_cache(maxsize=None)
 def feat_pool_tiled_plan(ci: int, co: int, H: int, W: int, route: str) -> TiledPlan:
-    """The tiled feature pool's tile of pooled outputs.  f32:
-    ``tiled_tf32::feat_plan`` (:func:`_pool_tile_tf32`), then spread evenly.
-    bf16: the widest run of pooled columns whose dense columns, three dense
-    rows of them, the warps cover at once, then as many pooled rows as they
-    take; fewer while the buffers do not fit; then spread evenly.  The C
-    entry computes the same."""
+    """The tiled feature pool's tile of pooled outputs:
+    ``tiled_tf32::feat_plan`` (:func:`_pool_tile_tf32`) or
+    ``tiled_mma::feat_plan`` (:func:`_pool_tile_mma`), then spread evenly.
+    The C entry computes the same."""
     Ho, Wo = (H + 1) // 2, (W + 1) // 2
     if route == "tf32":
-        r, c = _pool_tile_tf32(H, W)
-        rows = TF32_POOL_GROUP
+        (r, c), group = _pool_tile_tf32(H, W), TF32_POOL_GROUP
     else:
-        rows, cap = _mma_tiled_geometry(co)
-        c = min(Wo, max(1, (cap // 3 - 1) // 2))
-        r = min(Ho, max(1, (cap // (2 * c + 1) - 1) // 2))
-        while _tiled_smem(route, co, 2 * r + 1, 2 * c + 1, True) > SMEM_MAX:
-            if r > 1:
-                r -= 1
-            else:
-                c = max(1, c // 2)
+        (r, c), group = _pool_tile_mma(co, H, W), _mma_block_groups(co) * MMA_GROUP
     ph, ntr = _spread(Ho, r)
     pw, ntc = _spread(Wo, c)
-    return TiledPlan(ph, pw, ntr * ntc, rows, TILED_KC[route],
-                     _tiled_smem(route, co, 2 * ph + 1, 2 * pw + 1, True))
+    th, tw = 2 * ph + 1, 2 * pw + 1
+    stages = TF32_TILED_STAGES if route == "tf32" else _mma_stages(True, co, th, tw)
+    return TiledPlan(ph, pw, ntr * ntc, group, TILED_KC[route],
+                     _tiled_smem(route, co, th, tw, True), stages)
 
 
 def tf32_weight_image_floats(ci: int, co: int, group: int) -> int:
@@ -493,6 +561,28 @@ def tf32_weight_image_plain(w: torch.Tensor, ci: int, group: int) -> torch.Tenso
     hi = _tf32_round(v)
     lo = _tf32_round(v - hi)
     return torch.stack([hi, lo], dim=n + 2).contiguous()
+
+
+def mma_weight_image_elems(ci: int, co: int) -> int:
+    """bf16 values of one conv's bf16 weight image for one member
+    (``tiled_mma::conv_image_elems``): every chunk of 16 input channels x
+    every group of 64 output channels (whole blocks' worth), each [9 taps, 2
+    planes, 64 rows, 8]."""
+    return -(-ci // MMA_TILED_KC) * _mma_image_groups(co) * 9 * MMA_TILED_KC * MMA_GROUP
+
+
+def mma_weight_image_plain(w: torch.Tensor, ci: int) -> torch.Tensor:
+    """The bf16 tiled forms' weight image (``round_weights_kernel``) of w
+    [..., co, 9 ci] in tap order: [..., chunks, image groups, 9 taps, 2
+    planes, 64 rows, 8 channels] in bf16 (round to nearest), zero past co
+    and ci."""
+    lead, co = w.shape[:-2], w.shape[-2]
+    ng, nk, kc = _mma_image_groups(co), -(-ci // MMA_TILED_KC), MMA_TILED_KC
+    v = F.pad(w.reshape(*lead, co, 9, ci), (0, nk * kc - ci, 0, 0, 0, ng * MMA_GROUP - co))
+    v = v.reshape(*lead, ng, MMA_GROUP, 9, nk, kc // 8, 8)
+    n = len(lead)
+    v = v.permute(*range(n), n + 3, n, n + 2, n + 4, n + 1, n + 5)  # [nk, ng, 9, 2, 64, 8]
+    return v.to(torch.bfloat16).contiguous()
 
 
 # -- each route's plan: the cluster form where it fits, else the tiled form -------------
@@ -532,38 +622,42 @@ def feat_pool_mma_plan(ci: int, co: int, H: int, W: int) -> Union[Tuple[int, int
 
 
 def _bind_tiled(lib: ctypes.CDLL, route: str) -> None:
-    """The tiled entries' arguments; the f32 ones take a weight image buffer
-    after t, and whether to split the weights into it before the plan."""
+    """The tiled entries' arguments: a weight image buffer after t, and at
+    the end whether to make the weights' image in it (split or round)."""
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     res = getattr(lib, f"dfd_res_stage_tiled_{route}")
     feat = getattr(lib, f"dfd_feat_pool_tiled_{route}")
-    image = int(route == "tf32")
-    res.argtypes = [vp] * (7 + image) + [i32] * (7 + image) + [vp]
-    feat.argtypes = [vp] * (6 + image) + [i32] * (8 + image) + [vp]
+    res.argtypes = [vp] * 8 + [i32] * 8 + [vp]
+    feat.argtypes = [vp] * 7 + [i32] * 9 + [vp]
     res.restype = feat.restype = i32
 
 
-# The f32 tiled forms' weight images, most recent last: a rollout passes the same
-# prepared weight tensors at every step (ImpalaPolicy.prepare), so their image is split
-# once and reused while the tensor is the same object at the same version on the same
-# stream.  Each entry holds its tensor, so no other tensor can take its memory.
+# The tiled forms' weight images (f32: split into TF32 hi and lo; bf16: rounded), most
+# recent last: a rollout passes the same prepared weight tensors at every step
+# (ImpalaPolicy.prepare), so their image is made once and reused while the tensor is the
+# same object at the same version on the same stream, for the same route.  Each entry
+# holds its tensor, so no other tensor can take its memory.
 _IMAGES: "collections.OrderedDict" = collections.OrderedDict()
 _IMAGES_KEPT = 6
 
 
-def _weight_image(w: torch.Tensor, floats: int, stream: int) -> Tuple[torch.Tensor, bool]:
-    """(the image buffer for w, whether the kernel must split w into it);
-    a new buffer is kept by :func:`_keep_image` once its launch is in."""
-    hit = _IMAGES.get((id(w), stream))
+def _weight_image(w: torch.Tensor, floats: int, stream: int,
+                  route: str = "tf32") -> Tuple[torch.Tensor, bool]:
+    """(an image buffer of ``floats`` 4-byte words for w, whether the kernel
+    must make w's image in it); a new buffer is kept by :func:`_keep_image`
+    once its launch is in."""
+    key = (id(w), stream, route)
+    hit = _IMAGES.get(key)
     if hit is not None and hit[0] is w and hit[1] == w._version and hit[2].numel() == floats:
-        _IMAGES.move_to_end((id(w), stream))
+        _IMAGES.move_to_end(key)
         return hit[2], False
     return torch.empty(floats, device=w.device), True
 
 
-def _keep_image(w: torch.Tensor, stream: int, image: torch.Tensor) -> None:
-    _IMAGES[(id(w), stream)] = (w, w._version, image)
-    _IMAGES.move_to_end((id(w), stream))
+def _keep_image(w: torch.Tensor, stream: int, image: torch.Tensor, route: str = "tf32") -> None:
+    key = (id(w), stream, route)
+    _IMAGES[key] = (w, w._version, image)
+    _IMAGES.move_to_end(key)
     while len(_IMAGES) > _IMAGES_KEPT:
         _IMAGES.popitem(last=False)
 
@@ -588,6 +682,8 @@ def _mma_kernels() -> ctypes.CDLL:
     lib.dfd_res_stage_mma.restype = i32
     lib.dfd_feat_pool_mma.argtypes = [vp] * 6 + [i32] * 7 + [vp]
     lib.dfd_feat_pool_mma.restype = i32
+    lib.dfd_tiled_mma_kernels.argtypes = []
+    lib.dfd_tiled_mma_kernels.restype = ctypes.c_longlong
     _bind_tiled(lib, "mma")
     return lib
 
@@ -613,20 +709,22 @@ def fused_res_stage(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, s: torch.
         stream = torch.cuda.current_stream().cuda_stream
         ptrs = (x.data_ptr(), w.data_ptr(), b.data_ptr(), s.data_ptr(), t.data_ptr())
         if isinstance(plan, TiledPlan):
-            scratch = torch.empty_like(x)  # the odd convs' outputs
+            # f32: the odd convs' outputs; bf16: two buffers of bf16 planes (each conv's
+            # operand, M B ceil(C / 8) H W 8 values)
+            scratch = torch.empty_like(x) if f32 else torch.empty(
+                M * B * 8 * -(-C // 8) * H * W, device=x.device)
+            route = "tf32" if f32 else "mma"
+            floats = (tf32_weight_image_floats(C, C, plan.group) if f32
+                      else mma_weight_image_elems(C, C) // 2)
+            wimg, fresh = _weight_image(w, M * 4 * floats, stream, route)
+            build.raise_on(getattr(lib, f"dfd_res_stage_tiled_{route}")(
+                *ptrs, wimg.data_ptr(), scratch.data_ptr(), out.data_ptr(), M, B, C, H, W,
+                plan.rows, plan.cols, int(fresh), stream), what + " (tiled)")
+            if fresh:
+                _keep_image(w, stream, wimg, route)
             if f32:
-                wimg, split = _weight_image(
-                    w, M * 4 * tf32_weight_image_floats(C, C, plan.group), stream)
-                build.raise_on(lib.dfd_res_stage_tiled_tf32(
-                    *ptrs, wimg.data_ptr(), scratch.data_ptr(), out.data_ptr(), M, B, C, H, W,
-                    plan.rows, plan.cols, int(split), stream), what + " (tiled)")
-                if split:
-                    _keep_image(w, stream, wimg)
                 fused_res_stage.tiled_launches += 1
             else:
-                build.raise_on(lib.dfd_res_stage_tiled_mma(
-                    *ptrs, scratch.data_ptr(), out.data_ptr(), M, B, C, H, W, plan.rows,
-                    plan.cols, stream), what + " (tiled)")
                 fused_res_stage.tiled_mma_launches += 1
         elif f32:
             cluster, band, wt, _ = plan
@@ -672,18 +770,18 @@ def fused_feat_pool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, s: torch.
         ptrs = (x.data_ptr(), w.data_ptr(), b.data_ptr(), s.data_ptr(), t.data_ptr(),
                 out.data_ptr())
         if isinstance(plan, TiledPlan):
+            route = "tf32" if f32 else "mma"
+            floats = (tf32_weight_image_floats(ci, co, plan.group) if f32
+                      else mma_weight_image_elems(ci, co) // 2)
+            wimg, fresh = _weight_image(w, M * floats, stream, route)
+            build.raise_on(getattr(lib, f"dfd_feat_pool_tiled_{route}")(
+                *ptrs[:5], wimg.data_ptr(), ptrs[5], M, B, ci, co, H, W, plan.rows, plan.cols,
+                int(fresh), stream), what + " (tiled)")
+            if fresh:
+                _keep_image(w, stream, wimg, route)
             if f32:
-                wimg, split = _weight_image(
-                    w, M * tf32_weight_image_floats(ci, co, plan.group), stream)
-                build.raise_on(lib.dfd_feat_pool_tiled_tf32(
-                    *ptrs[:5], wimg.data_ptr(), ptrs[5], M, B, ci, co, H, W, plan.rows,
-                    plan.cols, int(split), stream), what + " (tiled)")
-                if split:
-                    _keep_image(w, stream, wimg)
                 fused_feat_pool.tiled_launches += 1
             else:
-                build.raise_on(lib.dfd_feat_pool_tiled_mma(
-                    *ptrs, M, B, ci, co, H, W, plan.rows, plan.cols, stream), what + " (tiled)")
                 fused_feat_pool.tiled_mma_launches += 1
         elif f32:
             pb, _, wt, _ = plan

@@ -289,10 +289,16 @@ def test_fused_routes_follow_compute_dtype(cuda, monkeypatch):
     ptrs = [v.data_ptr() for v in (x, w, b, s, t, wimg, torch.empty_like(x), out)]
     assert tf32().dfd_res_stage_tiled_tf32(*ptrs, 2, 1, 8, 16, 16, plan.rows + 1, plan.cols, 1,
                                           stream) != 0
+    plan = fr.res_stage_tiled_plan(8, 16, 16, "mma")
+    wimg = torch.empty(2 * 4 * fr.mma_weight_image_elems(8, 8) // 2, device=cuda)
+    ptrs = [v.data_ptr() for v in (x, w, b, s, t, wimg, torch.empty_like(x), out)]
+    assert mma().dfd_res_stage_tiled_mma(*ptrs, 2, 1, 8, 16, 16, plan.rows, plan.cols + 1, 1,
+                                         stream) != 0
     plan = fr.feat_pool_tiled_plan(8, 16, 16, 16, "mma")
     x, w, b, s, t = feat
-    ptrs = [v.data_ptr() for v in (x, w, b, s, t, out)]
-    assert mma().dfd_feat_pool_tiled_mma(*ptrs, 2, 1, 8, 16, 16, 16, plan.rows, plan.cols + 1,
+    wimg = torch.empty(2 * fr.mma_weight_image_elems(8, 16) // 2, device=cuda)
+    ptrs = [v.data_ptr() for v in (x, w, b, s, t, wimg, out)]
+    assert mma().dfd_feat_pool_tiled_mma(*ptrs, 2, 1, 8, 16, 16, 16, plan.rows, plan.cols + 1, 1,
                                          stream) != 0
 
 
@@ -1732,16 +1738,23 @@ def test_mesh_of_one_over_nccl_equals_no_mesh(cuda):
 # -- every shape the JAX package runs ----------------------------------------------------
 
 # (M, B, ci, co, H, W, bf16) that no cluster plan takes: the 128-pixel f32 flagship's three,
-# 192-pixel frames' bf16 res stages, a bf16 feature pool at 192 x 192, more than 256 f32
-# channels, and ragged ones (odd H and W, C not a multiple of 4, tiles that do not divide
-# the frame)
+# 192-pixel frames' bf16 res stages (M = 2 and 16), a bf16 feature pool at 192 x 192, more
+# than 256 f32 channels, three bf16 groups of 64 (the image's fourth zero), and ragged ones
+# (odd H and W, C not a multiple of 4 or 8, tiles that do not divide the frame, a partial
+# second group of output channels, W % 4 != 0: the operand by cp.async, the smallest bf16
+# feature pool no band fits)
 TILED_RES_SHAPES = [(16, 1, 64, 64, 64, 64, False), (16, 1, 128, 128, 32, 32, False),
                     (2, 1, 64, 64, 96, 96, True), (2, 1, 128, 128, 48, 48, True),
-                    (2, 1, 264, 264, 16, 16, False), (2, 2, 6, 6, 200, 150, False),
-                    (2, 2, 6, 6, 200, 150, True), (1, 1, 16, 16, 128, 128, False)]
+                    (16, 1, 64, 64, 96, 96, True), (16, 1, 128, 128, 48, 48, True),
+                    (2, 1, 264, 264, 16, 16, False), (1, 1, 160, 160, 24, 24, True),
+                    (2, 2, 6, 6, 200, 150, False), (2, 2, 6, 6, 200, 150, True),
+                    (2, 1, 5, 5, 37, 601, True), (2, 1, 13, 13, 45, 300, True),
+                    (2, 1, 16, 16, 8, 2000, True),
+                    (1, 1, 16, 16, 128, 128, False)]
 TILED_FEAT_SHAPES = [(16, 1, 64, 128, 64, 64, False), (2, 1, 64, 128, 192, 192, True),
                      (2, 1, 16, 300, 16, 16, False), (2, 2, 6, 20, 61, 1001, False),
-                     (2, 2, 6, 20, 61, 1001, True)]
+                     (2, 2, 6, 20, 61, 1001, True), (2, 1, 13, 70, 15, 333, True),
+                     (2, 1, 1, 1, 2, 536, True), (1, 1, 512, 64, 16, 512, True)]
 
 
 @pytest.mark.parametrize("kind, shape", [("res", s) for s in TILED_RES_SHAPES]
@@ -1784,6 +1797,42 @@ def test_tiled_weight_image_is_kept_until_the_weights_change(cuda):
     other = w.clone()
     torch.testing.assert_close(fr.fused_res_stage(x, other, b, s, t), got, rtol=0, atol=0)
     assert any(v[0] is other for v in fr._IMAGES.values())
+
+
+def test_tiled_mma_weight_image_is_kept_until_the_weights_change(cuda):
+    """The bf16 tiled forms round a weight tensor into its image once
+    (``round_weights_kernel``, the plain version's bits) and keep it while
+    the same tensor comes back unmodified: a second call rounds nothing and
+    gives the same output; after an in-place change of the weights the next
+    call rounds them again and matches the plain version; another tensor
+    with the same values gets its own image; the feature pool likewise."""
+    for kind, shape in (("res", (2, 1, 64, 64, 96, 96)), ("feat", (2, 1, 8, 16, 2, 536))):
+        M, B, ci, co, H, W = shape
+        fn, plain = ((fr.fused_res_stage, fr.fused_res_stage_plain) if kind == "res"
+                     else (fr.fused_feat_pool, fr.fused_feat_pool_plain))
+        x, w, b, s, t = _fused_args(kind, M, B, ci, co, H, W, cuda)
+        plan = (fr.res_stage_mma_plan(ci, H, W) if kind == "res"
+                else fr.feat_pool_mma_plan(ci, co, H, W))
+        assert isinstance(plan, fr.TiledPlan)
+        bf16 = torch.bfloat16
+        first = fn(x, w, b, s, t, compute_dtype=bf16)
+        key = next(k for k, v in fr._IMAGES.items() if v[0] is w)
+        assert key[2] == "mma"
+        image = fr._IMAGES[key][2].clone()
+        want_image = fr.mma_weight_image_plain(w, ci).reshape(-1)
+        assert torch.equal(image.view(torch.bfloat16), want_image)
+        torch.testing.assert_close(fn(x, w, b, s, t, compute_dtype=bf16), first, rtol=0, atol=0)
+        assert torch.equal(fr._IMAGES[key][2], image)
+        w.mul_(0.5)
+        got = fn(x, w, b, s, t, compute_dtype=bf16)
+        want = plain(x, w, b, s, t, bf16)
+        tol = 4e-3 if kind == "res" else 1e-5
+        assert (got - want).abs().max().item() <= tol * max(1.0, want.abs().max().item())
+        assert not torch.equal(fr._IMAGES[key][2], image)
+        other = w.clone()
+        torch.testing.assert_close(fn(x, other, b, s, t, compute_dtype=bf16), got, rtol=0,
+                                   atol=0)
+        assert any(v[0] is other for v in fr._IMAGES.values())
 
 
 @pytest.mark.parametrize("n_links", [1, 2, 4, 6, 8, 11, 12, 15, 18, 19, 30, 31, 32, 33, 63, 64])

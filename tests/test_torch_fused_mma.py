@@ -75,14 +75,20 @@ def test_mma_plans_refuse_what_does_not_fit():
     """What no cluster of bf16 blocks holds (a band of 2000 columns, 256
     channels beside a tap, a feature pool of 512 input channels at W = 512)
     is refused by the cluster form and goes to the tiled form: tiles that
-    cover the frame in a block's shared memory."""
+    cover the frame in a block's shared memory, whose halo-padded (dense)
+    rows the block's four warpgroups take at once (4 x 152 positions for
+    one group of 64 output channels, 2 x 152 for two), K in chunks of 16
+    input channels."""
     for C, H, W in ((16, 8, 2000), (256, 16, 16)):
         plan = fr.res_stage_mma_plan(C, H, W)
         _tiles_cover(plan, H, W, feat=False)
-        assert plan.group == min(64, -(-C // 16) * 16) and plan.kc == 16
+        groups = 2 if C > 64 else 1
+        assert plan.group == 64 * groups and plan.kc == 16 and plan.stages in (2, 3)
+        assert plan.rows * (plan.cols + 2) - 2 <= 4 // groups * fr.MMA_N
     plan = fr.feat_pool_mma_plan(512, 64, 16, 512)
     _tiles_cover(plan, 16, 512, feat=True)
-    assert (2 * plan.rows + 1) * (2 * plan.cols + 1) <= 256  # the warps' positions
+    assert plan.group == 64 and plan.kc == 16
+    assert (2 * plan.rows + 1) * (2 * plan.cols + 3) - 2 <= 4 * fr.MMA_N  # the warpgroups'
 
 
 # (C, H, W) of the f32 res stage: impala_procmaze's, the reference check's,
@@ -187,6 +193,133 @@ def test_tiled_tf32_plans_fill_the_card_at_128_pixels(kind, ci, co, H, W):
     assert blocks * WARPS_A_BLOCK >= SMS * 16
 
 
+# the 192-pixel bf16 path's three tiled calls: M = 16 members of the res stages (as the
+# 128-pixel path's chunks), M = 2 of the feature pool, one frame each
+BF16_192 = [("res", 16, 64, 64, 96, 96), ("res", 16, 128, 128, 48, 48),
+            ("feat", 2, 64, 128, 192, 192)]
+
+
+@pytest.mark.parametrize("kind, M, ci, co, H, W", BF16_192,
+                         ids=["res-64@96x96", "res-128@48x48", "feat-64to128@192x192"])
+def test_tiled_mma_plans_fill_the_card_at_192_pixels(kind, M, ci, co, H, W):
+    """At 192-pixel frames' shapes the bf16 tiled forms read at most 1.4
+    halo positions an output (the 2 x 96 tiles before: 2.04) and the pool
+    computes at most 4.6 dense outputs a pooled one (the 1 x 32 tiles
+    before: 6.1), in a block's shared memory, at least 96% of the block's
+    halo-padded positions kept, with at least as many blocks as the card
+    has SMs; a 128-channel block takes both groups of 64 (one operand tile
+    for both)."""
+    if kind == "res":
+        plan = fr.res_stage_mma_plan(ci, H, W)
+        th, tw = plan.rows, plan.cols
+        assert (th + 2) * (tw + 2) / (th * tw) <= 1.4
+    else:
+        plan = fr.feat_pool_mma_plan(ci, co, H, W)
+        th, tw = 2 * plan.rows + 1, 2 * plan.cols + 1
+        assert th * tw / (plan.rows * plan.cols) <= 4.6
+    assert isinstance(plan, fr.TiledPlan) and plan.smem <= fr.MMA_TILED_SMEM_MAX
+    slots = (4 if co <= 64 else 2) * fr.MMA_N
+    assert th * (tw + 2) - 2 <= slots and th * (tw + 2) - 2 >= 0.94 * slots
+    assert plan.group == (64 if co <= 64 else 128)
+    assert M * plan.tiles >= SMS * 0.96
+
+
+@pytest.fixture(scope="module")
+def mma_plan_header(tmp_path_factory):
+    """``csrc/tiled_mma_plan.cuh`` compiled by g++ behind a C interface."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the plan's header for the host")
+    d = tmp_path_factory.mktemp("tiled_mma_plan")
+    (d / "plan.cc").write_text(
+        '#include "tiled_mma_plan.cuh"\n'
+        'namespace tm = tiled_mma;\n'
+        'extern "C" void res_plan(int C, int H, int W, int* th, int* tw) {\n'
+        '  tm::res_plan(C, H, W, th, tw); }\n'
+        'extern "C" void feat_plan(int co, int H, int W, int* ph, int* pw) {\n'
+        '  tm::feat_plan(co, H, W, ph, pw); }\n'
+        'extern "C" long long smem_bytes(int pool, int planar, int co, int th, int tw,\n'
+        '                                int stages) {\n'
+        '  return tm::smem_bytes(pool != 0, planar != 0, co, th, tw, stages); }\n'
+        'extern "C" int stages(int pool, int planar, int co, int th, int tw) {\n'
+        '  return tm::stages(pool != 0, planar != 0, co, th, tw); }\n'
+        'extern "C" long long conv_image_elems(int ci, int co) {\n'
+        '  return tm::conv_image_elems(ci, co); }\n'
+        'extern "C" long long image_offset(int ci, int co, int o, int tap, int c) {\n'
+        '  return tm::image_offset(ci, co, o, tap, c); }\n')
+    lib = d / "libplan.so"
+    subprocess.run([gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I", str(build.CSRC), "-o",
+                    str(lib), str(d / "plan.cc")], check=True, capture_output=True)
+    host = ctypes.CDLL(str(lib))
+    i32, i64, ip = ctypes.c_int, ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)
+    host.res_plan.argtypes = host.feat_plan.argtypes = [i32, i32, i32, ip, ip]
+    host.smem_bytes.argtypes = [i32] * 6
+    host.stages.argtypes = [i32] * 5
+    host.conv_image_elems.argtypes = [i32] * 2
+    host.image_offset.argtypes = [i32] * 5
+    host.smem_bytes.restype = host.conv_image_elems.restype = host.image_offset.restype = i64
+    return host
+
+
+# (H, W) for the bf16 host plan comparison: 192-pixel frames' three, the flagship's, ragged
+# and extreme ones
+MMA_HOST_PLAN_FRAMES = [(96, 96), (48, 48), (192, 192), (64, 64), (32, 32), (16, 16),
+                        (200, 150), (8, 2000), (61, 1001), (1, 1), (1, 300), (300, 1), (2, 536),
+                        (3, 7), (128, 128), (9, 13), (17, 33), (1000, 2), (2, 1000), (127, 129)]
+
+
+@pytest.mark.parametrize("H, W", MMA_HOST_PLAN_FRAMES)
+def test_tiled_mma_plan_in_python_is_the_c_plan(mma_plan_header, H, W):
+    """The Python plans, ring slots and shared bytes are the C entries' own
+    (``tiled_mma::res_plan``, ``feat_plan``, ``stages``, ``smem_bytes``; the
+    res stage's f32 first conv and its planar convs 1-3), compiled here from
+    the header the kernels include, at one group of 64 output channels and
+    at two; the halo-padded rows fit the block's warpgroups and a landing
+    row fits a tensor map's box."""
+    th, tw = ctypes.c_int(), ctypes.c_int()
+    for C in (16, 64, 128):
+        slots = (4 if C <= 64 else 2) * fr.MMA_N
+        plan = fr.res_stage_tiled_plan(C, H, W, "mma")
+        mma_plan_header.res_plan(C, H, W, ctypes.byref(th), ctypes.byref(tw))
+        assert (plan.rows, plan.cols) == (th.value, tw.value)
+        assert plan.rows * (plan.cols + 2) - 2 <= slots and plan.cols <= fr.MMA_BOX_MAX
+        assert plan.stages == mma_plan_header.stages(0, 0, C, th.value, tw.value)
+        assert plan.smem == mma_plan_header.smem_bytes(0, 0, C, th.value, tw.value, plan.stages) \
+            <= fr.MMA_TILED_SMEM_MAX
+        planar = fr._mma_stages(False, C, th.value, tw.value, planar=True)  # convs 1-3
+        assert planar == mma_plan_header.stages(0, 1, C, th.value, tw.value)
+        assert fr._mma_smem(False, C, th.value, tw.value, planar, planar=True) \
+            == mma_plan_header.smem_bytes(0, 1, C, th.value, tw.value, planar) \
+            <= fr.MMA_TILED_SMEM_MAX
+        plan = fr.feat_pool_tiled_plan(16, C, H, W, "mma")
+        mma_plan_header.feat_plan(C, H, W, ctypes.byref(th), ctypes.byref(tw))
+        assert (plan.rows, plan.cols) == (th.value, tw.value)
+        dh, dw = 2 * th.value + 1, 2 * tw.value + 1
+        assert dh * (dw + 2) - 2 <= slots
+        assert plan.stages == mma_plan_header.stages(1, 0, C, dh, dw)
+        assert plan.smem == mma_plan_header.smem_bytes(1, 0, C, dh, dw, plan.stages) \
+            <= fr.MMA_TILED_SMEM_MAX
+
+
+@pytest.mark.parametrize("ci, co", [(64, 64), (128, 128), (64, 128), (6, 20), (264, 264),
+                                    (16, 300), (5, 7)])
+def test_mma_weight_image_layout_is_the_c_layout(mma_plan_header, ci, co):
+    """Every weight of the plain bf16 image (``mma_weight_image_plain``)
+    sits where the C side's ``image_offset`` puts it, rounded to bf16, and
+    the image's size is ``conv_image_elems``'s; the rest of it is zero."""
+    w = torch.arange(1, co * 9 * ci + 1, dtype=torch.float32).reshape(co, 9 * ci) % 251 - 125
+    img = fr.mma_weight_image_plain(w, ci).reshape(-1)
+    assert img.dtype == torch.bfloat16
+    assert img.numel() == fr.mma_weight_image_elems(ci, co) \
+        == mma_plan_header.conv_image_elems(ci, co)
+    o, tap, c = np.meshgrid(np.arange(co), np.arange(9), np.arange(ci), indexing="ij")
+    off = torch.from_numpy(np.vectorize(mma_plan_header.image_offset)(ci, co, o, tap, c).reshape(-1))
+    assert torch.equal(img[off].float(), w.reshape(-1))  # integers below 256 are exact in bf16
+    mask = torch.ones_like(img, dtype=torch.bool)
+    mask[off] = False
+    assert not img[mask].float().any()
+
+
 @pytest.fixture(scope="module")
 def plan_header(tmp_path_factory):
     """``csrc/tiled_tf32_plan.cuh`` compiled by g++ behind a C interface."""
@@ -264,6 +397,21 @@ def test_tf32_weight_image_layout_is_the_c_layout(plan_header, ci, co, group):
     mask[torch.from_numpy(off)] = False
     mask[torch.from_numpy(off + half)] = False
     assert not img[mask].any()
+
+
+def test_weight_images_are_kept_per_route():
+    """A weight tensor given to both tiled routes gets an image for each (the
+    f32 route's split, the bf16 route's rounding), even at one size."""
+    fr._IMAGES.clear()
+    w = torch.randn(2, 4, 8, 72)
+    for route in ("tf32", "mma"):
+        image, fresh = fr._weight_image(w, 100, 0, route)
+        assert fresh
+        fr._keep_image(w, 0, image, route)
+    assert not fr._weight_image(w, 100, 0, "tf32")[1]
+    assert not fr._weight_image(w, 100, 0, "mma")[1]
+    assert fr._weight_image(w, 100, 0, "tf32")[0] is not fr._weight_image(w, 100, 0, "mma")[0]
+    fr._IMAGES.clear()
 
 
 def test_tf32_weight_image_is_split_once_per_tensor():

@@ -82,8 +82,10 @@ def _inputs(rng, kind, M, B, ci, co, H, W):
     ("feat", 2, 1, 64, 128, 64, 64, False),   # the 128-pixel flagship's second feature block
     ("res", 1, 1, 64, 64, 96, 96, True),      # 192-pixel frames' first res stage in bf16
     ("res", 2, 1, 128, 128, 32, 32, False),   # the 128-pixel flagship's third res stage
+    ("res", 1, 1, 128, 128, 48, 48, True),    # 192-pixel frames' second res stage in bf16
+    ("feat", 2, 1, 1, 1, 2, 536, True),       # the smallest bf16 feature pool no band fits
 ], ids=["f32-res-64@64x64", "f32-res-264@16x16", "f32-feat-64to128@64x64",
-        "bf16-res-64@96x96", "f32-res-128@32x32"])
+        "bf16-res-64@96x96", "f32-res-128@32x32", "bf16-res-128@48x48", "bf16-feat-1to1@2x536"])
 def test_fused_kernels_past_the_cluster_form_match_pallas(kind, M, B, ci, co, H, W, bf16):
     """The shapes the cluster plans cannot take: each plan is the tiled
     form's, in a block's shared memory, and the port's result is JAX's."""
@@ -95,7 +97,7 @@ def test_fused_kernels_past_the_cluster_form_match_pallas(kind, M, B, ci, co, H,
         plan = (pfr.feat_pool_mma_plan if bf16 else pfr.feat_pool_tf32_plan)(ci, co, H, W)
         jfn, pfn = jfr.fused_feat_pool, pfr.fused_feat_pool
     assert isinstance(plan, pfr.TiledPlan) and plan.smem <= pfr.SMEM_MAX
-    assert plan.group == (min(64, -(-co // 16) * 16) if bf16 else
+    assert plan.group == ((128 if co > 64 else 64) if bf16 else
                           pfr.TF32_RES_GROUP if kind == "res" else pfr.TF32_POOL_GROUP)
     jcd, pcd = (jnp.bfloat16, torch.bfloat16) if bf16 else (None, None)
     want = np.asarray(jax.vmap(lambda *a: jfn(*a, interpret=True, compute_dtype=jcd))(*args))
@@ -134,6 +136,31 @@ def test_tf32_weight_image_holds_jax_weights(kind, ci, co):
     back = (hi.astype(np.float64) + lo).transpose(0, 1, 2, 6, 4, 3, 5, 7)
     back = back.reshape(2, convs, ng * group, 9, nk * kc)[:, :, :co, :, :ci]
     np.testing.assert_allclose(back.reshape(want.shape), want, rtol=2.0 ** -22, atol=0)
+
+
+@pytest.mark.parametrize("kind, ci, co", [("res", 64, 64), ("res", 128, 128), ("feat", 64, 128),
+                                           ("feat", 6, 20), ("res", 264, 264)])
+def test_mma_weight_image_holds_jax_weights(kind, ci, co):
+    """The bf16 tiled forms' weight image (``mma_weight_image_plain``, what
+    ``round_weights_kernel`` writes) of OIHW weights, read back at each
+    weight's place, is JAX's tap-ordered weight (``dfd_tpu``'s
+    ``reorder_conv_weight``) rounded to bf16 as the Pallas kernel's dot
+    rounds it (``astype(bfloat16)``, round to nearest even), bit for bit;
+    the rest of the image is zero."""
+    rng = np.random.RandomState(ci + co)
+    convs = 4 if kind == "res" else 1
+    w_oihw = (rng.randn(2, convs, co, ci, 3, 3) / np.sqrt(9 * ci)).astype(np.float32)
+    want = np.stack([np.stack([np.asarray(jfr.reorder_conv_weight(w_oihw[m, j]))
+                               for j in range(convs)]) for m in range(2)])  # [2, J, co, 9ci]
+    want16 = np.asarray(jnp.asarray(want).astype(jnp.bfloat16).astype(jnp.float32))
+    img = pfr.mma_weight_image_plain(T(want), ci)
+    ng, nk = (2 if co > 64 else 1) * -(-(-(-co // 64)) // (2 if co > 64 else 1)), -(-ci // 16)
+    assert img.shape == (2, convs, nk, ng, 9, 2, 64, 8)
+    # [.., nk, ng, 9, 2, 64, 8] -> [.., ng * 64, 9, nk * 16]
+    back = _np(img.float()).transpose(0, 1, 3, 6, 4, 2, 5, 7).reshape(2, convs, ng * 64, 9,
+                                                                        nk * 16)
+    np.testing.assert_array_equal(back[:, :, :co, :, :ci].reshape(want.shape), want16)
+    assert not back[:, :, co:].any() and not back[:, :, :, :, ci:].any()
 
 
 def test_flagship_at_128_pixels_takes_the_tiled_forms():

@@ -8,21 +8,26 @@ commit 67921d8: ``dfd_combine``, ``dfd_res_chain``, ``dfd_gemm_chain``,
 ``dfd_roll``, ``dfd_strided_copy``, ``dfd_gather_cols`` and
 ``dfd_transpose`` with their plans, ``dfd_concat_scaled(x, out, n, scales,
 n_scales, stream)`` without one; for ``swimmer``, a ``dfd_swimmer_step`` that
-takes this checkout's ``SwimmerArgs``; for ``torso_tiled``, commit c7e4e21's
-``dfd_res_stage_tiled_tf32`` and ``dfd_feat_pool_tiled_tf32`` (no weight
-image), whose plans the tool takes from that checkout's own
-``dfd_tpu_torch/ops/fused_resblock.py``.
+takes this checkout's ``SwimmerArgs``; for ``torso_tiled``, commit b0f6bc3's
+``dfd_res_stage_tiled_tf32`` and ``dfd_feat_pool_tiled_tf32`` (a weight image
+and a split flag) and ``dfd_res_stage_tiled_mma`` and
+``dfd_feat_pool_tiled_mma`` (no weight image), whose plans the tool takes
+from that checkout's own ``dfd_tpu_torch/ops/fused_resblock.py``.
 Its ``dfd_tpu_torch/ops/csrc/perturb.cu``, ``gemm_chain.cu``,
-``res_chain.cu``, ``relayout.cu`` and ``swimmer.cu`` are built with the same ``nvcc`` flags
+``res_chain.cu``, ``relayout.cu``, ``swimmer.cu``, ``fused_resblock_tf32.cu``
+and ``fused_resblock_mma.cu`` are built with the same ``nvcc`` flags
 as this checkout's (``dfd_tpu_torch/ops/build.py``) into
 ``build/kernel_turns/`` and called through their own C entry points; this
 checkout's kernels go through their wrappers.  ``--kernels`` picks the
 groups to time (``perturb``: perturb, combine and combine's plan sweep;
 ``gemm_chain``; ``res_chain``; ``relayout``; ``swimmer``; ``torso_tiled``:
-the f32 tiled res stage and feature pool of ``fused_resblock_tf32.cu`` at
-``impala_128px``'s three shapes, M = 16, five rounds, with cuDNN's f32
-chain in the same turns, then once more with this checkout's weight image
-split every call, as on a rollout's first step), all by default; only their
+the tiled res stage and feature pool of ``fused_resblock_tf32.cu`` at
+``impala_128px``'s three shapes, M = 16, and of ``fused_resblock_mma.cu``
+(bf16) at 192-pixel frames' three, res 64 @ 96x96 and res 128 @ 48x48 at
+M = 16, the pool 64 -> 128 @ 192x192 at M = 2, five rounds each, with
+cuDNN's chain (f32 or bf16 tensors) in the same turns, then once more with
+both versions' weight image made every call, as on a rollout's first step
+(the bf16 parent has none), all by default; only their
 libraries are built.  Each case is timed parent,
 change, change, parent (``time_ms``, CUDA events), so the two versions share
 the card, its clocks and its power limit: perturb and combine at the trained
@@ -68,6 +73,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -96,10 +102,15 @@ PERTURB_SHAPES = ((2048, 5197), (128, 1_156_139), (64, 7_872_651))
 # the production transposes of x [33280, 1024], as x.view(rows, cols) (chip_smoke.py's)
 TRANSPOSES = ((33280, 1024), (64, 532480), (532480, 64), (16, 2129920), (2129920, 16))
 GROUPS = ("perturb", "gemm_chain", "res_chain", "relayout", "swimmer", "torso_tiled")
-SOURCE = {"torso_tiled": "fused_resblock_tf32"}  # a group's source where it is not its name
-# impala_128px's three tiled f32 calls (chip_smoke.py's BIG_CHUNK members, one frame each)
+# a library's source where it is not its name
+SOURCE = {"torso_tiled": "fused_resblock_tf32", "torso_tiled_mma": "fused_resblock_mma"}
 SWIMMER_LINKS = (7, 12, 15, 32, 64)  # the template form of gaussian_swimmer, then the run-time form
-TORSO_TILED = (("res", 64, 64, 64, 64), ("feat", 64, 128, 64, 64), ("res", 128, 128, 32, 32))
+# (kind, bf16, members, ci, co, H, W): impala_128px's three tiled f32 calls (chip_smoke.py's
+# BIG_CHUNK members, one frame each), then 192-pixel frames' three bf16 ones (PERF.md rows 3d
+# and 4d)
+TORSO_TILED = (("res", False, 16, 64, 64, 64, 64), ("feat", False, 16, 64, 128, 64, 64),
+               ("res", False, 16, 128, 128, 32, 32), ("res", True, 16, 64, 64, 96, 96),
+               ("res", True, 16, 128, 128, 48, 48), ("feat", True, 2, 64, 128, 192, 192))
 
 
 # dfd_combine's refusal of any plan but combine_plan's, and what the sweep builds instead
@@ -120,6 +131,8 @@ def build_parent(parent: Path, groups) -> dict:
         anyplan = out_dir / "perturb_anyplan.cu"
         anyplan.write_text(src.replace(PLAN_CHECK, "false"))
         names.append("anyplan")
+    if "torso_tiled" in groups:
+        names.append("torso_tiled_mma")
     procs = {}
     for name in names:
         lib = out_dir / (f"lib{name}.so" if name == "anyplan" else f"lib{name}_parent.so")
@@ -134,6 +147,12 @@ def build_parent(parent: Path, groups) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
         libs[name] = ctypes.CDLL(str(lib))
+        for entry in log.split("Compiling entry function")[1:]:  # the parent's tiled forms
+            if name.startswith("torso_tiled") and "tiled" in entry.split("\n")[0]:
+                regs = re.search(r"Used (\d+) registers", entry)
+                spill = re.search(r"(\d+) bytes spill stores", entry)
+                print(f"build: parent {entry.split()[0][:80]}: {regs[1] if regs else '?'} "
+                      f"registers, {spill[1] if spill else '?'} bytes spill stores", flush=True)
     vp, i32, u32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_longlong
     if "perturb" in libs:
         libs["perturb"].dfd_perturb.argtypes = [vp, vp, i32, i32, ctypes.c_float, u32, u32, i32,
@@ -155,8 +174,10 @@ def build_parent(parent: Path, groups) -> dict:
     if "swimmer" in libs:
         libs["swimmer"].dfd_swimmer_step.argtypes = [ctypes.POINTER(sw._Args), i32, vp]
     if "torso_tiled" in libs:
-        libs["torso_tiled"].dfd_res_stage_tiled_tf32.argtypes = [vp] * 7 + [i32] * 7 + [vp]
-        libs["torso_tiled"].dfd_feat_pool_tiled_tf32.argtypes = [vp] * 6 + [i32] * 8 + [vp]
+        libs["torso_tiled"].dfd_res_stage_tiled_tf32.argtypes = [vp] * 8 + [i32] * 8 + [vp]
+        libs["torso_tiled"].dfd_feat_pool_tiled_tf32.argtypes = [vp] * 7 + [i32] * 9 + [vp]
+        libs["torso_tiled_mma"].dfd_res_stage_tiled_mma.argtypes = [vp] * 7 + [i32] * 7 + [vp]
+        libs["torso_tiled_mma"].dfd_feat_pool_tiled_mma.argtypes = [vp] * 6 + [i32] * 8 + [vp]
     return libs
 
 
@@ -172,57 +193,68 @@ def parent_module(parent: Path, rel: str, name: str):
 
 
 def torso_tiled_turns(libs: dict, parent: Path, dev: torch.device) -> list:
-    """The f32 tiled torso forms at impala_128px's shapes: the parent's C
+    """The tiled torso forms at ``TORSO_TILED``'s shapes: the parent's C
     entries with the parent's own plans (from its ``ops/fused_resblock.py``;
-    they refuse any other), this checkout's wrappers, and cuDNN's f32 chain
-    (``chip_smoke.py::_chain``, TF32 off) in the same turns, five rounds;
-    each version checked against the plain version first."""
+    they refuse any other) and weight image (f32), this checkout's wrappers,
+    and cuDNN's chain (``chip_smoke.py::_chain``, TF32 off; bf16 tensors for
+    the bf16 forms) in the same turns, five rounds; each version checked
+    against the plain version first.  Then both with the weight image made
+    every call."""
     import chip_smoke
     from dfd_tpu_torch.ops import fused_resblock as fr
 
     pfr = parent_module(parent, "dfd_tpu_torch/ops/fused_resblock.py", "parent_fused_resblock")
-    lib, rows = libs["torso_tiled"], []
+    rows = []
     stream = lambda: torch.cuda.current_stream().cuda_stream
-    for kind, ci, co, H, W in TORSO_TILED:
-        M = chip_smoke.BIG_CHUNK
+    for kind, bf16, M, ci, co, H, W in TORSO_TILED:
         args, w_oihw = chip_smoke._fused_inputs(kind, M, 1, ci, co, H, W, dev, seed=7)
+        cd = torch.bfloat16 if bf16 else None
         x = args[0]
         ptrs = [v.data_ptr() for v in args]
+        lib = libs["torso_tiled_mma" if bf16 else "torso_tiled"]
+        route = "mma" if bf16 else "tf32"
         if kind == "res":
-            plan = pfr.res_stage_tf32_plan(ci, H, W)
+            plan = getattr(pfr, f"res_stage_{route}_plan")(ci, H, W)
             out, scratch = torch.empty_like(x), torch.empty_like(x)
-
-            def parent_call():
-                build.raise_on(lib.dfd_res_stage_tiled_tf32(
-                    *ptrs, scratch.data_ptr(), out.data_ptr(), M, 1, ci, H, W, plan.rows,
-                    plan.cols, stream()), "parent tiled res stage")
-                return out
-
-            change = lambda: fr.fused_res_stage(*args)
-            plain = fr.fused_res_stage_plain
+            wimg = None if bf16 else torch.empty(
+                M * 4 * pfr.tf32_weight_image_floats(ci, ci, plan.group), device=dev)
+            entry = getattr(lib, f"dfd_res_stage_tiled_{route}")
+            image = [] if bf16 else [wimg.data_ptr()]  # wimg lives as long as the calls
+            fixed = (*ptrs, *image, scratch.data_ptr(), out.data_ptr(), M, 1, ci, H, W)
+            fn, plain = fr.fused_res_stage, fr.fused_res_stage_plain
         else:
-            plan = pfr.feat_pool_tf32_plan(ci, co, H, W)
+            plan = getattr(pfr, f"feat_pool_{route}_plan")(ci, co, H, W)
             out = torch.empty(M, 1, co, (H + 1) // 2, (W + 1) // 2, device=dev)
+            wimg = None if bf16 else torch.empty(
+                M * pfr.tf32_weight_image_floats(ci, co, plan.group), device=dev)
+            entry = getattr(lib, f"dfd_feat_pool_tiled_{route}")
+            image = [] if bf16 else [wimg.data_ptr()]
+            fixed = (*ptrs, *image, out.data_ptr(), M, 1, ci, co, H, W)
+            fn, plain = fr.fused_feat_pool, fr.fused_feat_pool_plain
 
-            def parent_call():
-                build.raise_on(lib.dfd_feat_pool_tiled_tf32(
-                    *ptrs, out.data_ptr(), M, 1, ci, co, H, W, plan.rows, plan.cols, stream()),
-                    "parent tiled feature pool")
-                return out
+        def parent_call(split=0):
+            flag = [] if bf16 else [split]
+            build.raise_on(entry(*fixed, plan.rows, plan.cols, *flag, stream()),
+                           f"parent tiled {kind} ({route})")
+            return out
 
-            change = lambda: fr.fused_feat_pool(*args)
-            plain = fr.fused_feat_pool_plain
-        want = plain(*args)
-        tol = chip_smoke.TOL_FUSED_F32 * max(1.0, want.abs().max().item())
-        for f in (parent_call, change):
-            assert (f() - want).abs().max().item() <= tol, kind
+        change = lambda: fn(*args, compute_dtype=cd)
+        want = plain(*args, compute_dtype=cd)
+        tol = (chip_smoke.TOL_FUSED_RES_BF16 if bf16 and kind == "res" else
+               chip_smoke.TOL_FUSED_F32) * max(1.0, want.abs().max().item())
+        for f in (lambda: parent_call(1), change):
+            assert (f() - want).abs().max().item() <= tol, (kind, route)
         del want
-        chain = lambda: chip_smoke._chain(kind, x, w_oihw, *args[2:])
-        name = f"tiled {kind} {ci}->{co} @{H}x{W} M={M}"
+        chain_args = [x, w_oihw, *args[2:]]
+        if bf16:
+            chain_args = [v.to(torch.bfloat16) for v in chain_args]
+        chain = lambda: chip_smoke._chain(kind, *chain_args)
+        name = f"tiled {kind} {route} {ci}->{co} @{H}x{W} M={M}"
         rows.append(turns(name, parent_call, change, 20, rounds=5, library=chain))
-        # the same with this checkout's weight image split every call (a rollout's first step)
+        # the same with the weight image made every call (a rollout's first step)
         fresh = lambda: (fr._IMAGES.clear(), change())[1]
-        rows.append(turns(name + ", weights split every call", parent_call, fresh, 20, rounds=5))
+        rows.append(turns(name + ", weight image made every call", lambda: parent_call(1), fresh,
+                          20, rounds=5))
     return rows
 
 

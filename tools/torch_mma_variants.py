@@ -1,6 +1,7 @@
 """Where the tensor-core kernels' time goes on the card, by removing one part.
 
-    python3 tools/torch_mma_variants.py [--source {bf16,tf32,res_chain,both}]
+    python3 tools/torch_mma_variants.py [--source {bf16,tf32,tiled,tiled_mma,res_chain,both}]
+                                        [--stamps]
 
 Builds each tensor-core source as it is and in variants, each with one part
 of the work taken out of the source text, and times every variant's res
@@ -50,10 +51,23 @@ stage and feature pool at its main path's rollout shapes:
   of K, in place of 32 x 40 with K in halves).  Every variant's
   largest error against the plain version is printed beside its times.
 
+- ``tiled_mma``, ``fused_resblock_mma.cu``'s tiled forms
+  (``conv_tiled_mma_kernel``, ``round_weights_kernel``, bf16 on ``wgmma``)
+  at 192-pixel frames' shapes: the res stage at 64 ch x 96x96 and 128 ch x
+  48x48 (M = 16), the feature pool 64 -> 128 at 192x192 (M = 2).  Cuts:
+  ``no_products`` (no ``wgmma``), ``no_transform`` (the landed operand is
+  not rewritten as the bf16 planes), ``no_store`` (no output written, f32
+  or planes); not a cut: ``ring2`` (two ring slots everywhere).  ``base`` is timed
+  once more with the image rounded every call.
+
 ``--stamps`` builds the tiled source once more with ``%globaltimer`` read
 at each phase of a chunk (the barrier, the copies' issue, the transform's
 slices with the products, the epilogue) and prints their medians over the
-res stage's blocks at ``impala_128px``'s two shapes.
+res stage's blocks at ``impala_128px``'s two shapes; with ``--source
+tiled_mma``, the bf16 tiled source's phases instead (``run_stamps_mma``:
+the landing and weights waits, the products' issue, the transform, the
+products' remainder, the barrier and the epilogue, at the three 192-pixel
+shapes).
 
 ``both`` runs ``bf16`` and ``tf32``.  The difference between ``base`` and
 a variant is what that part costs where it does not overlap the rest.  The
@@ -229,6 +243,25 @@ TILED_POOL_FORM = "kernel = &conv_tiled_tf32_kernel<2, 5, 2, true, false>;"
 TILED_STORE = "a.out[(mb * a.co + co) * plane + goff[n][c2]] = u;"
 
 
+MMA_TILED_PRODUCT = "wgmma_bf16_n152(acc, ad, bd, 1);"
+MMA_TILED_TRANSFORM = (
+    "    transform_chunk(a, m, 0, lbuf, pbuf, v);\n",
+    "        transform_chunk(a, m, (k + 1) * tmma::kKc, lbuf + next * lfl,\n"
+    "                        pbuf + ((k + 1) & 1) * pel, v);\n")
+MMA_TILED_STORE = ("    if (a.out != nullptr) {\n", "    if (a.pout != nullptr) {\n")
+MMA_TILED_RING = "const int stages = tmma::stages(POOL, planar, a.co, a.th, a.tw);"
+
+
+def tiled_mma_variants(src: str) -> dict:
+    return {
+        "base": src,
+        "no_products": _cut(src, MMA_TILED_PRODUCT, new="{}"),
+        "no_transform": _cut(src, *MMA_TILED_TRANSFORM, new="{}\n"),
+        "no_store": _cut(src, *MMA_TILED_STORE, new="    if (t[0][0] == 12345.f) {\n"),
+        "ring2": _cut(src, MMA_TILED_RING, new="const int stages = 2;"),
+    }
+
+
 def tiled_variants(src: str) -> dict:
     return {
         "base": src,
@@ -243,7 +276,7 @@ def tiled_variants(src: str) -> dict:
 
 
 # source: (file, variants, loader attribute, entry points and their pointer
-# and int arguments, compute_dtype, members, (kind, ci, co, H, W) cases)
+# and int arguments, compute_dtype, members, (kind, ci, co, H, W[, members]) cases)
 SOURCES = {
     "bf16": ("fused_resblock_mma", bf16_variants, "_mma_kernels",
              (("dfd_res_stage_mma", 6, 7), ("dfd_feat_pool_mma", 6, 7)), torch.bfloat16, 65,
@@ -256,6 +289,10 @@ SOURCES = {
     "tiled": ("fused_resblock_tf32", tiled_variants, "_tf32_kernels",
               (("dfd_res_stage_tiled_tf32", 8, 8), ("dfd_feat_pool_tiled_tf32", 7, 9)), None, 16,
               [("res", 64, 64, 64, 64), ("feat", 64, 128, 64, 64), ("res", 128, 128, 32, 32)]),
+    "tiled_mma": ("fused_resblock_mma", tiled_mma_variants, "_mma_kernels",
+                  (("dfd_res_stage_tiled_mma", 8, 8), ("dfd_feat_pool_tiled_mma", 7, 9)),
+                  torch.bfloat16, 16,
+                  [("res", 64, 64, 96, 96), ("res", 128, 128, 48, 48), ("feat", 64, 128, 192, 192, 2)]),
 }
 
 
@@ -268,13 +305,13 @@ def run(key: str, dev: torch.device) -> None:
     stem, make, loader, entries, cd, M, cases = SOURCES[key]
     srcs = make((build.CSRC / f"{stem}.cu").read_text())
     out = build_variants(stem, srcs)
-    inputs = [chip_smoke._fused_inputs(kind, M, 1, ci, co, H, W, dev, seed=0)[0]
-              for kind, ci, co, H, W in cases]
+    inputs = [chip_smoke._fused_inputs(c[0], c[5] if len(c) > 5 else M, 1, *c[1:5], dev,
+                                       seed=0)[0] for c in cases]
     wants = [(fr.fused_res_stage_plain if kind == "res" else fr.fused_feat_pool_plain)(
         *args, compute_dtype=cd) for (kind, *_), args in zip(cases, inputs)]
     print(f"{stem}.cu, M = {M}, one frame a member")
-    print("variant              " + "  ".join(f"{k} {ci}->{co} {H}x{W} ms"
-                                              for k, ci, co, H, W in cases))
+    print("variant              " + "  ".join(f"{c[0]} {c[1]}->{c[2]} {c[3]}x{c[4]} ms"
+                                              for c in cases))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     original = getattr(fr, loader)
     try:
@@ -292,12 +329,13 @@ def run(key: str, dev: torch.device) -> None:
                 errs.append(((fn(*args, compute_dtype=cd) - want).abs().max()
                              / want.abs().max().clamp(min=1.0)).item())
                 row.append(time_ms(lambda: fn(*args, compute_dtype=cd), dev, 20))
-                if key == "tiled" and name == "base":  # the weights split every call
-                    fresh.append(time_ms(lambda: (fr._IMAGES.clear(), fn(*args))[1], dev, 20))
+                if key.startswith("tiled") and name == "base":  # the image made every call
+                    fresh.append(time_ms(lambda: (fr._IMAGES.clear(), fn(*args, compute_dtype=cd))[1],
+                                         dev, 20))
             print(f"{name:20s} " + "  ".join(f"{ms:.4f}" for ms in row)
                   + "  (max|d| / scale " + ", ".join(f"{e:.3g}" for e in errs) + ")", flush=True)
             if fresh:
-                print(f"{'base, split each call':20s} " + "  ".join(f"{ms:.4f}" for ms in fresh),
+                print(f"{'base, image each call':20s} " + "  ".join(f"{ms:.4f}" for ms in fresh),
                       flush=True)
     finally:
         setattr(fr, loader, original)
@@ -378,9 +416,135 @@ def run_stamps(dev: torch.device) -> None:
         fr._tf32_kernels = original
 
 
+# the bf16 tiled kernel's stamps: two threads of each block (warpgroup 0's and 3's first
+# lanes), group 0's blocks of a launch (the res stage's last, a planar conv), 128 slots a
+# thread: 0 the start, 1 chunk 0's transform done (f32 operand), 2 + 8k .. 7 + 8k chunk k's
+# phases, 126 the loop's end, 127 the epilogue's.  f32 operand (the pool): after the
+# barrier, the weights' wait, the products' issue, the next landing's wait, the next
+# transform, the products' wait; planar: after the chunk's waits, its issue, the previous
+# chunk's wait, the barrier and refill.
+MMA_STAMP_DECL = """__device__ long long g_stamps[4096 * 2 * 128];
+__device__ __forceinline__ void stamp(int i) {
+  if ((threadIdx.x == 0 || threadIdx.x == 384) && blockIdx.x < 4096 && blockIdx.y == 0) {
+    long long c;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(c));
+    g_stamps[(blockIdx.x * 2 + (threadIdx.x ? 1 : 0)) * 128 + i] = c;
+  }
+}
+"""
+MMA_STAMPS = (  # (text, code put after it)
+    ("  const int gb = tmma::block_groups(a.co), spans = 4 / gb;\n", "  stamp(0);\n"),
+    (MMA_TILED_TRANSFORM[0], "    stamp(1);\n"),
+    ("                        // products; landing slot k % S is transformed\n",
+     "      stamp(2 + 8 * k);\n"),
+    ("      mbar_wait(&wbar[slot], (k / S) & 1);  // chunk k's weights are in\n",
+     "      stamp(3 + 8 * k);\n"),
+    ("                     n0, v.pa, v.tile_w);\n", "      stamp(4 + 8 * k);\n"),
+    ("        if (a.vec) mbar_wait(&lbar[next], ((k + 1) / S) & 1);\n",
+     "        stamp(5 + 8 * k);\n"),
+    (MMA_TILED_TRANSFORM[1], "        stamp(6 + 8 * k);\n"),
+    ("      }\n      wgmma_wait0();\n", "      stamp(7 + 8 * k);\n"),
+    ("      mbar_wait(&wbar[slot], (k / S) & 1);\n", "      stamp(2 + 8 * k);\n"),
+    ("      wgmma_wait1();  // chunk k - 1's products are done here\n", "      stamp(4 + 8 * k);\n"),
+    ("        issue_planes(map, pbuf + (j % S) * pel, &lbar[j % S], v, plane0 + 2 * j);\n      }\n",
+     "      stamp(5 + 8 * k);\n"),
+)
+
+
+def stamped_mma(src: str) -> str:
+    """The bf16 tiled source with clock reads at MMA_STAMPS, and an entry
+    that copies them out."""
+    src = _cut(src, "template <bool POOL, int S, bool PLANAR>\n__global__",
+               new=MMA_STAMP_DECL + "template <bool POOL, int S, bool PLANAR>\n__global__")
+    for text, code in MMA_STAMPS:
+        src = _cut(src, text, new=text + code)
+    src = _cut(src, "                     v.pa, v.tile_w);\n      wgmma_wait1();",
+               new="                     v.pa, v.tile_w);\n      stamp(3 + 8 * k);\n      wgmma_wait1();")
+    src = _cut(src, "  __syncthreads();  // every warpgroup is done with the buffers\n",
+               new="  stamp(126);\n  __syncthreads();  // every warpgroup is done with the buffers\n")
+    src = _cut(src, "    return;\n  }\n  // the res stage's outputs",
+               new="    stamp(127);\n    return;\n  }\n  // the res stage's outputs")
+    src = _cut(src, "    res_epilogue<1>(a, sd, snt, rows, sstride, valid, mb, co0, v.oy, v.ox);\n}\n",
+               new="    res_epilogue<1>(a, sd, snt, rows, sstride, valid, mb, co0, v.oy, v.ox);\n"
+                   "  stamp(127);\n}\n")
+    return src + ("\nextern \"C\" int dfd_stamps(void* dst, size_t n) {\n"
+                  "  return (int)cudaMemcpyFromSymbol(dst, g_stamps, n);\n}\n")
+
+
+def run_stamps_mma(dev: torch.device) -> None:
+    """Each phase's time in the bf16 tiled forms, summed over a block's
+    chunks, the median over the launch's blocks (us)."""
+    import numpy as np
+
+    import chip_smoke
+    from dfd_tpu_torch.ops import build
+    from dfd_tpu_torch.ops import fused_resblock as fr
+
+    src = (build.CSRC / "fused_resblock_mma.cu").read_text()
+    out = build_variants("fused_resblock_mma", {"stamps": stamped_mma(src)})
+    lib = ctypes.CDLL(str(out / "libfused_resblock_mma_stamps.so"))
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.dfd_res_stage_tiled_mma.argtypes = [vp] * 8 + [i32] * 8 + [vp]
+    lib.dfd_feat_pool_tiled_mma.argtypes = [vp] * 7 + [i32] * 9 + [vp]
+    lib.dfd_stamps.argtypes = [vp, ctypes.c_size_t]
+    original = fr._mma_kernels
+    fr._mma_kernels = lambda: lib
+    try:
+        for kind, M, ci, co, H, W in (("res", 16, 64, 64, 96, 96), ("res", 16, 128, 128, 48, 48),
+                                      ("feat", 2, 64, 128, 192, 192)):
+            args = chip_smoke._fused_inputs(kind, M, 1, ci, co, H, W, dev, seed=0)[0]
+            fn = fr.fused_res_stage if kind == "res" else fr.fused_feat_pool
+            plan = (fr.res_stage_mma_plan(ci, H, W) if kind == "res"
+                    else fr.feat_pool_mma_plan(ci, co, H, W))
+            for _ in range(3):
+                fn(*args, compute_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            st = np.zeros(4096 * 2 * 128, np.int64)
+            assert lib.dfd_stamps(st.ctypes.data, st.nbytes) == 0
+            nb = M * plan.tiles
+            st = st.reshape(4096, 2, 128)[:nb, 0].astype(np.float64) / 1e3
+            nk = -(-ci // 16)
+            d = lambda i, j: st[:, j] - st[:, i]
+            if kind == "res":  # the last conv: a planar operand
+                phase = dict.fromkeys(("operand and weights wait", "issue",
+                                       "previous chunk's wait", "barrier and refill"), 0)
+                for k in range(nk):
+                    b = 2 + 8 * k
+                    if k > 0:  # (chunk 0's wait is in the block's time only)
+                        phase["operand and weights wait"] = phase["operand and weights wait"] + d(
+                            b - 3, b)
+                    phase["issue"] = phase["issue"] + d(b, b + 1)
+                    phase["previous chunk's wait"] = phase["previous chunk's wait"] + d(b + 1, b + 2)
+                    phase["barrier and refill"] = phase["barrier and refill"] + d(b + 2, b + 3)
+                phase["last chunk's wait"] = d(8 * nk - 3, 126)
+            else:
+                phase = dict.fromkeys(("barrier", "weights wait", "products issue", "landing wait",
+                                       "transform", "products wait"), 0)
+                for k in range(nk):
+                    b = 2 + 8 * k
+                    phase["barrier"] = phase["barrier"] + d(1 if k == 0 else b - 3, b)
+                    phase["weights wait"] = phase["weights wait"] + d(b, b + 1)
+                    phase["products issue"] = phase["products issue"] + d(b + 1, b + 2)
+                    if k + 1 < nk:
+                        phase["landing wait"] = phase["landing wait"] + d(b + 2, b + 3)
+                        phase["transform"] = phase["transform"] + d(b + 3, b + 4)
+                        phase["products wait"] = phase["products wait"] + d(b + 4, b + 5)
+                    else:
+                        phase["products wait"] = phase["products wait"] + d(b + 2, b + 5)
+            rows = [f"{k} {np.median(v):.2f}" for k, v in phase.items()]
+            starts = np.sort(st[:, 0] - st[:, 0].min())
+            print(f"stamps: bf16 {kind} {ci}->{co} @{H}x{W}, M = {M}, the last launch's {nb} blocks, "
+                  f"medians (us): block {np.median(d(0, 127)):.2f}: prologue (chunk 0 landed and "
+                  f"transformed) {np.median(d(0, 1)):.2f}; over its {nk} chunks: " + ", ".join(rows)
+                  + f"; epilogue {np.median(d(126, 127)):.2f}; the launch's blocks start over "
+                  f"{starts[-1]:.2f} us", flush=True)
+    finally:
+        fr._mma_kernels = original
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--source", choices=("bf16", "tf32", "tiled", "res_chain", "both"),
+    ap.add_argument("--source", choices=("bf16", "tf32", "tiled", "tiled_mma", "res_chain", "both"),
                     default="both")
     ap.add_argument("--stamps", action="store_true",
                     help="also time the tiled res stage's phases with clock stamps")
@@ -397,7 +561,7 @@ def main() -> int:
         else:
             run(key, torch.device("cuda"))
     if args.stamps:
-        run_stamps(torch.device("cuda"))
+        (run_stamps_mma if args.source == "tiled_mma" else run_stamps)(torch.device("cuda"))
     return 0
 
 
