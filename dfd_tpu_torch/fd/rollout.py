@@ -23,6 +23,8 @@ The randomness is passed in as draws instead of keys: ``action_noise``
 normals of a Gaussian one), ``stats_uniform`` [M, E, T] (the per-step coin of
 the sampled statistics) and ``reset_level`` [M, E, *env.reset_shape] (each
 episode's reset draw: its level, cells or start state).
+
+Each step's env transition is the span ``env`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 from dfd_tpu_torch.core import welford
 from dfd_tpu_torch.envs.base import TorchEnv
 from dfd_tpu_torch.models.base import PolicyModel
+from dfd_tpu_torch.utils.profiling import span
 
 
 class RolloutResult(NamedTuple):
@@ -93,8 +96,9 @@ def episode_rollout(
             params, bn_state, obs, prev_reward, prev_done, carry, deterministic,
             action_noise[:, :, t],
         )
-        new_env_state, new_obs, reward, step_done = env.step(
-            env_state, action.reshape((N,) + action.shape[2:]))
+        with span("env", after="core"):
+            new_env_state, new_obs, reward, step_done = env.step(
+                env_state, action.reshape((N,) + action.shape[2:]))
         new_obs = new_obs.reshape((M, E) + obs_shape)
         reward, step_done = reward.reshape(M, E), step_done.reshape(M, E)
 

@@ -51,6 +51,7 @@ from dfd_tpu_torch.models import layers
 from dfd_tpu_torch.models.atari import batchnorm2d_eval, batchnorm2d_train
 from dfd_tpu_torch.models.base import Params, PolicyModel, State, sample_action
 from dfd_tpu_torch.ops import fused_resblock
+from dfd_tpu_torch.utils.profiling import span
 
 CHANNELS = (16, 32, 32)
 HIDDEN = 256
@@ -318,9 +319,18 @@ class ImpalaPolicy(PolicyModel):
         return dict(params, **{_PREPARED: fused})
 
     def _torso(self, params, state, frames: torch.Tensor) -> torch.Tensor:
-        """frames [M, N, C, H, W] (raw pixels) -> features [M, N, hidden]."""
-        if self.conv_impl == "nhwc":
-            return self._torso_nhwc(params, state, frames)
+        """frames [M, N, C, H, W] (raw pixels) -> features [M, N, hidden]:
+        the conv blocks (the span ``torso``, counting the call's frames and
+        members), then :meth:`_fc`."""
+        M, N = frames.shape[:2]
+        blocks = self._blocks_nhwc if self.conv_impl == "nhwc" else self._blocks
+        with span("torso", frames=M * N, members=M):
+            x = blocks(params, state, frames)
+        return self._fc(params, state, x)
+
+    def _blocks(self, params, state, frames: torch.Tensor) -> torch.Tensor:
+        """frames [M, N, C, H, W] (raw pixels) -> the last stage's output
+        [M, N, C', H', W']."""
         if _PREPARED not in params:
             params = self.prepare(params, state)
         fused = params[_PREPARED]
@@ -345,10 +355,10 @@ class ImpalaPolicy(PolicyModel):
                 y = torch.relu(y)
                 y = self._conv(params[f"res{r}_{k}_conv2"], y, cd)
                 x = y + res
-        return self._fc(params, state, x)
+        return x
 
-    def _torso_nhwc(self, params, state, frames: torch.Tensor) -> torch.Tensor:
-        """The same torso in channels-last layout: one transpose in, one
+    def _blocks_nhwc(self, params, state, frames: torch.Tensor) -> torch.Tensor:
+        """The same blocks in channels-last layout: one transpose in, one
         back to [M, N, C, H, W] before the flatten (the fc weights' order)."""
         cd = self.compute_dtype
         x = frames.to(torch.float32).permute(0, 1, 3, 4, 2) / 255.0
@@ -364,15 +374,17 @@ class ImpalaPolicy(PolicyModel):
                 y = torch.relu(bn(f"res{r}_{k}_bn2", y))
                 y = conv3x3_nhwc(params[f"res{r}_{k}_conv2"], y, cd)
                 x = y + res
-        return self._fc(params, state, x.permute(0, 1, 4, 2, 3))
+        return x.permute(0, 1, 4, 2, 3)
 
     def _fc(self, params, state, x: torch.Tensor) -> torch.Tensor:
-        """The torso's end: ReLU, flatten, BN, fc, ReLU; x [M, N, C, H, W]."""
-        x = torch.relu(x)
-        x = x.reshape(x.shape[0], x.shape[1], -1)
-        x = layers.batchnorm_eval(params["fc_bn"], state["fc_bn"], x)
-        x = layers.linear(params["fc"], x, compute_dtype=self.compute_dtype)
-        return torch.relu(x)
+        """The torso's end (the span ``fc``): ReLU, flatten, BN, fc, ReLU;
+        x [M, N, C, H, W]."""
+        with span("fc", after="torso"):
+            x = torch.relu(x)
+            x = x.reshape(x.shape[0], x.shape[1], -1)
+            x = layers.batchnorm_eval(params["fc_bn"], state["fc_bn"], x)
+            x = layers.linear(params["fc"], x, compute_dtype=self.compute_dtype)
+            return torch.relu(x)
 
     def _head(self, params, state, core_output: torch.Tensor) -> torch.Tensor:
         x = layers.batchnorm_eval(params["policy_bn"], state["policy_bn"], core_output)
@@ -424,12 +436,14 @@ class ImpalaPolicy(PolicyModel):
         member's episodes are the frames of its torso call), prev_reward
         [M, E] (the LSTM reads it clipped), carry (h, c) [M, E, hidden];
         ``prev_done`` is not read (a done episode's carry is frozen by the
-        rollout)."""
-        core_out = self._core_input(self._torso(params, state, obs), prev_reward)
-        if self.use_lstm:
-            core_out, carry = layers.lstm_step(params["lstm"], core_out, carry)
-        probs = self._head(params, state, core_out)
-        action, entropy = sample_action(probs, deterministic, gumbel)
+        rollout).  The LSTM, the head and the sample are the span ``core``."""
+        feats = self._torso(params, state, obs)
+        with span("core", after="fc"):
+            core_out = self._core_input(feats, prev_reward)
+            if self.use_lstm:
+                core_out, carry = layers.lstm_step(params["lstm"], core_out, carry)
+            probs = self._head(params, state, core_out)
+            action, entropy = sample_action(probs, deterministic, gumbel)
         return action, entropy, carry
 
     def apply_seq(self, params, state, frames: torch.Tensor, rewards: torch.Tensor) -> torch.Tensor:

@@ -40,6 +40,13 @@ and is summed over the ranks.  A mesh of one equals no mesh bit for bit.
 
 The strategy archive's accept/evict logic stays on the host between epochs.
 
+Each epoch report carries the trainer's spans (``self.timer``, a
+:class:`~dfd_tpu_torch.utils.profiling.StageTimer` on the trainer's device,
+active through ``train`` and ``train_fast``): ``archive`` and
+``device_step``; inside the step ``perturb``, ``rollout``, ``novelty``,
+``eval`` and ``update``; and the spans the rollout, the model and the env
+open at each step (IMPALA's ``torso``, ``fc`` and ``core``, and ``env``).
+
 Beside training, ``set_env`` swaps the environment between epochs (the
 level curriculum, ``utils/curriculum.py``) and ``eval_panel`` plays the
 current policy greedily on a fixed panel of JAX's own resets, read-only.
@@ -58,6 +65,7 @@ tolerances assume.
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
@@ -80,7 +88,7 @@ from dfd_tpu_torch.ops.perturb import combine, noise_sumsq, perturb
 from dfd_tpu_torch.parallel import collectives
 from dfd_tpu_torch.parallel.mesh import PopMesh, pop_sharding
 from dfd_tpu_torch.utils.metrics import EpochReporter
-from dfd_tpu_torch.utils.profiling import StageTimer
+from dfd_tpu_torch.utils.profiling import StageTimer, span
 
 
 class TrainState(NamedTuple):
@@ -130,6 +138,15 @@ def make_draws(generator: torch.Generator, P: int, T: int, Z: int, env: TorchEnv
     for x in (noise, stats_uniform, reset_level):
         x[P] = x[P, :1]
     return EpochDraws(noise, stats_uniform, tie_signs, zeta_perm, reset_level)
+
+
+def _timed(method):
+    """``method`` with the trainer's span timer active (``StageTimer.active``)."""
+    @functools.wraps(method)
+    def inner(self, *args, **kwargs):
+        with self.timer.active():
+            return method(self, *args, **kwargs)
+    return inner
 
 
 class VectorizedTrainer:
@@ -237,7 +254,7 @@ class VectorizedTrainer:
         )
         self.cumulative_timesteps = 0
         self._last_archived = None
-        self.timer = StageTimer()
+        self.timer = StageTimer(self.device)
 
     def _here(self, device) -> bool:
         """Whether ``device`` is the trainer's (``"cuda"`` is the current card)."""
@@ -293,6 +310,7 @@ class VectorizedTrainer:
         self._last_archived = flat.copy()
 
     @full_f32()
+    @_timed
     def train(self, n_epochs: int) -> None:
         """Reference-cadence training: one epoch step at a time with the
         strategy archive refreshed on host between epochs."""
@@ -327,6 +345,7 @@ class VectorizedTrainer:
             self.reporter.report(m)
 
     @full_f32()
+    @_timed
     def train_fast(self, n_epochs: int, sync_every: int = 10) -> None:
         """Throughput mode: chunks of ``sync_every`` epochs run back to back
         with no host synchronisation inside a chunk; metrics are fetched in
@@ -391,16 +410,17 @@ class VectorizedTrainer:
 
         def rollout(params, det, rows, collect_limit, episodes=self.E):
             """The members' episodes on the draws' ``rows``."""
-            return fd_rollout.episode_rollout(
-                model, self.env, params, state.bn_state, self.horizon, det,
-                obs_mean=obs_mean, obs_std=obs_std,
-                normalize_obs=cfg.normalize_obs,
-                obs_stats_update_chance=cfg.obs_stats_update_chance,
-                action_noise=draws.action_noise[rows, :episodes],
-                stats_uniform=draws.stats_uniform[rows, :episodes],
-                reset_level=draws.reset_level[rows, :episodes],
-                collect_limit=collect_limit,
-            )
+            with span("rollout"):
+                return fd_rollout.episode_rollout(
+                    model, self.env, params, state.bn_state, self.horizon, det,
+                    obs_mean=obs_mean, obs_std=obs_std,
+                    normalize_obs=cfg.normalize_obs,
+                    obs_stats_update_chance=cfg.obs_stats_update_chance,
+                    action_noise=draws.action_noise[rows, :episodes],
+                    stats_uniform=draws.stats_uniform[rows, :episodes],
+                    reset_level=draws.reset_level[rows, :episodes],
+                    collect_limit=collect_limit,
+                )
 
         # 1-3. perturb, roll out and score this rank's members (all P
         # without a mesh) a chunk at a time (one chunk unless
@@ -413,8 +433,9 @@ class VectorizedTrainer:
         eps = noise_ssq = fused = None
         for c0 in range(lo, hi, C):
             ride = fused_eval and c0 == lo
-            flats, eps, noise_ssq = self._perturbed(state, c0, ride)
-            params = model.set_flat(flats)
+            with span("perturb"):
+                flats, eps, noise_ssq = self._perturbed(state, c0, ride)
+                params = model.set_flat(flats)
             det = torch.zeros(flats.shape[0], dtype=torch.bool, device=self.device)
             det[C:] = True
             rows = slice(c0, c0 + C + int(ride))
@@ -446,63 +467,66 @@ class VectorizedTrainer:
         eval_stats = welford.init(self.env.obs_shape, self.device)
         noisy_mean = rewards.mean()
         if do_eval:
-            if fused is None:  # the unfused eval episode, run alone
-                params = model.set_flat(state.flat[None])
-                det = torch.ones(1, dtype=torch.bool, device=self.device)
-                ev = rollout(params, det, slice(P, P + 1), Z, episodes=1)
-                ev_novelty = self._batch_novelty(params, state, archive, archive_count)[0]
+            with span("eval"):
+                if fused is None:  # the unfused eval episode, run alone
+                    params = model.set_flat(state.flat[None])
+                    det = torch.ones(1, dtype=torch.bool, device=self.device)
+                    ev = rollout(params, det, slice(P, P + 1), Z, episodes=1)
+                    ev_novelty = self._batch_novelty(params, state, archive, archive_count)[0]
+                else:
+                    ev, ev_novelty = fused
+                ema = lambda old, new: old * 0.9 + new * 0.1
+                policy_reward = ema(policy_reward, ev.reward[-1, 0])
+                policy_entropy = ema(policy_entropy, ev.entropy[-1, 0])
+                policy_novelty = ema(policy_novelty, ev_novelty)
+                eval_steps = ev.steps[-1, 0]
+                eval_stats = welford.WelfordState(*(x[-1, 0] for x in ev.obs_stats))
+                # 5. zeta refresh from the eval episode's visited states
+                if Z > 0:
+                    zeta = self._update_zeta(state.zeta, ev.states[0], eval_steps,
+                                             draws.zeta_perm)
+                # 6. omega steps on eval epochs with the mean noisy reward
+                omega = omega_step(state.omega, noisy_mean, self.omega_hp)
+
+        with span("update"):
+            # 7. fitness -> combine -> DSGD
+            # (the rank's members' share of it, summed over the ranks)
+            fitness = fd_combine.fitness_from_rewards(rewards, policy_reward, draws.tie_signs)
+            mine = fitness[lo:hi]
+            if C < hi - lo:
+                gradient = fd_combine.combine_gradient_chunked(
+                    self.noise, state.epoch, self.members, mine, cfg.noise_std, C)
+            elif cfg.noise_backend == "pallas":
+                coefs = mine / (cfg.noise_std * torch.clamp_min(noise_ssq, 1e-30))
+                gradient = combine(coefs, cfg.random_seed, state.epoch, model.num_params,
+                                   antithetic=cfg.antithetic, first=lo)
             else:
-                ev, ev_novelty = fused
-            ema = lambda old, new: old * 0.9 + new * 0.1
-            policy_reward = ema(policy_reward, ev.reward[-1, 0])
-            policy_entropy = ema(policy_entropy, ev.entropy[-1, 0])
-            policy_novelty = ema(policy_novelty, ev_novelty)
-            eval_steps = ev.steps[-1, 0]
-            eval_stats = welford.WelfordState(*(x[-1, 0] for x in ev.obs_stats))
-            # 5. zeta refresh from the eval episode's visited states
-            if Z > 0:
-                zeta = self._update_zeta(state.zeta, ev.states[0], eval_steps, draws.zeta_perm)
-            # 6. omega steps on eval epochs with the mean noisy reward
-            omega = omega_step(state.omega, noisy_mean, self.omega_hp)
+                gradient = fd_combine.combine_gradient(eps, mine, cfg.noise_std)
+            del eps
+            gradient = collectives.all_sum(self.mesh, gradient)
+            if cfg.optimizer == "dsgd":
+                lr_scale = lr_scale_from_omega(
+                    omega.omega, cfg.omega.min_value, cfg.omega.max_value,
+                    cfg.dsgd_min_scale, cfg.dsgd_max_scale,
+                )
+                new_flat = dsgd_update(state.flat, -gradient, lr_scale, self.dsgd_hp)
+            else:  # plain SGD on grad = -g (net ascent), reference opt_fn alternative
+                new_flat = state.flat + cfg.learning_rate * gradient
+            update_size = torch.sqrt(torch.sum((new_flat - state.flat) ** 2))
 
-        # 7. fitness -> combine -> DSGD
-        # (the rank's members' share of it, summed over the ranks)
-        fitness = fd_combine.fitness_from_rewards(rewards, policy_reward, draws.tie_signs)
-        mine = fitness[lo:hi]
-        if C < hi - lo:
-            gradient = fd_combine.combine_gradient_chunked(
-                self.noise, state.epoch, self.members, mine, cfg.noise_std, C)
-        elif cfg.noise_backend == "pallas":
-            coefs = mine / (cfg.noise_std * torch.clamp_min(noise_ssq, 1e-30))
-            gradient = combine(coefs, cfg.random_seed, state.epoch, model.num_params,
-                               antithetic=cfg.antithetic, first=lo)
-        else:
-            gradient = fd_combine.combine_gradient(eps, mine, cfg.noise_std)
-        del eps
-        gradient = collectives.all_sum(self.mesh, gradient)
-        if cfg.optimizer == "dsgd":
-            lr_scale = lr_scale_from_omega(
-                omega.omega, cfg.omega.min_value, cfg.omega.max_value,
-                cfg.dsgd_min_scale, cfg.dsgd_max_scale,
-            )
-            new_flat = dsgd_update(state.flat, -gradient, lr_scale, self.dsgd_hp)
-        else:  # plain SGD on grad = -g (net ascent), reference opt_fn alternative
-            new_flat = state.flat + cfg.learning_rate * gradient
-        update_size = torch.sqrt(torch.sum((new_flat - state.flat) ** 2))
+            # VBN: the BatchNorm statistics refreshed at the updated weights;
+            # a recurrent model reads the buffer's arrival rewards through its LSTM
+            bn_state = state.bn_state
+            if self._vbn_buffer is not None:
+                vbn_obs, vbn_rewards = self._vbn_buffer
+                bn_state = model.vbn(model.set_flat(new_flat[None]), state.bn_state, vbn_obs,
+                                     rewards=vbn_rewards)
 
-        # VBN: the BatchNorm statistics refreshed at the updated weights;
-        # a recurrent model reads the buffer's arrival rewards through its LSTM
-        bn_state = state.bn_state
-        if self._vbn_buffer is not None:
-            vbn_obs, vbn_rewards = self._vbn_buffer
-            bn_state = model.vbn(model.set_flat(new_flat[None]), state.bn_state, vbn_obs,
-                                 rewards=vbn_rewards)
-
-        # 8. merge sampled observation statistics from the population
-        obs_stats = state.obs_stats
-        if cfg.normalize_obs:
-            obs_stats = welford.merge(obs_stats, welford.merge_population(result.obs_stats))
-            obs_stats = welford.merge(obs_stats, eval_stats)
+            # 8. merge sampled observation statistics from the population
+            obs_stats = state.obs_stats
+            if cfg.normalize_obs:
+                obs_stats = welford.merge(obs_stats, welford.merge_population(result.obs_stats))
+                obs_stats = welford.merge(obs_stats, eval_stats)
 
         new_state = TrainState(
             flat=new_flat,
@@ -579,8 +603,9 @@ class VectorizedTrainer:
         """Min behavioral distance to the archive; 0 when the archive has <2
         entries, and then, like the reference's guard
         (strategy_handler.py:25-31), no strategy forward runs at all."""
-        return novelty_batch(self.model, pop_params, state.bn_state, state.zeta, archive,
-                             archive_count, self.distance_fn)
+        with span("novelty"):
+            return novelty_batch(self.model, pop_params, state.bn_state, state.zeta, archive,
+                                 archive_count, self.distance_fn)
 
     def _update_zeta(self, zeta, states, steps, perm):
         """Replace a random permutation of zeta slots with the first visited

@@ -37,7 +37,11 @@ limit.  The cells take their ``bench.py`` ``TrainConfig``s (the default
 - ``swimmer_host``: the sequential topology's ``Swimmer-v0`` as
   ``chip_smoke.py``'s host paths build it (the factory's model and env,
   batch 4, zeta 16, archive 16, seed 123; ``swimmer_step_kernel`` at N = 1,
-  once a host env step), timed as ``train(epochs)`` after one warm epoch.
+  once a host env step), timed as ``train(epochs)`` after one warm epoch;
+- ``impala_procgen`` and ``impala_procgen_bf16``: the shapes of the
+  benchmark's cells (16/32/32, hidden 256, f32 or bf16 on 3x64x64 frames,
+  P = 1536, T = 500, zeta 8, archive 4, lr 0.01, sigma 0.02), as
+  ``tools/torch_epoch_profile.py`` builds them.
 
 Prints each turn's epoch time per cell, then per cell each round's
 change / parent ratio (the two changes' mean over the two parents') and the
@@ -57,7 +61,7 @@ import time
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CELLS = ("mlp_trap", "mlp_trap_e8", "impala_procmaze", "impala_prod_bf16",
          "impala_prod_bf16_c16", "gaussian_swimmer", "swimmer_host", "impala_128px",
-         "gaussian_swimmer_15")
+         "gaussian_swimmer_15", "impala_procgen", "impala_procgen_bf16")
 
 
 def make_trainer(cell: str):
@@ -98,6 +102,13 @@ def make_trainer(cell: str):
                           episode_length=100, random_seed=0, normalize_obs=True)
         return VectorizedTrainer(GaussianMLP(16, 6), SwimmerEnv(max_steps=100),
                                  distances.gaussian_wasserstein_from_strategies, cfg)
+    if cell.startswith("impala_procgen"):
+        env = ProcMazeEnv(grid=8, scale=8, max_steps=500, num_levels=200)
+        cfg = TrainConfig(batch_size=1536, zeta_size=8, max_strategy_history_size=4,
+                          episode_length=500, learning_rate=0.01, noise_std=0.02, random_seed=0)
+        dtype = torch.bfloat16 if cell == "impala_procgen_bf16" else None
+        return VectorizedTrainer(ImpalaPolicy(env.obs_shape, 5, conv_impl="fused_feat",
+                                              compute_dtype=dtype), env, tvd, cfg)
     if cell.startswith("mlp_trap"):
         cfg = TrainConfig(batch_size=2048, learning_rate=0.05, noise_std=0.05, zeta_size=64,
                           max_strategy_history_size=16, random_seed=0, scan_unroll=8,
