@@ -83,7 +83,10 @@ class PolicyModel(abc.ABC):
     def prepare(self, params: Params, state: State) -> Params:
         """``params`` with whatever a forward derives from the weights alone
         computed once, for a run of forwards on the same population (a
-        rollout); forwards take either.  Identity unless a model overrides it."""
+        rollout); forwards take either and give the same values bit for bit.
+        Identity unless a model overrides it: ``ImpalaPolicy`` keeps its fused
+        kernels' weight layouts and, with bf16 operands, its fc and unfused
+        conv weights rounded to bf16 and back."""
         return params
 
     def act_step(self, params: Params, state: State, obs: torch.Tensor,

@@ -34,7 +34,10 @@ the same shape gates (decided once here, from the frame shape):
 
 The kernels' weight layouts (the tap-order reorder and the BN fold, per
 member) depend on the weights alone; :meth:`ImpalaPolicy.prepare` computes
-them once for a rollout instead of once per step.
+them once for a rollout instead of once per step.  With bf16 operands it
+also keeps the weights of the fc layer and of every conv off the kernels
+rounded to bf16 and back (``layers.ROUNDED``), so a step rounds only its
+activations; the values are the same bit for bit.
 """
 
 from __future__ import annotations
@@ -59,14 +62,6 @@ CONV_IMPLS = ("lax", "patches", "nhwc", "split", "fused", "fused_feat")
 _PREPARED = "_fused"  # the key under which prepare() keeps the kernels' layouts
 
 
-def _rounded(compute_dtype, *xs):
-    """``xs`` rounded to ``compute_dtype`` and back to float32 (unchanged
-    for None): the operands of a product taken in float32."""
-    if compute_dtype is None:
-        return xs
-    return tuple(x.to(compute_dtype).to(torch.float32) for x in xs)
-
-
 def conv3x3_patches(p, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     """3x3 "same" conv as im2col + one batched product per member.
 
@@ -77,13 +72,13 @@ def conv3x3_patches(p, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     ``w.reshape(co, 9ci)`` fits.  (``F.unfold`` computes the same patches,
     but on the card it launches one im2col kernel per image: 129 a conv at
     the flagship's rollout shapes.)"""
-    w = p["w"]
+    w = layers.weight_operand(p, compute_dtype)
     M, co, ci = w.shape[:3]
     N, H, W = x.shape[1], x.shape[3], x.shape[4]
     win = F.pad(x, (1, 1, 1, 1)).unfold(3, 3, 1).unfold(4, 3, 1)      # [M, N, ci, H, W, 3, 3]
     pat = win.permute(0, 2, 5, 6, 1, 3, 4).reshape(M, 9 * ci, N * H * W)
-    wk, pat = _rounded(compute_dtype, w.reshape(M, co, 9 * ci), pat)
-    y = torch.bmm(wk, pat).reshape(M, co, N, H, W).transpose(1, 2)
+    pat = layers.rounded(pat, compute_dtype)
+    y = torch.bmm(w.reshape(M, co, 9 * ci), pat).reshape(M, co, N, H, W).transpose(1, 2)
     return y + p["b"][:, None, :, None, None]
 
 
@@ -91,10 +86,10 @@ def conv3x3(p, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     """3x3 "same" conv as one grouped convolution: the members' channels
     side by side, a group a member.  x [M, N, ci, H, W], w [M, co, ci, 3,
     3], b [M, co] -> [M, N, co, H, W]."""
-    w = p["w"]
+    w = layers.weight_operand(p, compute_dtype)
     M, co, ci = w.shape[:3]
     N, H, W = x.shape[1], x.shape[3], x.shape[4]
-    x, w = _rounded(compute_dtype, x, w)
+    x = layers.rounded(x, compute_dtype)
     xg = x.transpose(0, 1).reshape(N, M * ci, H, W)
     y = F.conv2d(xg, w.reshape(M * co, ci, 3, 3), padding=1, groups=M)
     y = y.reshape(N, M, co, H, W).transpose(0, 1)
@@ -107,13 +102,13 @@ def conv3x3_split(p, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     per member.  The vertical-only patches [M, 3ci, N*H*W] are ordered (ci,
     dy); the weights [M, 3ci, 3co] (ci, dy) x (dx, co); the product's three
     co-wide blocks, shifted by dx - 1 columns, sum to the conv."""
-    w = p["w"]
+    w = layers.weight_operand(p, compute_dtype)
     M, co, ci = w.shape[:3]
     N, H, W = x.shape[1], x.shape[3], x.shape[4]
     win = F.pad(x, (0, 0, 1, 1)).unfold(3, 3, 1)                      # [M, N, ci, H, W, 3]
     pat3 = win.permute(0, 2, 5, 1, 3, 4).reshape(M, 3 * ci, N * H * W)
+    pat3 = layers.rounded(pat3, compute_dtype)
     w2 = w.permute(0, 2, 3, 4, 1).reshape(M, 3 * ci, 3 * co)
-    pat3, w2 = _rounded(compute_dtype, pat3, w2)
     y3 = torch.bmm(w2.transpose(1, 2), pat3).reshape(M, 3 * co, N, H, W)
     y3p = F.pad(y3, (1, 1))
     y = (y3p[:, 0 * co:1 * co, ..., 0:W] + y3p[:, 1 * co:2 * co, ..., 1:W + 1]
@@ -126,14 +121,12 @@ def conv3x3_nhwc(p, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     product per member): x [M, N, H, W, ci] -> [M, N, H, W, co].  The
     patches' channels are ordered (ci, kh, kw), so the OIHW weights'
     ``reshape(co, 9ci)`` fits."""
-    w = p["w"]
+    w = layers.weight_operand(p, compute_dtype)
     M, co, ci = w.shape[:3]
     N, H, W = x.shape[1], x.shape[2], x.shape[3]
     win = F.pad(x, (0, 0, 1, 1, 1, 1)).unfold(2, 3, 1).unfold(3, 3, 1)  # [M, N, H, W, ci, 3, 3]
-    pat = win.reshape(M, N * H * W, 9 * ci)
-    wk = w.reshape(M, co, 9 * ci)
-    pat, wk = _rounded(compute_dtype, pat, wk)
-    y = torch.bmm(pat, wk.transpose(1, 2)).reshape(M, N, H, W, co)
+    pat = layers.rounded(win.reshape(M, N * H * W, 9 * ci), compute_dtype)
+    y = torch.bmm(pat, w.reshape(M, co, 9 * ci).transpose(1, 2)).reshape(M, N, H, W, co)
     return y + p["b"][:, None, None, None, :]
 
 
@@ -209,6 +202,14 @@ class ImpalaPolicy(PolicyModel):
             self._stages.append(_Stage(feat, res))
             in_ch = ch
         self.flat_features = self.channels[-1] * hh * ww
+        # the layers whose weights a bf16 prepare() rounds once: the convs off the kernels, fc
+        self._rounded_layers = []
+        for k, stage in enumerate(self._stages):
+            if not stage.feat_fused:
+                self._rounded_layers.append(f"feat{k}_conv")
+            if not stage.res_fused:
+                self._rounded_layers += [f"res{r}_{k}_conv{j}" for r in (1, 2) for j in (1, 2)]
+        self._rounded_layers.append("fc")
 
         f32 = np.float32
         A = self.output_shape
@@ -309,7 +310,24 @@ class ImpalaPolicy(PolicyModel):
 
     def prepare(self, params: Params, state: State) -> Params:
         """``params`` plus the fused kernels' weight layouts (per member:
-        the tap-order reorder and the BN fold), computed once."""
+        the tap-order reorder and the BN fold), computed once.  With bf16
+        operands, also the weight of ``fc`` and of each conv that the stage
+        gates send off the kernels rounded to bf16 and back, under the
+        layer's ``layers.ROUNDED``, so that the forwards round only their
+        activations.  The fc's float32 image, M x hidden x flat_features,
+        is the largest: 3.2 GB for 1,537 members of the 16/32/32,
+        hidden-256 net on 64 x 64 frames.  With float32 operands nothing
+        more."""
+        prepared = self._fuse(params, state)
+        cd = self.compute_dtype
+        if cd is not None:
+            for name in self._rounded_layers:
+                prepared[name] = dict(params[name], **{
+                    layers.ROUNDED: layers.rounded(params[name]["w"], cd)})
+        return prepared
+
+    def _fuse(self, params: Params, state: State) -> Params:
+        """``params`` plus the fused kernels' weight layouts alone."""
         fused = {}
         for k, stage in enumerate(self._stages):
             if stage.feat_fused:
@@ -331,8 +349,8 @@ class ImpalaPolicy(PolicyModel):
     def _blocks(self, params, state, frames: torch.Tensor) -> torch.Tensor:
         """frames [M, N, C, H, W] (raw pixels) -> the last stage's output
         [M, N, C', H', W']."""
-        if _PREPARED not in params:
-            params = self.prepare(params, state)
+        if _PREPARED not in params:  # no fc image for a forward that rounds at the call
+            params = self._fuse(params, state)
         fused = params[_PREPARED]
         cd = self.compute_dtype
         x = frames.to(torch.float32) / 255.0
@@ -377,13 +395,17 @@ class ImpalaPolicy(PolicyModel):
         return x.permute(0, 1, 4, 2, 3)
 
     def _fc(self, params, state, x: torch.Tensor) -> torch.Tensor:
-        """The torso's end (the span ``fc``): ReLU, flatten, BN, fc, ReLU;
+        """The torso's end (the span ``fc``, counting as ``rounded`` the
+        members whose fc weights the call rounds itself: none in float32 or
+        where :meth:`prepare` kept the image): ReLU, flatten, BN, fc, ReLU;
         x [M, N, C, H, W]."""
-        with span("fc", after="torso"):
+        p, cd = params["fc"], self.compute_dtype
+        rounds = cd is not None and layers.ROUNDED not in p
+        with span("fc", after="torso", rounded=x.shape[0] if rounds else 0):
             x = torch.relu(x)
             x = x.reshape(x.shape[0], x.shape[1], -1)
             x = layers.batchnorm_eval(params["fc_bn"], state["fc_bn"], x)
-            x = layers.linear(params["fc"], x, compute_dtype=self.compute_dtype)
+            x = layers.linear(p, x, compute_dtype=cd)
             return torch.relu(x)
 
     def _head(self, params, state, core_output: torch.Tensor) -> torch.Tensor:

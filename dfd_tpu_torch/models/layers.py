@@ -20,16 +20,37 @@ BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
 
 
+ROUNDED = "w_rounded"  # a layer's weight rounded to its compute dtype and back, made once
+
+
+def rounded(v: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """``v`` rounded to ``compute_dtype`` and back to float32 (``v`` itself
+    for None): the operand of a product taken in float32."""
+    return v if compute_dtype is None else v.to(compute_dtype).to(torch.float32)
+
+
+def weight_operand(p: Dict[str, torch.Tensor], compute_dtype) -> torch.Tensor:
+    """The layer's weight as its product's operand: ``p["w"]`` for None;
+    else the image ``p[ROUNDED]`` where the layer carries one (a model's
+    ``prepare`` rounds it once for a run of forwards), or ``p["w"]``
+    rounded now.  The two are equal bit for bit."""
+    if compute_dtype is None:
+        return p["w"]
+    w = p.get(ROUNDED)
+    return rounded(p["w"], compute_dtype) if w is None else w
+
+
 def linear(p: Dict[str, torch.Tensor], x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     """x @ w.T + b per member: x [M, N, d_in], w [M, d_out, d_in], b [M, d_out].
 
     ``compute_dtype=torch.bfloat16`` rounds both operands to bf16 and takes
     the product in float32, as the JAX package's bf16 dot with
     ``preferred_element_type=float32`` does (a bf16 product would also round
-    its output); the bias is added after."""
+    its output); the bias is added after.  The weight's rounding is the
+    image ``p[ROUNDED]`` where ``p`` carries one (:func:`weight_operand`)."""
     if compute_dtype is not None:
-        r = lambda v: v.to(compute_dtype).to(torch.float32)
-        return torch.bmm(r(x), r(p["w"]).transpose(1, 2)) + p["b"].unsqueeze(1)
+        w = weight_operand(p, compute_dtype)
+        return torch.bmm(rounded(x, compute_dtype), w.transpose(1, 2)) + p["b"].unsqueeze(1)
     return torch.baddbmm(p["b"].unsqueeze(1), x, p["w"].transpose(1, 2))
 
 

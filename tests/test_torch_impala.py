@@ -26,6 +26,7 @@ from dfd_tpu.models import layers as jlayers
 from dfd_tpu.ops import fused_resblock as jfr
 from dfd_tpu_torch.convert import params_from_numpy
 from dfd_tpu_torch.models import ImpalaPolicy
+from dfd_tpu_torch.models import impala as ipm
 from dfd_tpu_torch.models import layers as players
 from dfd_tpu_torch.models.atari import batchnorm2d_eval
 from dfd_tpu_torch.ops import fused_resblock as pfr
@@ -221,12 +222,17 @@ def test_forwards_match_jax(impl):
     np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("impl", ["lax", "patches", "nhwc", "split", "fused_feat"])
-def test_act_step_reproduces_jax(impl):
+ACT_IMPLS = ("lax", "patches", "nhwc", "split", "fused_feat")
+
+
+@pytest.mark.parametrize("impl, compute_dtype", [pytest.param(i, None, id=i) for i in ACT_IMPLS]
+                         + [pytest.param(i, torch.bfloat16, id=f"{i}-bf16") for i in ACT_IMPLS])
+def test_act_step_reproduces_jax(impl, compute_dtype):
     """Two chained steps with JAX's Gumbel draws: actions exact, entropy and
-    carry to float32 rounding; prepare() changes nothing but the speed.  The
-    port steps E episodes a member: here E = 1."""
-    jm, pm, bn_np, bn, flats, jparams, pparams = _pair(impl)
+    carry to float32 rounding (float32 operands); prepare() changes nothing
+    but the speed, bit for bit, with float32 or bf16 operands.  The port
+    steps E episodes a member: here E = 1."""
+    jm, pm, bn_np, bn, flats, jparams, pparams = _pair(impl, compute_dtype)
     M = 3
     rng = np.random.RandomState(8)
     keys = jax.vmap(lambda i: jax.random.fold_in(jax.random.key(2), i))(jnp.arange(M))
@@ -238,16 +244,17 @@ def test_act_step_reproduces_jax(impl):
     prev_reward = np.zeros(M, np.float32)
     for step in range(2):
         obs = (rng.rand(M, *FRAME) * 255).astype(np.float32)
-        want_a, want_e, jcarry = jax.vmap(
-            lambda p, o, r, c, k, d: jm.act_step(p, bn_np, o, r, False, c, k, d)
-        )(jparams, obs, prev_reward, jcarry, keys, det)
         got_a, got_e, pcarry = pm.act_step(prepared, bn, T(obs)[:, None], T(prev_reward)[:, None],
                                            torch.zeros((M, 1), dtype=torch.bool), pcarry, T(det),
                                            T(gumbel)[:, None])
-        np.testing.assert_array_equal(_np(got_a)[:, 0], np.asarray(want_a))
-        np.testing.assert_allclose(_np(got_e)[:, 0], np.asarray(want_e), rtol=1e-5, atol=1e-6)
-        for a, b in zip(pcarry, jcarry):
-            np.testing.assert_allclose(_np(a)[:, 0], np.asarray(b), rtol=1e-5, atol=1e-6)
+        if compute_dtype is None:  # bf16 is held to JAX by the bf16 tests below
+            want_a, want_e, jcarry = jax.vmap(
+                lambda p, o, r, c, k, d: jm.act_step(p, bn_np, o, r, False, c, k, d)
+            )(jparams, obs, prev_reward, jcarry, keys, det)
+            np.testing.assert_array_equal(_np(got_a)[:, 0], np.asarray(want_a))
+            np.testing.assert_allclose(_np(got_e)[:, 0], np.asarray(want_e), rtol=1e-5, atol=1e-6)
+            for a, b in zip(pcarry, jcarry):
+                np.testing.assert_allclose(_np(a)[:, 0], np.asarray(b), rtol=1e-5, atol=1e-6)
         prev_reward = np.array([3.0, -0.5, 0.25], np.float32)  # clipped to [-1, 1]
     carry0 = tuple(c.reshape(M, 2, -1) for c in pm.initial_carry(2 * M))
     two = lambda v: torch.stack([v, v], dim=1)  # E = 2 episodes a member
@@ -256,8 +263,43 @@ def test_act_step_reproduces_jax(impl):
                              two(T(gumbel)))
     again = pm.act_step(prepared, bn, two(T(obs)), two(T(prev_reward)),
                         torch.zeros((M, 2), dtype=torch.bool), carry0, T(det), two(T(gumbel)))
-    for a, b in zip(unprepared[:2], again[:2]):
+    for a, b in zip(unprepared[:2] + unprepared[2], again[:2] + again[2]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("impl", ["patches", "nhwc", "fused_feat"])
+def test_bf16_prepare_keeps_the_rounded_weights_bit_for_bit(impl):
+    """A bf16 prepare() keeps fc's weight and those of the convs off the
+    kernels as ``w.to(bfloat16).to(float32)``; the fused stages' convs get
+    none, and the source weights are left as they were."""
+    _, pm, _, bn, _, _, pparams = _pair(impl, torch.bfloat16)
+    prepared = pm.prepare(pparams, bn)
+    off = {f"feat{k}_conv" for k, s in enumerate(pm._stages) if not s.feat_fused}
+    off |= {f"res{r}_{k}_conv{j}" for k, s in enumerate(pm._stages) if not s.res_fused
+            for r in (1, 2) for j in (1, 2)}
+    assert set(pm._rounded_layers) == off | {"fc"}
+    assert impl != "fused_feat" or len(off) < 15  # FRAME fuses some stages
+    for name, p in prepared.items():
+        if not isinstance(p, dict) or name == ipm._PREPARED:
+            continue
+        assert players.ROUNDED not in pparams[name]
+        if name not in off | {"fc"}:
+            assert players.ROUNDED not in p, name
+            continue
+        image, w = p[players.ROUNDED], pparams[name]["w"]
+        assert image.dtype == torch.float32 and image.shape == w.shape
+        assert torch.equal(image, w.to(torch.bfloat16).to(torch.float32)), name
+        assert not torch.equal(image, w), name
+        assert p["w"] is w and p["b"] is pparams[name]["b"]
+
+
+@pytest.mark.parametrize("impl", ["patches", "nhwc", "fused_feat"])
+def test_float32_prepare_adds_no_rounded_weights(impl):
+    _, pm, _, bn, _, _, pparams = _pair(impl)
+    prepared = pm.prepare(pparams, bn)
+    assert set(prepared) == set(pparams) | {ipm._PREPARED}
+    for name in pparams:
+        assert prepared[name] is pparams[name]
 
 
 def test_forward_without_lstm_matches_jax():

@@ -38,12 +38,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def _trainer(device="cpu", conv_impl="fused_feat"):
+def _trainer(device="cpu", conv_impl="fused_feat", compute_dtype=None):
     env = ProcMazeEnv(grid=4, scale=8, max_steps=T, num_levels=20, device=device)
     cfg = TrainConfig(batch_size=P, zeta_size=Z, max_strategy_history_size=H, random_seed=1,
                       episode_length=T)
     model = ImpalaPolicy(env.obs_shape, 5, channels=(8, 8, 8), hidden=16, conv_impl=conv_impl,
-                         device=device)
+                         compute_dtype=compute_dtype, device=device)
     return VectorizedTrainer(model, env, distances.categorical_tvd, cfg, device=device)
 
 
@@ -80,6 +80,32 @@ def test_the_torso_counts_every_frame_and_member_of_the_epoch(conv_impl):
         assert row["_stage/torso.frames"] == frames
         assert row["_stage/torso.members"] == T * (P + 1) + novelty * (P + 1) + archive_calls
     assert novelty and n0 == H
+
+
+@pytest.mark.parametrize("compute_dtype", [None, torch.bfloat16], ids=["f32", "bf16"])
+def test_the_fc_span_counts_the_members_whose_weights_it_rounds(compute_dtype):
+    """``fc.rounded``: M on an unprepared bf16 call, 0 on a prepared one
+    (the image prepare() keeps) and 0 in float32.  In an epoch the rollout
+    steps read the image, so with bf16 only the novelty and archive calls'
+    members count."""
+    model = _trainer(compute_dtype=compute_dtype).model
+    params, state = model.init(0)
+    M = 3
+    pop = model.set_flat(model.get_flat(params)[None].repeat(M, 1))
+    frames = torch.rand(2, *model.input_shape) * 255
+    timer = StageTimer()
+    for p, rounds in ((pop, M), (model.prepare(pop, state), 0)):
+        with timer.active():
+            model.apply(p, state, frames)
+        out = timer.report()
+        assert out["_stage/fc.rounded"] == (0 if compute_dtype is None else rounds)
+
+    tr = _trainer(compute_dtype=compute_dtype)
+    for row in _epochs(tr, 3):
+        rollout = T * (P + 1)
+        off_rollout = row["_stage/torso.members"] - rollout
+        assert off_rollout > 0
+        assert row["_stage/fc.rounded"] == (0 if compute_dtype is None else off_rollout)
 
 
 def test_children_take_no_more_host_time_than_their_parents():
